@@ -1,0 +1,209 @@
+"""WLSH query engine on one device (the paper's Search, dense form).
+
+One table group's state is its point codes ``(n, beta)`` and vectors
+``(n, d)``, resident on the device.  A query step answers a batch of
+queries, each under its own weight vector, collision threshold ``mu``,
+radius base ``r_min``, table count ``beta_q`` and level cap ``levels_q``,
+in two passes over every row:
+
+  pass 1  codes + vectors -> first-frequent level, distance, good level
+          -> per-level frequent/good histograms -> the paper's stop
+          conditions (k found / budget) -> stop level per query
+  pass 2  codes + vectors -> distances masked to rows frequent at the stop
+          level -> top-k -> exact float32 re-rank of the k survivors
+
+With ``use_kernels="on"`` each pass is one call of
+``ops.fused_query_block`` over the whole state: one CUDA kernel launch on
+the card (kernels/csrc/fused_query.cu), the plain torch version on the CPU.
+``use_kernels="off"`` keeps the unfused stage-by-stage scan as the parity
+oracle.  Both bin dead rows
+differently (excluded vs parked at level L+1), but the stop rule reads
+only bins 0..L, so stop, n_checked, ids and distances agree.
+
+Top-k order: the reference's running ``lax.top_k`` breaks distance ties
+toward the lower row.  ``torch.topk`` promises no tie order on CUDA, so
+the step selects on a unique int64 key ``(float bits of dist) << 32 | row``;
+distances are >= 0 or +inf, so their bit patterns order like the floats.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+import torch
+
+from ..kernels import ops, ref
+from ..kernels import platform as kplatform
+from .config import IndexConfig
+
+__all__ = ["QueryState", "QueryStepCache", "query_step"]
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryState:
+    """Device-resident table-group state.
+
+    ``codes``/``points`` are materialized at the config's row capacity
+    (``IndexConfig.n``); ``n_valid`` counts the live rows, and rows at or
+    beyond it are masked out of both passes.
+    """
+
+    codes: torch.Tensor  # (n, beta) int32
+    points: torch.Tensor  # (n, d) float32
+    proj: torch.Tensor  # (d, beta) f32 folded projection
+    b_int: torch.Tensor  # (beta,) int32
+    b_frac: torch.Tensor  # (beta,) f32
+    width: torch.Tensor  # () f32
+    n_valid: int  # live rows in [0, n]
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes held on the device by this state's tensors."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.codes, self.points, self.proj, self.b_int, self.b_frac,
+            self.width))
+
+
+def _unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q, cfg, stop):
+    """Stage-by-stage oracle: (hist_f, hist_g) (Q, L+2), or (Q, n) scores.
+
+    Dead rows are parked at level L+1 (the fused passes exclude them).
+    """
+    c, L = cfg.c, cfg.n_levels
+    lf = ops.freq_level(state.codes, codes_q, mu, c=c, n_levels=L,
+                        beta_q=beta_q)
+    row_ok = torch.arange(lf.shape[1], device=lf.device) < state.n_valid
+    lf = torch.where(row_ok[None, :], lf, torch.full_like(lf, L + 1))
+    dist = ref.per_query_dist(qf, wf, state.points.float(), cfg.p)
+    if stop is None:
+        return (ref.level_hist(lf, L + 2),
+                ref.level_hist(ref.good_level(lf, dist, r_min, c), L + 2))
+    return torch.where(lf <= stop[:, None], dist,
+                       torch.full_like(dist, math.inf))
+
+
+def _topk_rows(scores, k: int):
+    """(vals, ids) of the k smallest scores per row; ties -> lower row.
+
+    Missing slots (fewer than k finite scores) are ``+inf`` / ``-1``.
+    """
+    q, n = scores.shape
+    if n < k:
+        scores = torch.cat([scores, torch.full((q, k - n), math.inf,
+                                               device=scores.device)], 1)
+        n = k
+    bits = scores.contiguous().view(torch.int32).to(torch.int64)
+    key = (bits << 32) | torch.arange(n, device=scores.device)[None, :]
+    pos = torch.topk(key, k, dim=1, largest=False, sorted=True).indices
+    vals = torch.gather(scores, 1, pos)
+    ids = torch.where(torch.isinf(vals), -1, pos).to(torch.int32)
+    return vals, ids
+
+
+def query_step(state: QueryState, queries, codes_q, q_weight, mu, r_min,
+               beta_q, levels_q, *, cfg: IndexConfig):
+    """Answer one query batch on ``state``'s device.
+
+    Inputs are tensors on the state's device: queries/q_weight (Q, d)
+    f32, codes_q (Q, beta) int32, mu/beta_q/levels_q (Q,) int32, r_min
+    (Q,) f32.  Returns ``(dists (Q, k) f32, ids (Q, k) int32, stop (Q,)
+    int32, n_checked (Q,) int32)``.
+    """
+    if cfg.n_shards != 1:
+        raise NotImplementedError("row sharding across devices is not "
+                                  "ported yet; n_shards must be 1")
+    if cfg.vec_dtype != "float32":
+        raise NotImplementedError(f"vec_dtype {cfg.vec_dtype!r}: only "
+                                  f"float32 vectors are supported so far")
+    c, L, k = cfg.c, cfg.n_levels, cfg.k
+    dev = state.device
+    n = state.codes.shape[0]
+    qf = queries.float()
+    wf = q_weight.float()
+    path = kplatform.resolve(cfg.use_kernels, dev)
+    kw = dict(boff=0, n_valid=state.n_valid, c=c, n_levels=L, p=cfg.p)
+
+    # ---- pass 1: level histograms -> stop level ---------------------------
+    if path.fused:
+        hist_f, hist_g = ops.fused_query_block(
+            state.codes, state.points, codes_q, qf, wf, mu, r_min, beta_q,
+            **kw)
+    else:
+        hist_f, hist_g = _unfused_pass(state, codes_q, qf, wf, mu, r_min,
+                                       beta_q, cfg, None)
+    nf_cum = torch.cumsum(hist_f[:, : L + 1], dim=1)
+    ng_cum = torch.cumsum(hist_g[:, : L + 1], dim=1)
+    # Stop conditions evaluated only up to each query's own level cap: the
+    # bound L may be padded above the member's n_levels (bucketed shape
+    # sharing), and a query that exhausts its levels stops *at* them.
+    levels = torch.arange(L + 1, device=dev)
+    cond = ((ng_cum >= k) | (nf_cum >= cfg.budget)) & (
+        levels[None, :] <= levels_q[:, None])
+    first = torch.where(cond, levels[None, :], L + 1).amin(dim=1)
+    stop = torch.where(first <= L, first, levels_q.long()).to(torch.int32)
+
+    # ---- pass 2: masked distances -> top-k --------------------------------
+    if path.fused:
+        scores = ops.fused_query_block(
+            state.codes, state.points, codes_q, qf, wf, mu, r_min, beta_q,
+            stop=stop, **kw)
+    else:
+        scores = _unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q,
+                               cfg, stop)
+    vals, idx = _topk_rows(scores, k)
+
+    # ---- exact re-rank of the k winners ------------------------------------
+    # The p=2 scan scores with the norms expansion, whose f32 cancellation
+    # error swamps genuinely small distances; recompute the survivors'
+    # distances from the coordinate differences and re-sort (stable, so
+    # ties keep the lower row first).
+    rows = idx.clamp(0, n - 1).long()
+    cand = state.points[rows].float()  # (Q, k, d)
+    diff = torch.abs((qf[:, None, :] - cand) * wf[:, None, :])
+    if abs(cfg.p - 2.0) < 1e-9:
+        exact = torch.sqrt(torch.sum(diff * diff, dim=-1))
+    elif abs(cfg.p - 1.0) < 1e-9:
+        exact = torch.sum(diff, dim=-1)
+    else:
+        exact = torch.sum(diff**cfg.p, dim=-1) ** (1.0 / cfg.p)
+    vals = torch.where(torch.isfinite(vals), exact, vals)
+    order = torch.sort(vals, dim=1, stable=True).indices
+    vals = torch.gather(vals, 1, order)
+    idx = torch.gather(idx, 1, order)
+
+    n_checked = torch.clamp_max(
+        torch.gather(nf_cum, 1, stop[:, None].long())[:, 0], cfg.budget
+    ).to(torch.int32)
+    return vals, idx, stop, n_checked
+
+
+class QueryStepCache:
+    """Query-step reuse across table groups.
+
+    Keyed by (device, cfg): ``IndexConfig`` is a frozen eq dataclass, so
+    groups whose shapes quantize to the same buckets (``pad_beta`` /
+    ``pad_levels``) share one step.  ``n_compiled`` counts distinct
+    (device, config) steps, as the JAX package counts its compiled steps.
+    """
+
+    def __init__(self):
+        self._steps: dict = {}
+        self.n_compiled = 0
+
+    def get(self, device, cfg: IndexConfig):
+        key = (torch.device(device), cfg)
+        step = self._steps.get(key)
+        if step is None:
+            step = functools.partial(query_step, cfg=cfg)
+            self._steps[key] = step
+            self.n_compiled += 1
+        return step
+
+    def __len__(self) -> int:
+        return len(self._steps)

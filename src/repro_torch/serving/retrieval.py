@@ -1,0 +1,115 @@
+"""Multi-group WLSH retrieval service, synchronous frontend.
+
+The host planner partitions the weight vector set S into table groups
+(Algorithm 1); every incoming query carries a ``weight_id`` naming its
+distance function, and is answered in *that* weight's group (Algorithm 2).
+All queries of a ``query`` call are present up front, so they are routed,
+coalesced into same-group batches of ``q_batch``, answered through
+``Batcher.run_batch`` and returned in submission order.  Query bucket codes
+are computed on the host in float64 against the exported family, so the
+answers are bit-exact with ``WLSHIndex.search_dense``'s candidate sets.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..core.serving_plan import ServingPlan
+from .batching import Batcher, GroupServeStats, ServiceConfig, coalesce, run_plans
+
+__all__ = [
+    "GroupServeStats",
+    "RetrievalResult",
+    "RetrievalService",
+    "ServiceConfig",
+]
+
+
+@dataclasses.dataclass
+class RetrievalResult:
+    """Per-query answers, in submission order."""
+
+    ids: np.ndarray  # (Q, k) int32, -1 = missing
+    dists: np.ndarray  # (Q, k) f32, +inf = missing
+    group_ids: np.ndarray  # (Q,) int32 serving group per query
+    stop_levels: np.ndarray  # (Q,) int32
+    n_checked: np.ndarray  # (Q,) int32
+
+
+class RetrievalService:
+    """Synchronous weight-routed frontend over the ``Batcher`` core.
+
+    Group states are built on ``cfg.device`` (default ``"cuda"``; pass
+    ``device="cpu"`` in the config for the plain torch path) lazily per
+    group; call ``warmup`` to front-load them.  Every state stays
+    resident.
+    """
+
+    def __init__(self, plan: ServingPlan, points: np.ndarray,
+                 cfg: ServiceConfig = ServiceConfig()):
+        self.batcher = Batcher(plan, points, cfg=cfg)
+
+    @property
+    def plan(self) -> ServingPlan:
+        """The ServingPlan this service answers under."""
+        return self.batcher.plan
+
+    @property
+    def cfg(self) -> ServiceConfig:
+        """Serving-side configuration (shared with the batching core)."""
+        return self.batcher.cfg
+
+    @property
+    def device(self):
+        """The torch device the group states live on."""
+        return self.batcher.device
+
+    @property
+    def step_cache(self):
+        """Query-step cache, shared across groups."""
+        return self.batcher.step_cache
+
+    @property
+    def resident_bytes(self) -> int:
+        """Device bytes held by the built group states."""
+        return self.batcher.resident_bytes
+
+    def group_config(self, gi: int):
+        """Padded IndexConfig for group ``gi`` (the step-cache key)."""
+        return self.batcher.group_config(gi)
+
+    def warmup(self, groups=None) -> None:
+        """Build states and steps ahead of traffic."""
+        self.batcher.warmup(groups)
+
+    def stats_summary(self) -> dict[int, dict]:
+        """Per-group summaries for groups that served at least one batch."""
+        return self.batcher.stats_summary()
+
+    def query(self, queries: np.ndarray, weight_ids) -> RetrievalResult:
+        """Answer a mixed batch of (query, weight_id) requests.
+
+        Queries are grouped by serving group, coalesced into q_batch-sized
+        sub-batches, and results are returned in submission order.
+        """
+        queries = np.atleast_2d(np.asarray(queries, np.float32))
+        weight_ids = np.atleast_1d(np.asarray(weight_ids, np.int64))
+        if len(weight_ids) != len(queries):
+            raise ValueError("queries and weight_ids length mismatch")
+        gids = self.batcher.route(weight_ids)
+        out_ids, out_d, out_stop, out_chk = run_plans(
+            coalesce(gids, self.cfg.q_batch),
+            queries,
+            weight_ids,
+            self.batcher.run_batch,
+            self.cfg.k,
+        )
+        return RetrievalResult(
+            ids=out_ids,
+            dists=out_d,
+            group_ids=gids,
+            stop_levels=out_stop,
+            n_checked=out_chk,
+        )

@@ -1,0 +1,184 @@
+"""The port's fused query passes (plain torch, on the CPU) vs the JAX package.
+
+The same seeded numpy inputs go through ``repro_torch.kernels.ops.
+fused_query_block`` (which, for CPU tensors, takes the plain torch version of
+each CUDA kernel) and through ``repro.kernels.ops.fused_query_block`` twice:
+the Pallas kernel body in interpret mode, and the ``use_pallas=False``
+composite.  Histograms and the +inf stop mask must be exact; finite scores
+agree to rtol 1e-5 (p != 2) or, for the p = 2 norms expansion, to
+atol = 1e-6 * sqrt(qw2 + onorm): the expansion's float32 cancellation makes
+the absolute error scale with the norms, not with the distance.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import fused_query, ops, platform, ref
+
+from _torch_inputs import assert_scores_close, make_pass_inputs
+
+_PS = [2.0, 1.0, 0.5]
+# (n, d, beta, Q, c, L): ragged against the Pallas block (bn=128) and the
+# CUDA kernel's 128-row blocks
+_SHAPES = [(200, 24, 40, 5, 3, 8), (97, 16, 24, 3, 2, 6)]
+
+
+def _port(args, stop, **kw):
+    cp, cq, pts, qs, qw, mu, beta_q, r_min = (torch.from_numpy(a)
+                                              for a in args)
+    st = None if stop is None else torch.from_numpy(stop)
+    out = ops.fused_query_block(cp, pts, cq, qs, qw, mu, r_min, beta_q,
+                                stop=st, **kw)
+    if stop is None:
+        return tuple(np.asarray(h) for h in out)
+    return np.asarray(out)
+
+
+def _jax(args, stop, route, **kw):
+    cp, cq, pts, qs, qw, mu, beta_q, r_min = args
+    flags = (dict(use_pallas="interpret", bn=128) if route == "interpret"
+             else dict(use_pallas=False))
+    out = jops.fused_query_block(cp, pts, cq, qs, qw, mu, r_min, beta_q,
+                                 stop=stop, **kw, **flags)
+    if stop is None:
+        return tuple(np.asarray(h) for h in out)
+    return np.asarray(out)
+
+
+def _inputs(shape, seed):
+    n, d, beta, q, c, L = shape
+    cp, cq, pts, qs, qw, mu, beta_q, r_min, stop = make_pass_inputs(
+        n, d, beta, q, c, L, seed)
+    return (cp, cq, pts, qs, qw, mu, beta_q, r_min), stop
+
+
+@pytest.mark.parametrize("route", ["interpret", "composite"])
+@pytest.mark.parametrize("shape", _SHAPES, ids=str)
+@pytest.mark.parametrize("p", _PS)
+def test_pass1_histograms_match_jax(p, shape, route):
+    n, _, _, _, c, L = shape
+    args, _ = _inputs(shape, seed=1)
+    kw = dict(boff=40, n_valid=40 + n - 17, c=c, n_levels=L, p=p)
+    hf, hg = _port(args, None, **kw)
+    jf, jg = _jax(args, None, route, **kw)
+    assert hf.shape == (args[1].shape[0], L + 2)
+    np.testing.assert_array_equal(hf, jf)
+    np.testing.assert_array_equal(hg, jg)
+    assert hf[:, : L + 1].sum() > 0 and hf[:, L + 1].sum() > 0
+
+
+@pytest.mark.parametrize("route", ["interpret", "composite"])
+@pytest.mark.parametrize("shape", _SHAPES, ids=str)
+@pytest.mark.parametrize("p", _PS)
+def test_pass2_scores_match_jax(p, shape, route):
+    n, _, _, _, c, L = shape
+    args, stop = _inputs(shape, seed=2)
+    kw = dict(boff=0, n_valid=n - 11, c=c, n_levels=L, p=p)
+    got = _port(args, stop, **kw)
+    want = _jax(args, stop, route, **kw)
+    assert np.isfinite(got).any() and np.isinf(got).any()
+    assert_scores_close(got, want, args[3], args[4], args[2], p)
+
+
+@pytest.mark.parametrize("shape", _SHAPES, ids=str)
+def test_freq_level_matches_jax(shape):
+    n, _, beta, q, c, L = shape
+    (cp, cq, _, _, _, mu, beta_q, _), _ = _inputs(shape, seed=3)
+    got = ref.freq_level_ref(torch.from_numpy(cp), torch.from_numpy(cq),
+                             torch.from_numpy(mu), c, L,
+                             torch.from_numpy(beta_q))
+    want = jref.freq_level_ref(cp, cq, mu, c, L, beta_q)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert len(np.unique(np.asarray(got))) > L // 2
+
+
+def test_freq_level_row_chunking_is_invisible(monkeypatch):
+    """Results do not depend on how the plain version chunks the rows."""
+    args, _ = _inputs(_SHAPES[0], seed=4)
+    cp, cq, mu, beta_q = (torch.from_numpy(args[i]) for i in (0, 1, 5, 6))
+    whole = ref.freq_level_ref(cp, cq, mu, 3, 8, beta_q)
+    monkeypatch.setattr(ref, "_CHUNK_ELEMS", 7 * cq.shape[0] * cq.shape[1])
+    chunked = ref.freq_level_ref(cp, cq, mu, 3, 8, beta_q)
+    assert torch.equal(whole, chunked)
+
+
+@pytest.mark.parametrize("p", _PS)
+def test_weighted_lp_matches_jax(p):
+    rng = np.random.default_rng(5)
+    qs = rng.uniform(0, 100, (4, 12)).astype(np.float32)
+    pts = rng.uniform(0, 100, (30, 12)).astype(np.float32)
+    w = rng.uniform(1, 5, 12).astype(np.float32)
+    got = np.asarray(ops.weighted_lp_dist(torch.from_numpy(qs),
+                                          torch.from_numpy(pts),
+                                          torch.from_numpy(w), p))
+    want = np.asarray(jref.weighted_lp_ref(qs, pts, w, p))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_hash_encode_matches_jax():
+    rng = np.random.default_rng(8)
+    pts = rng.uniform(0, 1000, (50, 12)).astype(np.float32)
+    w = rng.uniform(1, 10, 12).astype(np.float32)
+    proj = rng.standard_normal((12, 40)).astype(np.float32)
+    b_int = rng.integers(0, 81, 40).astype(np.int32)
+    b_frac = rng.uniform(0, 1, 40).astype(np.float32)
+    got = np.asarray(ref.hash_encode_ref(*(torch.from_numpy(a) for a in (
+        pts, proj, b_int, b_frac, w)), 37.5))
+    want = np.asarray(jref.hash_encode_ref(pts, proj, b_int, b_frac, w,
+                                           37.5))
+    assert got.dtype == np.int32
+    assert np.mean(got != want) < 1e-2  # f32 floor-boundary jitter only
+    assert np.abs(got.astype(np.int64) - want).max() <= 1
+
+
+def test_scalar_broadcast_and_default_beta():
+    """Scalar mu/r_min/stop and beta_q=None broadcast like arrays."""
+    (cp, cq, pts, qs, qw, *_), _ = _inputs(_SHAPES[1], seed=6)
+    q, beta = cq.shape
+    t = [torch.from_numpy(a) for a in (cp, pts, cq, qs, qw)]
+    kw = dict(boff=0, n_valid=len(cp), c=2, n_levels=6, p=1.0)
+    a = ops.fused_query_block(*t, 3, 50.0, None, **kw)
+    b = ops.fused_query_block(*t, torch.full((q,), 3, dtype=torch.int32),
+                              torch.full((q,), 50.0), torch.full(
+                                  (q,), beta, dtype=torch.int32), **kw)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
+    """On CPU tensors a wrapper runs ref.py and launches no kernel."""
+    args, stop = _inputs(_SHAPES[0], seed=7)
+    cp, cq, pts, qs, qw, mu, beta_q, r_min = (torch.from_numpy(a)
+                                              for a in args)
+    fused_query.reset_launch_counts()
+    kw = dict(boff=0, n_valid=150, c=3, n_levels=8, p=2.0)
+    hf, hg = fused_query.fused_query_hist(cp, pts, cq, qs, qw, mu, beta_q,
+                                          r_min, **kw)
+    row_ok = torch.arange(len(cp)) < 150
+    rf, rg = ref.fused_query_hist_ref(cp, pts, cq, qs, qw, mu, beta_q, r_min,
+                                      row_ok, c=3, n_levels=8, p=2.0)
+    assert torch.equal(hf, rf) and torch.equal(hg, rg)
+    assert hf.shape == (len(cq), 8 + 3)
+    assert int(hf[:, 8 + 2].sum()) == (len(cp) - 150) * len(cq)
+    assert fused_query.launch_counts == {"fused_query_hist": 0,
+                                         "fused_query_scores": 0}
+
+
+@pytest.mark.parametrize("knob,device,label", [
+    ("on", "cpu", "fused-plain"),
+    (True, "cpu", "fused-plain"),
+    ("on", "cuda", "fused-cuda"),
+    ("off", "cuda", "unfused"),
+    (False, "cpu", "unfused"),
+])
+def test_platform_resolves_per_device(knob, device, label):
+    assert platform.resolve(knob, device).label == label
+
+
+def test_platform_rejects_unknown_knob():
+    with pytest.raises(ValueError):
+        platform.normalize("interpret")
