@@ -3,23 +3,39 @@
 
     python3 chip_smoke.py            # every phase, one card
 
-Phases, one line each (more for the slice), any failure exits non-zero:
+Phases, one line each (more for the serving legs), any failure exits
+non-zero:
 
   1. device  — nvidia-smi's name and power limit, torch and CUDA versions
-  2. build   — compile kernels/csrc/fused_query.cu with nvcc for sm_90a
-  3. kernels — both fused-query kernels against their plain torch versions
-               on the card, for p in {2, 1, 0.5}, at Q=64, d=400,
-               beta=512 (beta_q ~ 450), L=16 and ~65k rows with a ragged
-               tail and n_valid below the row count
+  2. build   — compile every kernels/csrc/*.cu with nvcc for sm_90a (one
+               object per source, in parallel) into one library
+  3. kernels — every kernel against its plain torch version on the card
+               at ~65k rows with a ragged tail: both fused-query passes
+               (p in {2, 1, 0.5}, Q=64, d=400, beta=512, beta_q ~ 450,
+               L=16, n_valid below the row count); hash_encode (d in
+               {400, 397}, beta in {512, 449}, the projections of real
+               p = 2, 1, 0.5 families) within the float64 window and
+               row-independent; freq_level (c in {2, 3}) exactly;
+               weighted_lp (p in {1, 0.5}, d in {400, 397}) to rtol 1e-5
   4. slice   — the synchronous query path at the paper's default data
                scale (n=400,000, d=400, |S|=24, p=2, tau=500, c=3,
-               v=v'=6): plan, build every group state, serve 256 queries,
-               check 8 against the host oracle search_dense and recall@10
-               against exact brute force
-  5. times   — each kernel on the main path's inputs for the widest group:
-               held to its plain version there (the rules of phase 3),
-               its time, its plain version's time, and the bound from
-               bytes and operations
+               v=v'=6) from a plan with host codes: plan, build every
+               group state, serve 256 queries, check 8 against the host
+               oracle search_dense and recall@10 against exact brute force
+  5. encode  — the same plan exported without host codes: every group
+               state built and every query encoded on the card by the
+               hash_encode kernel; the widest group's codes held to the
+               float64 window, 65 self-queries found at rank 0, the 256
+               queries served, recall beside the host-code leg's
+  6. unfused — the host-code plan served with use_kernels="off" (the
+               freq_level kernel, then torch distances and histograms):
+               hist_f equal to the fused kernel's, answers equal to the
+               fused leg's, and pass 1 of both routes timed
+  7. times   — each kernel on the main path's inputs for the widest
+               group: held to its plain version there (the rules of
+               phase 3), its time, its plain version's time, the time of
+               one PyTorch call that computes the same function where
+               there is one, and the bound from bytes and operations
 
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -43,14 +59,17 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("device", "build", "kernels", "slice", "times")
+PHASES = ("device", "build", "kernels", "slice", "encode", "unfused",
+          "times")
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
-# float32 outside the tensor cores, and int32 at 64 lanes per SM x 132 SMs
-# x 1.98 GHz boost clock.
+# float32 outside the tensor cores, int32 at 64 lanes per SM x 132 SMs
+# x 1.98 GHz boost clock, and the special-function units (log2, exp2) at
+# 16 results per SM per clock.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 INT32_OPS = 132 * 64 * 1.98e9
+SFU_OPS = 132 * 16 * 1.98e9
 
 # the slice configuration (paper Sec. 5.1 defaults, |S| cut to 24) and the
 # kernel-check row count
@@ -59,11 +78,20 @@ SLICE = dict(n=400_000, d=400, n_weights=24, n_subset=6, n_subrange=20,
              n_check=8, reps=3)
 CHECK_ROWS = 65_536 - 53  # ragged against the kernel's 128-row blocks
 
-KERNELS = {
-    "fused_query_hist": "src/repro/kernels/fused_query.py:184",
-    "fused_query_scores": "src/repro/kernels/fused_query.py:248",
+_CSRC = "src/repro_torch/kernels/csrc/"
+KERNELS = {  # name: (the TPU kernel it replaces, its CUDA source)
+    "fused_query_hist": ("src/repro/kernels/fused_query.py:184",
+                         _CSRC + "fused_query.cu"),
+    "fused_query_scores": ("src/repro/kernels/fused_query.py:248",
+                           _CSRC + "fused_query.cu"),
+    "hash_encode": ("src/repro/kernels/hash_encode.py:55",
+                    _CSRC + "hash_encode.cu"),
+    "freq_level": ("src/repro/kernels/freq_level.py:68",
+                   _CSRC + "freq_level.cu"),
+    "weighted_lp": ("src/repro/kernels/weighted_lp.py:57",
+                    _CSRC + "weighted_lp.cu"),
 }
-SOURCE = "src/repro_torch/kernels/csrc/fused_query.cu"
+_SELF_QUERIES = 64  # corpus rows asked as queries on the device-encoded leg
 
 
 def say(msg: str) -> None:
@@ -73,14 +101,15 @@ def say(msg: str) -> None:
 # ------------------------------------------------------------------ helpers
 
 
-def _kernel_inputs(p: float, n_rows: int, seed: int, torch, dev):
+def _kernel_inputs(p: float, n_rows: int, seed: int, torch, dev,
+                   d: int = SLICE["d"]):
     """Seeded pass inputs at the kernel-check shapes, as tensors on dev."""
     from repro_torch.core.datagen import make_dataset, make_weight_set
     from repro_torch.core.distances import radius_bounds
     from repro_torch.core.families import hash_codes_np, sample_lp_family
 
     rng = np.random.default_rng(seed)
-    q, d, beta, L, c = 64, SLICE["d"], 512, 16, 3
+    q, beta, L, c = 64, 512, 16, 3
     data = make_dataset(n_rows, d, seed=seed)
     weights = make_weight_set(8, d, n_subset=2, n_subrange=20, seed=seed + 1)
     # p < 1 families are so heavy-tailed that codes overflow int32 at this
@@ -159,15 +188,17 @@ def phase_device(torch):
 
 
 def phase_build():
-    from repro_torch.kernels import fused_query
+    from repro_torch.kernels import _cuda
 
-    path = fused_query.build(verbose=True)
-    info = fused_query.build_info
-    regs = [ln.strip() for ln in info.get("ptxas", "").splitlines()
-            if "registers" in ln]
-    say(f"build: nvcc {' '.join(fused_query.NVCC_FLAGS)} -> "
-        f"{os.path.relpath(path, ROOT)} in {info['seconds']:.1f}s; "
-        f"ptxas: {' | '.join(regs)}")
+    path = _cuda.build(verbose=True)
+    info = _cuda.build_info
+    say(f"build: nvcc {' '.join(_cuda.NVCC_FLAGS)}, one object per source "
+        f"in parallel -> {os.path.relpath(path, ROOT)} in "
+        f"{info['seconds']:.1f}s")
+    for src, report in info.get("ptxas", {}).items():
+        regs = [ln.strip() for ln in report.splitlines()
+                if "registers" in ln or "Compiling entry" in ln]
+        say(f"  ptxas {src}: {' | '.join(regs)}")
 
 
 def _hold(torch, inp, p, kernel_out, plain_out, label):
@@ -249,11 +280,139 @@ def _top(t) -> float:
 
 
 def _max_err(a, b):
-    return {k: max(a[k], b[k]) for k in a}
+    return {k: max(a.get(k, 0.0), b.get(k, 0.0)) for k in {**a, **b}}
+
+
+def _need(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def _window_misses(torch, codes, x, proj, b_int, b_frac, w, width) -> int:
+    """Codes outside the float64 window (``ref.hash_code_window``)."""
+    from repro_torch.kernels import ref
+
+    lo, hi = ref.hash_code_window(x, proj, b_frac, w, width)
+    v = ref.unbias_codes(codes, b_int)
+    bad = int(((v < lo) | (v > hi)).sum())
+    del lo, hi, v
+    return bad
+
+
+def _check_hash_encode(torch, dev) -> float:
+    """The kernel vs its plain version at the check shapes: both within the
+    float64 window, and a row's codes the same in any batch."""
+    from repro_torch.core.datagen import make_dataset, make_weight_set
+    from repro_torch.core.distances import radius_bounds
+    from repro_torch.core.families import sample_lp_family
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.hash_encode import hash_encode
+
+    err = 0.0
+    for d, beta in ((400, 512), (397, 449)):
+        x = torch.from_numpy(make_dataset(CHECK_ROWS, d, seed=d)).to(dev)
+        weights = make_weight_set(8, d, n_subset=2, n_subrange=20,
+                                  seed=d + 1)
+        for p in (2.0, 1.0, 0.5):
+            r_min, r_max = radius_bounds(weights[0], 10_000.0, max(p, 1.0))
+            fam = sample_lp_family(d, beta, p, r_min, weights[0],
+                                   r_max / r_min, 3, seed=d + 2)
+            w, proj, b_int, b_frac = (
+                torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (weights[0].astype(np.float32), fam.proj,
+                          fam.b_int, fam.b_frac))
+            got = hash_encode(x, w, proj, b_int, b_frac, fam.width)
+            want = ref.hash_encode_ref(x, proj, b_int, b_frac, w, fam.width)
+            _sync(torch, dev)
+            differ = float((got != want).double().mean())
+            gap = (ref.unbias_codes(got, b_int)
+                   - ref.unbias_codes(want, b_int)).abs()
+            err = max(err, _top(gap.double()))
+            miss_k = _window_misses(torch, got, x, proj, b_int, b_frac, w,
+                                    fam.width)
+            miss_p = _window_misses(torch, want, x, proj, b_int, b_frac, w,
+                                    fam.width)
+            sat = int(((got == 2**31 - 1 + b_int) | (got == -(2**31) + b_int)
+                       ).sum())
+            # rows 0..63 as a 64-row batch, and each alone in a batch of 64
+            # copies (the service pads a ragged batch by cycling its rows)
+            batch = hash_encode(x[:64].contiguous(), w, proj, b_int, b_frac,
+                                fam.width)
+            alone = torch.stack([hash_encode(
+                x[i].expand(64, d).contiguous(), w, proj, b_int, b_frac,
+                fam.width)[0] for i in range(64)])
+            same = (torch.equal(batch, got[:64])
+                    and torch.equal(alone, got[:64]))
+            say(f"kernels hash_encode p={p} n={CHECK_ROWS} d={d} "
+                f"beta={beta}: outside the float64 window (E = 16 * 2^-24 "
+                f"* S): kernel {miss_k}, plain {miss_p}; kernel != plain on "
+                f"{differ:.3g} of codes; {sat} entries at the saturated "
+                f"INT_MAX/INT_MIN + b_int; rows 0..63 in a 64-row and a "
+                f"1-row batch {'equal' if same else 'DIFFER FROM'} the "
+                f"full call")
+            _need(miss_k == 0 and miss_p == 0,
+                  f"hash_encode p={p} d={d}: codes outside the window")
+            _need(same, f"hash_encode p={p} d={d}: codes depend on the batch")
+            del got, want, gap, batch, alone
+    return err
+
+
+def _check_freq_level(torch, dev) -> float:
+    """The kernel vs its plain version, exactly, for c in {2, 3}."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.freq_level import freq_level
+
+    inp = _kernel_inputs(1.0, CHECK_ROWS, seed=110, torch=torch, dev=dev)
+    for c in (2, 3):
+        args = (inp["codes_p"], inp["codes_q"], inp["mu"], inp["beta_q"])
+        got = freq_level(*args, c=c, n_levels=inp["n_levels"])
+        want = ref.freq_level_ref(inp["codes_p"], inp["codes_q"], inp["mu"],
+                                  c, inp["n_levels"], inp["beta_q"])
+        _sync(torch, dev)
+        hist = torch.bincount(got.flatten().long(),
+                              minlength=inp["n_levels"] + 2)
+        say(f"kernels freq_level c={c} Q={got.shape[0]} n={CHECK_ROWS} "
+            f"beta=512 L={inp['n_levels']}: "
+            f"{'exact' if torch.equal(got, want) else 'DIFFERS'}; levels "
+            f"0..L+1 counted {hist.tolist()}")
+        _need(torch.equal(got, want), f"freq_level c={c} differs from the "
+              f"plain version")
+    return 0.0
+
+
+def _check_weighted_lp(torch, dev) -> float:
+    """The kernel vs its plain version to rtol 1e-5 for p in {1, 0.5}; p =
+    2 takes the norms expansion and launches nothing."""
+    from repro_torch.kernels import _cuda, ops, ref
+    from repro_torch.kernels.weighted_lp import weighted_lp
+
+    err = 0.0
+    for d in (400, 397):
+        inp = _kernel_inputs(1.0, CHECK_ROWS, seed=120 + d % 2,
+                             torch=torch, dev=dev, d=d)
+        qs, pts = inp["queries"], inp["points"]
+        w = inp["q_weight"][0].contiguous()
+        for p in (1.0, 0.5):
+            got = weighted_lp(qs, pts, w, p)
+            want = ref.weighted_lp_ref(qs, pts, w, p)
+            _sync(torch, dev)
+            diff = (got - want).abs().double()
+            rel = _top(diff / want.double().abs().clamp_min(1e-30))
+            err = max(err, _top(diff))
+            say(f"kernels weighted_lp p={p} Q={qs.shape[0]} n={CHECK_ROWS} "
+                f"d={d}: max abs err {_top(diff):.3g}, max rel {rel:.3g} "
+                f"(rtol 1e-5)")
+            _need(rel <= 1e-5, f"weighted_lp p={p} d={d} outside rtol 1e-5")
+        before = _cuda.launch_counts()["weighted_lp"]
+        ops.weighted_lp_dist(qs, pts, w, 2.0)
+        _need(_cuda.launch_counts()["weighted_lp"] == before,
+              "weighted_lp_dist launched the kernel for p = 2")
+    say("kernels weighted_lp p=2: the norms expansion, no launch")
+    return err
 
 
 def phase_kernels(torch, dev):
-    """Each kernel against its plain version on the card, p in {2,1,.5}."""
+    """Each kernel against its plain version on the card."""
     from repro_torch.kernels import fused_query, ref
 
     n_rows = CHECK_ROWS
@@ -276,6 +435,9 @@ def phase_kernels(torch, dev):
         _sync(torch, dev)
         err = _max_err(err, _hold(torch, inp, p, (hf, hg, sc), (rf, rg, rs),
                                   f"kernels p={p}"))
+    err["hash_encode"] = _check_hash_encode(torch, dev)
+    err["freq_level"] = _check_freq_level(torch, dev)
+    err["weighted_lp"] = _check_weighted_lp(torch, dev)
     return err
 
 
@@ -313,11 +475,81 @@ def _quality(torch, dev, data_t, weights, qpts, wids, res, k):
     return hits / (k * len(qpts)), float(np.concatenate(ratios).mean())
 
 
+def _serve(torch, dev, svc, qpts, wids, reps: int):
+    """Serve ``qpts`` ``reps`` times with every launch count set to 0 just
+    before and read just after; per-batch latency from CUDA events around
+    each ``Batcher.run_batch``.  Returns (runs, latencies ms, seconds,
+    launch counts)."""
+    from repro_torch.kernels import _cuda
+
+    lat: list[float] = []
+    run_batch = svc.batcher.run_batch
+
+    def timed(*a, **kw):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = run_batch(*a, **kw)
+        e.record()
+        e.synchronize()
+        lat.append(s.elapsed_time(e))
+        return out
+
+    svc.batcher.run_batch = timed
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs = [svc.query(qpts, wids) for _ in range(reps)]
+    _sync(torch, dev)
+    secs = time.perf_counter() - t0
+    launches = _cuda.launch_counts()
+    svc.batcher.run_batch = run_batch
+    res = runs[-1]
+    n, k = svc.plan.n, svc.cfg.k
+    _need(res.ids.shape == (len(qpts), k) and res.dists.shape == res.ids.shape
+          and bool(np.isfinite(res.dists[res.ids >= 0]).all())
+          and bool((res.ids < n).all()), "answers malformed")
+    for other in runs[:-1]:  # atomics in any order: identical answers
+        _need(np.array_equal(other.ids, res.ids)
+              and np.array_equal(other.dists, res.dists)
+              and np.array_equal(other.stop_levels, res.stop_levels),
+              "repeated runs of the same queries differ")
+    return runs, lat, secs, launches
+
+
+def _lat(lat) -> str:
+    return (f"per-batch latency (CUDA events) p50 {np.percentile(lat, 50):.2f}"
+            f" ms, p95 {np.percentile(lat, 95):.2f} ms")
+
+
+def _peak(torch, dev) -> int:
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _reset_peak(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _free(torch, svc) -> None:
+    """Drop a service's group states and return their memory."""
+    svc.batcher.states.clear()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _need_launches(launches, want: dict, leg: str) -> None:
+    say(f"{leg} launches: {launches}")
+    for name, cnt in want.items():
+        _need(launches[name] == cnt if cnt is not None
+              else launches[name] > 0,
+              f"{leg}: kernel {name} launched {launches[name]} times, "
+              f"expected {'> 0' if cnt is None else cnt}")
+
+
 def phase_slice(torch, dev):
     from repro_torch.core.datagen import make_dataset, make_weight_set
     from repro_torch.core.params import PlanConfig
     from repro_torch.core.wlsh import WLSHIndex
-    from repro_torch.kernels import fused_query
     from repro_torch.serving.retrieval import RetrievalService, ServiceConfig
 
     cf = SLICE
@@ -356,53 +588,19 @@ def phase_slice(torch, dev):
     svc.query(qpts, wids)  # warm: first launches, allocator
     _sync(torch, dev)
 
-    lat: list[float] = []
-    run_batch = svc.batcher.run_batch
-
-    def timed(*a, **kw):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = run_batch(*a, **kw)
-        e.record()
-        e.synchronize()
-        lat.append(s.elapsed_time(e))
-        return out
-
-    svc.batcher.run_batch = timed
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
-    fused_query.reset_launch_counts()
-    t0 = time.perf_counter()
-    runs = [svc.query(qpts, wids) for _ in range(cf["reps"])]
-    _sync(torch, dev)
-    t_q = time.perf_counter() - t0
-    launches = dict(fused_query.launch_counts)
-    svc.batcher.run_batch = run_batch
-    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    say(f"slice launches: {launches}")
-    for name, cnt in launches.items():
-        if cnt <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
+    _reset_peak(torch, dev)
+    runs, lat, t_q, launches = _serve(torch, dev, svc, qpts, wids,
+                                      cf["reps"])
+    _need_launches(launches, {"fused_query_hist": None,
+                              "fused_query_scores": None, "hash_encode": 0,
+                              "freq_level": 0}, "slice")
     res = runs[-1]
-    ok_shape = (res.ids.shape == (n_q, k) and res.dists.shape == (n_q, k)
-                and np.isfinite(res.dists[res.ids >= 0]).all()
-                and (res.ids < n).all())
-    if not ok_shape:
-        raise AssertionError("slice answers malformed")
-    for other in runs[:-1]:  # atomics in any order: identical answers
-        if not (np.array_equal(other.ids, res.ids)
-                and np.array_equal(other.dists, res.dists)
-                and np.array_equal(other.stop_levels, res.stop_levels)):
-            raise AssertionError("repeated runs of the same queries differ")
     n_served = n_q * cf["reps"]
     say(f"slice serve: {cf['reps']} x {n_q} queries in {len(lat)} batches, "
         f"{t_q:.3f}s ({n_served / t_q:.1f} q/s), identical across runs; "
-        f"per-batch latency (CUDA events) p50 {np.percentile(lat, 50):.2f} "
-        f"ms, p95 {np.percentile(lat, 95):.2f} ms; peak device memory "
-        f"{peak} bytes; mean stop level {res.stop_levels.mean():.2f}, mean "
-        f"n_checked {res.n_checked.mean():.1f}")
+        f"{_lat(lat)}; peak device memory {_peak(torch, dev)} bytes; mean "
+        f"stop level {res.stop_levels.mean():.2f}, mean n_checked "
+        f"{res.n_checked.mean():.1f}")
 
     check = list(range(0, n_q, n_q // cf["n_check"]))[: cf["n_check"]]
     t0 = time.time()
@@ -412,56 +610,262 @@ def phase_slice(torch, dev):
     say(f"slice check vs search_dense: {len(check) - n_bad}/{len(check)} "
         f"exact (stop, n_checked, ids){' ' + str(detail) if detail else ''} "
         f"({time.time() - t0:.1f}s)")
-    if n_bad > len(check) // 8:
-        raise AssertionError(f"{n_bad} of {len(check)} queries disagree "
-                             f"with search_dense")
+    _need(n_bad <= len(check) // 8,
+          f"{n_bad} of {len(check)} queries disagree with search_dense")
     data_t = torch.from_numpy(data).to(dev).double()
     rec, ratio = _quality(torch, dev, data_t, weights, qpts, wids, res, k)
     del data_t
     say(f"slice recall@{k} vs exact brute force: {rec:.4f}; overall ratio "
         f"{ratio:.4f}")
-    return svc, plan, qpts, wids, launches
+    return dict(svc=svc, plan=plan, host=host, data=data, weights=weights,
+                qpts=qpts, wids=wids, res=res, launches=launches,
+                recall=rec, ratio=ratio)
 
 
-def _slice_pass_inputs(svc, plan, qpts, wids, torch, dev):
-    """The inputs run_batch hands the kernels for one full batch of the
-    group with the widest padded state."""
+def _widest(svc, plan) -> int:
+    """The group with the widest padded state (ties: the most tables)."""
+    return max(range(plan.n_groups), key=lambda g: (
+        svc.group_config(g).beta, plan.groups[g].beta_group))
+
+
+def _batch_inputs(svc, plan, qpts, wids, take, torch, dev):
+    """The step inputs ``run_batch`` hands the kernels for the queries
+    ``take`` (all of one group), with host-encoded query codes."""
     from repro_torch.index.builder import pad_cols
 
-    gi = max(range(plan.n_groups), key=lambda g: (
-        svc.group_config(g).beta, plan.groups[g].beta_group))
+    gi = int(plan.group_of[wids[take[0]]])
     cfg = svc.group_config(gi)
     g = plan.groups[gi]
-    rows = np.where(plan.group_of[wids] == gi)[0]
-    take = rows[np.arange(cfg.q_batch) % len(rows)]
     slots = plan.member_slot[wids[take]]
-    st = svc.batcher.state(gi)
 
     def put(x, dt):
         return torch.from_numpy(np.ascontiguousarray(x, dt)).to(dev)
 
-    inp = dict(
-        codes_p=st.codes, points=st.points,
+    return gi, cfg, dict(
         codes_q=put(pad_cols(g.encode_host(qpts[take]), cfg.beta), np.int32),
         queries=put(qpts[take], np.float32),
         q_weight=put(plan.weights[wids[take]], np.float32),
         mu=put(g.mu_members[slots], np.int32),
         beta_q=put(g.beta_members[slots], np.int32),
         r_min=put(g.r_min_members[slots], np.float32),
+        levels_q=put(g.n_levels_members[slots], np.int32),
         c=cfg.c, n_levels=cfg.n_levels,
     )
+
+
+def _slice_pass_inputs(sl, torch, dev):
+    """The inputs run_batch hands the kernels for one full batch of the
+    group with the widest padded state, with the stop levels its step
+    chose."""
+    svc, plan, wids = sl["svc"], sl["plan"], sl["wids"]
+    gi = _widest(svc, plan)
+    cfg = svc.group_config(gi)
+    rows = np.where(plan.group_of[wids] == gi)[0]
+    take = rows[np.arange(cfg.q_batch) % len(rows)]
+    _, _, inp = _batch_inputs(svc, plan, sl["qpts"], wids, take, torch, dev)
+    st = svc.batcher.state(gi)
+    inp.update(codes_p=st.codes, points=st.points)
     step = svc.step_cache.get(dev, cfg)
     _, _, stop, _ = step(st, inp["queries"], inp["codes_q"], inp["q_weight"],
                          inp["mu"], inp["r_min"], inp["beta_q"],
-                         put(g.n_levels_members[slots], np.int32))
+                         inp["levels_q"])
     inp["stop"] = stop.contiguous()
     return gi, cfg, st, inp
 
 
-def phase_times(torch, dev, svc, plan, qpts, wids, launches, errs, smi):
+def phase_encode(torch, dev, sl):
+    """The device-encoded leg: the slice's plan exported without host
+    codes, every state and every query encoded by the hash_encode kernel."""
+    from repro_torch.index.engine import encode_queries
+    from repro_torch.kernels import _cuda, ref
+    from repro_torch.serving.retrieval import RetrievalService, ServiceConfig
+
+    cf, plan, data = SLICE, sl["plan"], sl["data"]
+    qpts, wids = sl["qpts"], sl["wids"]
+    plan_nc = sl["host"].export_serving_plan(include_codes=False)
+    _need(all(g.codes is None for g in plan_nc.groups), "plan ships codes")
+    svc = RetrievalService(plan_nc, data, cfg=ServiceConfig(
+        k=cf["k"], q_batch=cf["q_batch"], device=str(dev)))
+    _reset_peak(torch, dev)
+    _cuda.reset_launch_counts()
+    t0 = time.time()
+    svc.warmup()
+    _sync(torch, dev)
+    t_build = time.time() - t0
+    built = _cuda.launch_counts()["hash_encode"]
+    say(f"encode build: {plan_nc.n_groups} states encoded on the card by "
+        f"{built} hash_encode launches in {t_build:.2f}s, {svc.resident_bytes}"
+        f" bytes resident; peak device memory {_peak(torch, dev)} bytes "
+        f"(the host-code leg's states still resident)")
+    _need(built == plan_nc.n_groups, "one hash_encode launch per group")
+
+    # the widest group's codes against float64, the host codes and the
+    # plain version on the card
+    gi = _widest(svc, plan_nc)
+    st = svc.batcher.state(gi)
+    bg = plan.groups[gi].beta_group
+    ones = torch.ones(plan.d, dtype=torch.float32, device=dev)
+    t0 = time.time()
+    miss = _window_misses(torch, st.codes, st.points, st.proj, st.b_int,
+                          st.b_frac, ones, 1.0)
+    host_codes = torch.from_numpy(plan.groups[gi].codes).to(dev)
+    vs_host = float((st.codes[: plan.n, :bg] != host_codes).double().mean())
+    del host_codes
+    plain = ref.hash_encode_ref(st.points, st.proj, st.b_int, st.b_frac,
+                                ones, 1.0)
+    vs_plain = float((st.codes != plain).double().mean())
+    del plain
+    say(f"encode codes (group {gi}, n={st.codes.shape[0]} "
+        f"beta_pad={st.codes.shape[1]} d={plan.d}): {miss} outside the "
+        f"float64 window (E = 16 * 2^-24 * S); {vs_host:.4f} of the "
+        f"{plan.n}x{bg} real codes differ from the host float64 codes, "
+        f"{vs_plain:.3g} of all from the plain version on the card "
+        f"({time.time() - t0:.1f}s)")
+    _need(miss == 0, "device-built codes outside the float64 window")
+
+    # self-queries: 64 corpus rows spread over the corpus, no noise, under
+    # random weight ids, and one batch holding a single real row
+    rng = np.random.default_rng(11)
+    rows = np.linspace(0, plan.n - 1, _SELF_QUERIES).astype(np.int64)
+    sw = rng.integers(0, plan.n_weights, _SELF_QUERIES)
+    own = svc.query(data[rows], sw)
+    one = svc.query(data[rows[:1]], sw[:1])
+    ids0 = np.concatenate([own.ids[:, 0], one.ids[:, 0]])
+    d0 = np.concatenate([own.dists[:, 0], one.dists[:, 0]])
+    want = np.concatenate([rows, rows[:1]])
+    found = int(np.sum((ids0 == want) & (d0 < 1e-3)))
+    enc = encode_queries(st, data[rows])
+    same = torch.equal(enc, st.codes[torch.from_numpy(rows).to(dev)])
+    say(f"encode self-queries: {found}/{len(want)} corpus rows are their own "
+        f"rank-0 answer (distance < 1e-3); encode_queries of the group "
+        f"{gi} rows {'equals' if same else 'DIFFERS FROM'} their state codes")
+    _need(found == len(want) and same, "a corpus row missed itself")
+
+    svc.query(qpts, wids)  # warm
+    _sync(torch, dev)
+    runs, lat, t_q, launches = _serve(torch, dev, svc, qpts, wids, 1)
+    n_batches = len(lat)
+    _need_launches(launches, {"hash_encode": n_batches,
+                              "fused_query_hist": n_batches,
+                              "fused_query_scores": n_batches,
+                              "freq_level": 0}, "encode serve")
+    res = runs[-1]
+    data_t = torch.from_numpy(data).to(dev).double()
+    rec, ratio = _quality(torch, dev, data_t, sl["weights"], qpts, wids, res,
+                          cf["k"])
+    del data_t
+    same_ids = int(np.sum(np.all(res.ids == sl["res"].ids, axis=1)))
+    say(f"encode serve: {len(qpts)} queries in {n_batches} batches, "
+        f"{t_q:.3f}s ({len(qpts) / t_q:.1f} q/s); {_lat(lat)} (query encode "
+        f"on the card included); recall@{cf['k']} {rec:.4f} and overall "
+        f"ratio {ratio:.4f} (host-code leg {sl['recall']:.4f} and "
+        f"{sl['ratio']:.4f}); {same_ids}/{len(qpts)} queries with the "
+        f"host-code leg's ids; hash_encode launches {built} build + "
+        f"{launches['hash_encode']} = {built + launches['hash_encode']} = "
+        f"{plan_nc.n_groups} groups + "
+        f"{n_batches} batches")
+    _need(built + launches["hash_encode"] == plan_nc.n_groups + n_batches,
+          "hash_encode launches != groups + batches")
+    _free(torch, svc)
+    return dict(launches=built + launches["hash_encode"])
+
+
+def phase_unfused(torch, dev, sl):
+    """The unfused route on the card: the host-code plan served with
+    use_kernels="off" (freq_level kernel, torch distances, histograms)."""
+    from repro_torch.index.engine import _unfused_pass
+    from repro_torch.kernels import ops
+    from repro_torch.serving.retrieval import RetrievalService, ServiceConfig
+
+    cf, plan = SLICE, sl["plan"]
+    qpts, wids, fused = sl["qpts"], sl["wids"], sl["res"]
+    svc = RetrievalService(plan, sl["data"], cfg=ServiceConfig(
+        k=cf["k"], q_batch=cf["q_batch"], use_kernels="off",
+        device=str(dev)))
+    svc.warmup()
+    svc.query(qpts, wids)  # warm
+    _sync(torch, dev)
+    runs, lat, t_q, launches = _serve(torch, dev, svc, qpts, wids, 1)
+    n_batches = len(lat)
+    _need_launches(launches, {"freq_level": 2 * n_batches,
+                              "fused_query_hist": 0, "fused_query_scores": 0,
+                              "hash_encode": 0}, "unfused serve")
+    res = runs[-1]
+    agree = ((res.stop_levels == fused.stop_levels)
+             & (res.n_checked == fused.n_checked)
+             & np.all(res.ids == fused.ids, axis=1))
+    for qi in np.where(~agree)[0]:  # which good-level bins moved
+        gi, cfg, inp = _batch_inputs(svc, plan, qpts, wids, np.array([qi]),
+                                     torch, dev)
+        st = svc.batcher.state(gi)
+        args = (inp["codes_q"], inp["queries"], inp["q_weight"], inp["mu"],
+                inp["r_min"], inp["beta_q"])
+        _, hg = ops.fused_query_block(
+            st.codes, st.points, *args, boff=0, n_valid=st.n_valid, c=cfg.c,
+            n_levels=cfg.n_levels, p=cfg.p)
+        _, hg_u = _unfused_pass(st, *args, cfg, None)
+        moved = {j: (int(hg[0, j]), int(hg_u[0, j]))
+                 for j in range(cfg.n_levels + 1) if hg[0, j] != hg_u[0, j]}
+        say(f"  unfused query {qi} (group {gi}): stop {res.stop_levels[qi]} "
+            f"vs fused {fused.stop_levels[qi]}, n_checked "
+            f"{res.n_checked[qi]} vs {fused.n_checked[qi]}; hist_g bins "
+            f"(fused, unfused) that differ: {moved}")
+
+    # pass 1 at the widest group: hist_f bins 0..L equal, and both routes
+    # timed on the same batch (the kernel bench's fused-vs-unfused sweep)
+    gi, cfg, st, inp = _slice_pass_inputs(sl, torch, dev)
+    args = (inp["codes_q"], inp["queries"], inp["q_weight"], inp["mu"],
+            inp["r_min"], inp["beta_q"])
+    kw = dict(boff=0, n_valid=st.n_valid, c=cfg.c, n_levels=cfg.n_levels,
+              p=cfg.p)
+
+    def fused_pass():
+        return ops.fused_query_block(st.codes, st.points, *args, **kw)
+
+    def unfused_pass():
+        return _unfused_pass(st, *args, cfg, None)
+
+    hf, _ = fused_pass()
+    hf_u, _ = unfused_pass()
+    L = cfg.n_levels
+    equal = torch.equal(hf[:, : L + 1], hf_u[:, : L + 1])
+    t_f = _time_ms(fused_pass, torch, reps=3)
+    t_u = _time_ms(unfused_pass, torch, reps=3)
+    say(f"unfused serve: {len(qpts)} queries in {n_batches} batches, "
+        f"{t_q:.3f}s ({len(qpts) / t_q:.1f} q/s); {_lat(lat)}; stop, "
+        f"n_checked and ids equal to the fused leg's on "
+        f"{int(agree.sum())}/{len(qpts)} queries")
+    say(f"unfused pass 1 (group {gi}: n={st.codes.shape[0]} "
+        f"beta_pad={st.codes.shape[1]} Q={cfg.q_batch} L={L}): hist_f bins "
+        f"0..L {'equal to' if equal else 'DIFFER FROM'} the fused kernel's; "
+        f"fused kernel {t_f:.3f} ms, unfused stages {t_u:.3f} ms "
+        f"(freq_level kernel + torch distances + histograms)")
+    _need(equal, "unfused hist_f differs from the fused kernel's")
+    _need(int(agree.sum()) >= len(qpts) - 2,
+          f"only {int(agree.sum())} queries agree with the fused leg")
+    _free(torch, svc)
+    return dict(launches=launches["freq_level"], pass1=(t_f, t_u))
+
+
+def _bound(bytes_, ops_ms: float):
+    """(bound ms, what bounds it) from bytes and the operations' time."""
+    bytes_ms = 1e3 * bytes_ / HBM_BYTES_PER_S
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def _row(name, launches, err, ms, plain_ms, bound, library_ms=None):
+    replaces, source = KERNELS[name]
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                library_ms=library_ms)
+
+
+def _times_fused(torch, dev, sl, errs, smi, inputs):
     from repro_torch.kernels import fused_query, ref
 
-    gi, cfg, st, inp = _slice_pass_inputs(svc, plan, qpts, wids, torch, dev)
+    gi, cfg, st, inp = inputs
     n, beta = st.codes.shape
     q, d = inp["queries"].shape
     kw = dict(boff=0, n_valid=st.n_valid, c=cfg.c, n_levels=cfg.n_levels,
@@ -491,22 +895,130 @@ def phase_times(torch, dev, svc, plan, qpts, wids, launches, errs, smi):
     errs = _max_err(errs, err)
     table = []
     for name in ("fused_query_hist", "fused_query_scores"):
-        bytes_ms = 1e3 * (in_bytes + out_bytes[name]) / HBM_BYTES_PER_S
-        bound = max(bytes_ms, ops_ms)
+        bound = _bound(in_bytes + out_bytes[name], ops_ms)
         say(f"times {name} (group {gi}: n={n} beta_pad={beta} Q={q} d={d} "
             f"L={cfg.n_levels}): kernel {t_k[name]:.3f} ms, plain "
-            f"{t_p[name]:.3f} ms, "
-            f"bound {bound:.3f} ms by "
-            f"{'bytes' if bytes_ms >= ops_ms else 'operations'} "
+            f"{t_p[name]:.3f} ms, bound {bound[0]:.3f} ms by {bound[1]} "
             f"({tests} level tests, {flops} flops, "
             f"{in_bytes + out_bytes[name]} bytes) [{smi}]")
-        table.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=KERNELS[name],
-            launches=launches[name], max_abs_err=errs[name], ms=t_k[name],
-            plain_ms=t_p[name], bound_ms=bound,
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=None,
-        ))
+        table.append(_row(name, sl["launches"][name], errs[name],
+                          t_k[name], t_p[name], bound))
+    return table
+
+
+def _times_hash_encode(torch, dev, errs, smi, inputs, launches):
+    """The widest group's build: its 400,000 x 400 vectors through its
+    folded projection."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.hash_encode import hash_encode
+
+    gi, _, st, _ = inputs
+    x, a = st.points, st.proj
+    n, d = x.shape
+    beta = a.shape[1]
+    ones = torch.ones(d, dtype=torch.float32, device=dev)
+    args = (x, ones, a, st.b_int, st.b_frac, 1.0)
+    got = hash_encode(*args)
+    ms = _time_ms(lambda: hash_encode(*args), torch, reps=5)
+    plain = []
+    plain_ms = _time_ms(lambda: plain.append(ref.hash_encode_ref(
+        x, a, st.b_int, st.b_frac, ones, 1.0)), torch, reps=1)
+    lib_ms = _time_ms(lambda: torch.matmul(x, a), torch, reps=5)
+    miss = _window_misses(torch, got, x, a, st.b_int, st.b_frac, ones, 1.0)
+    differ = float((got != plain[0]).double().mean())
+    gap = _top((ref.unbias_codes(got, st.b_int)
+                - ref.unbias_codes(plain[0], st.b_int)).abs().double())
+    _need(miss == 0, "hash_encode: main-path codes outside the window")
+    flops = 2 * n * d * beta
+    bytes_ = 4 * (n * d + d + d * beta + 2 * beta + n * beta)
+    bound = _bound(bytes_, 1e3 * flops / F32_FLOPS)
+    say(f"times hash_encode (group {gi}'s build: n={n} d={d} beta_pad={beta}"
+        f"): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul "
+        f"(the product alone, TF32 off) {lib_ms:.3f} ms, bound "
+        f"{bound[0]:.3f} ms by {bound[1]} ({flops} flops, {bytes_} bytes); "
+        f"{miss} codes outside the window, kernel != plain on {differ:.3g} "
+        f"[{smi}]")
+    return _row("hash_encode", launches, max(errs["hash_encode"], gap), ms,
+                plain_ms, bound, lib_ms)
+
+
+def _times_freq_level(torch, dev, errs, smi, inputs, launches):
+    """One 64-query batch at the widest group."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.freq_level import freq_level
+
+    gi, cfg, st, inp = inputs
+    n, beta = st.codes.shape
+    q = inp["codes_q"].shape[0]
+    args = (st.codes, inp["codes_q"], inp["mu"], inp["beta_q"])
+    got = freq_level(*args, c=cfg.c, n_levels=cfg.n_levels)
+    ms = _time_ms(lambda: freq_level(*args, c=cfg.c, n_levels=cfg.n_levels),
+                  torch, reps=5)
+    plain = []
+    plain_ms = _time_ms(lambda: plain.append(ref.freq_level_ref(
+        st.codes, inp["codes_q"], inp["mu"], cfg.c, cfg.n_levels,
+        inp["beta_q"])), torch, reps=1)
+    _need(torch.equal(got, plain[0]), "freq_level differs on the main "
+          "path's inputs")
+    tests = int(inp["beta_q"].clamp_max(beta).sum()) * n
+    bytes_ = 4 * (n * beta + q * beta + 2 * q + q * n)
+    bound = _bound(bytes_, 1e3 * tests / INT32_OPS)
+    say(f"times freq_level (group {gi}: n={n} beta_pad={beta} Q={q} "
+        f"L={cfg.n_levels}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound[0]:.3f} ms by {bound[1]} ({tests} level tests, "
+        f"{bytes_} bytes); exact [{smi}]")
+    return _row("freq_level", launches, errs["freq_level"], ms, plain_ms,
+                bound)
+
+
+def _times_weighted_lp(torch, dev, errs, smi, inputs):
+    """Q = 64 against the widest group's vectors under the first query's
+    weight, p = 1 (the JSON row) and p = 0.5."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.weighted_lp import weighted_lp
+
+    gi, _, st, inp = inputs
+    qs, pts = inp["queries"], st.points
+    w = inp["q_weight"][0].contiguous()
+    q, d = qs.shape
+    n = pts.shape[0]
+    qw, pw = qs * w, pts * w
+    rows, err = {}, errs["weighted_lp"]
+    for p in (1.0, 0.5):
+        got = weighted_lp(qs, pts, w, p)
+        ms = _time_ms(lambda: weighted_lp(qs, pts, w, p), torch, reps=5)
+        plain = []
+        plain_ms = _time_ms(lambda: plain.append(ref.weighted_lp_ref(
+            qs, pts, w, p)), torch, reps=1)
+        lib_ms = _time_ms(lambda: torch.cdist(qw, pw, p=p), torch, reps=3)
+        diff = (got - plain[0]).abs().double()
+        rel = _top(diff / plain[0].double().abs().clamp_min(1e-30))
+        _need(rel <= 1e-5, f"weighted_lp p={p} outside rtol 1e-5 on the "
+              f"main path's vectors")
+        err = max(err, _top(diff))
+        ops_ms = 1e3 * 3 * q * n * d / F32_FLOPS
+        if p != 1.0:  # each powf takes a log2 and an exp2 on the SFUs
+            ops_ms = max(ops_ms, 1e3 * 2 * q * n * d / SFU_OPS)
+        bytes_ = 4 * (n * d + q * d + d + q * n)
+        bound = _bound(bytes_, ops_ms)
+        say(f"times weighted_lp p={p} (group {gi}'s vectors: n={n} d={d} "
+            f"Q={q}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"torch.cdist {lib_ms:.3f} ms, bound {bound[0]:.3f} ms by "
+            f"{bound[1]}; max rel err {rel:.3g} [{smi}]")
+        rows[p] = (ms, plain_ms, bound, lib_ms)
+    ms, plain_ms, bound, lib_ms = rows[1.0]
+    # on no serving path, as in the JAX package: 0 launches on the legs
+    return _row("weighted_lp", 0, err, ms, plain_ms, bound, lib_ms)
+
+
+def phase_times(torch, dev, sl, legs, errs, smi):
+    inputs = _slice_pass_inputs(sl, torch, dev)
+    table = _times_fused(torch, dev, sl, errs, smi, inputs)
+    table.append(_times_hash_encode(torch, dev, errs, smi, inputs,
+                                    legs["encode"]["launches"]))
+    table.append(_times_freq_level(torch, dev, errs, smi, inputs,
+                                   legs["unfused"]["launches"]))
+    table.append(_times_weighted_lp(torch, dev, errs, smi, inputs))
     return table
 
 
@@ -535,14 +1047,18 @@ def main(argv=None) -> int:
     errs = None
     if "kernels" in phases:
         errs = phase_kernels(torch, dev)
-    sl = None
+    sl, legs = None, {}
     if "slice" in phases:
         sl = phase_slice(torch, dev)
+    for leg, fn in (("encode", phase_encode), ("unfused", phase_unfused)):
+        if leg in phases:
+            if sl is None:
+                raise SystemExit(f"the {leg} phase needs the slice phase")
+            legs[leg] = fn(torch, dev, sl)
     if "times" in phases:
-        if sl is None or errs is None:
-            raise SystemExit("the times phase needs the kernels and slice "
-                             "phases")
-        table = phase_times(torch, dev, *sl, errs, smi)
+        if sl is None or errs is None or len(legs) < 2:
+            raise SystemExit("the times phase needs every other phase")
+        table = phase_times(torch, dev, sl, legs, errs, smi)
         say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

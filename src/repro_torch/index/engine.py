@@ -15,8 +15,9 @@ in two passes over every row:
 With ``use_kernels="on"`` each pass is one call of
 ``ops.fused_query_block`` over the whole state: one CUDA kernel launch on
 the card (kernels/csrc/fused_query.cu), the plain torch version on the CPU.
-``use_kernels="off"`` keeps the unfused stage-by-stage scan as the parity
-oracle.  Both bin dead rows
+``use_kernels="off"`` runs the unfused stage-by-stage scan, the parity
+oracle: the ``freq_level`` kernel (its plain version on the CPU), then
+per-query distances and histograms in torch.  Both bin dead rows
 differently (excluded vs parked at level L+1), but the stop rule reads
 only bins 0..L, so stop, n_checked, ids and distances agree.
 
@@ -38,7 +39,7 @@ from ..kernels import ops, ref
 from ..kernels import platform as kplatform
 from .config import IndexConfig
 
-__all__ = ["QueryState", "QueryStepCache", "query_step"]
+__all__ = ["QueryState", "QueryStepCache", "encode_queries", "query_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +69,23 @@ class QueryState:
         return sum(t.numel() * t.element_size() for t in (
             self.codes, self.points, self.proj, self.b_int, self.b_frac,
             self.width))
+
+
+def encode_queries(state: QueryState, queries):
+    """(Q, beta) int32 query bucket codes through the device encode.
+
+    ``state.proj`` is the folded projection (center weight and bucket
+    width folded in at build time), so queries hash at unit weight and
+    width, through the same ``hash_encode`` as a device-built state's
+    rows: the kernel on the card, its plain version on the CPU.  The
+    encode is row-independent, so a corpus row asked as a query gets its
+    stored codes bit for bit.
+    """
+    q = torch.as_tensor(queries, dtype=torch.float32, device=state.device)
+    ones = torch.ones(state.proj.shape[0], dtype=torch.float32,
+                      device=state.device)
+    return ops.hash_encode(q, ones, state.proj, state.b_int, state.b_frac,
+                           1.0)
 
 
 def _unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q, cfg, stop):

@@ -27,18 +27,12 @@
 //   * A block takes ROWS rows (one thread each) and QT queries, so every
 //     code and vector tile it stages in shared memory serves QT queries
 //     (the Pallas grid re-reads codes for every query).
-//   * Codes are staged TC lanes at a time (a 256 x 1024 int32 tile would
-//     not fit in 227 KB).  For each lane the query's code is divided down
-//     once per block into its L+1 level codes (in shared memory, read as
-//     warp-wide broadcasts), and the row's code once per level; agreement
-//     is monotone in the level (a//c^j == b//c^j implies equality at every
-//     higher level), so the first agreeing level is the number of levels
-//     that disagree, counted without branches.  Each (query, row) keeps a
-//     per-level lane count cnt[0..L+1] in shared memory; lf is the first
-//     level whose running count reaches mu, which equals the reference's
-//     per-level recount exactly.
-//   * Floor division rounds toward minus infinity (codes can be negative),
-//     with c a template constant for c = 2 and c = 3.
+//   * The first-frequent level comes from level_match.cuh, shared with the
+//     standalone freq_level kernel: codes staged TC lanes at a time,
+//     per-level query codes computed once per block, branch-free
+//     first-agreement counts per (query, row) in shared memory, floor
+//     division toward minus infinity with c = 2 and c = 3 as template
+//     constants.
 //   * Float order follows the reference: p = 2 uses the norms expansion
 //     qw2 - 2 cross + onorm clamped at 0, then sqrtf; the good-level ceil
 //     is logf(max(dist, 1e-30)) / log(c) - logf(c r_min) / log(c).  The
@@ -48,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "level_match.cuh"
 
 namespace {
 
@@ -73,13 +69,7 @@ struct Args {
   float p, inv_p, logc;
 };
 
-template <int C>
-__device__ __forceinline__ int floor_div(int x, int c) {
-  const int dv = C > 0 ? C : c;
-  const int q = x / dv;
-  const int r = x - q * dv;
-  return (r != 0 && ((r < 0) != (dv < 0))) ? q - 1 : q;
-}
+using Match = wlsh::MatchSmem<ROWS, QT, TC>;
 
 // Shared-memory carve-up, shared by the kernel and the host size check.
 struct Layout {
@@ -88,16 +78,16 @@ struct Layout {
 
 __host__ __device__ inline Layout layout(int L) {
   Layout s;
-  const size_t L1 = L + 1, L2 = L + 2, L3 = L + 3;
+  const size_t L3 = L + 3;
   s.qb = 0;                                             // int [QT][TC][L+1]
-  s.ctile = s.qb + sizeof(int) * QT * TC * L1;          // int [ROWS][TC+1]
-  s.ptile = s.ctile + sizeof(int) * ROWS * (TC + 1);    // float [ROWS][DC+1]
+  s.ctile = s.qb + Match::qb(L);                        // int [ROWS][TC+1]
+  s.ptile = s.ctile + Match::ctile();                   // float [ROWS][DC+1]
   s.wa = s.ptile + sizeof(float) * ROWS * (DC + 1);     // float [QT][DC]
   s.wb = s.wa + sizeof(float) * QT * DC;                // float [QT][DC]
   s.meta = s.wb + sizeof(float) * QT * DC;              // 5 x [QT] words
   s.hist = s.meta + sizeof(int) * 5 * QT;               // int [2][QT][L+3]
   s.cnt = s.hist + sizeof(int) * 2 * QT * L3;           // u16 [QT][L+2][ROWS]
-  s.total = s.cnt + sizeof(unsigned short) * QT * L2 * ROWS;
+  s.total = s.cnt + Match::cnt(L);
   return s;
 }
 
@@ -120,7 +110,7 @@ __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
   int* s_hg = s_hf + QT * (a.L + 3);
   unsigned short* s_cnt = reinterpret_cast<unsigned short*>(smem + lay.cnt);
 
-  const int L1 = a.L + 1, L2 = a.L + 2, L3 = a.L + 3;
+  const int L2 = a.L + 2, L3 = a.L + 3;
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * ROWS;
   const int q0 = blockIdx.y * QT;
@@ -157,64 +147,12 @@ __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
   int bmax = 0;
   for (int q = 0; q < nq; ++q) bmax = max(bmax, s_bq[q]);
 
-  // ---- level agreement, TC lanes at a time -------------------------------
-  for (int t0 = 0; t0 < bmax; t0 += TC) {
-    const int tc = min(TC, bmax - t0);
-    for (int e = tid; e < QT * TC; e += ROWS) {
-      const int q = e / TC, t = e % TC;
-      if (q < nq && t < tc) {
-        int b = a.codes_q[(size_t)(q0 + q) * a.beta + t0 + t];
-        int* dst = s_qb + (q * TC + t) * L1;
-        for (int j = 0; j < L1; ++j) {
-          dst[j] = b;
-          b = floor_div<C>(b, a.c);
-        }
-      }
-    }
-    for (int e = tid; e < ROWS * TC; e += ROWS) {
-      const int r = e / TC, t = e % TC;
-      const int gr = row0 + r;
-      s_ctile[r * (TC + 1) + t] =
-          (gr < a.B && t < tc) ? a.codes_p[(size_t)gr * a.beta + t0 + t] : 0;
-    }
-    __syncthreads();
-    if (live_row) {
-      for (int t = 0; t < tc; ++t) {
-        int av = s_ctile[tid * (TC + 1) + t];
-        int m[QT];
-#pragma unroll
-        for (int q = 0; q < QT; ++q) m[q] = 0;
-        const int* qb = s_qb + t * L1;
-        for (int j = 0; j < L1; ++j) {
-#pragma unroll
-          for (int q = 0; q < QT; ++q) m[q] += (av != qb[q * TC * L1 + j]);
-          av = floor_div<C>(av, a.c);
-        }
-        const int lane = t0 + t;
-#pragma unroll
-        for (int q = 0; q < QT; ++q)
-          if (q < nq && lane < s_bq[q]) s_cnt[(q * L2 + m[q]) * ROWS + tid] += 1;
-      }
-    }
-    __syncthreads();
-  }
-
+  // ---- first-frequent level (level_match.cuh) ---------------------------
+  wlsh::count_agreements<ROWS, QT, TC, C>(a.codes_p, a.codes_q, a.B, a.beta,
+                                          row0, q0, nq, a.c, a.L, s_bq, bmax,
+                                          s_qb, s_ctile, s_cnt);
   int lf[QT];
-#pragma unroll
-  for (int q = 0; q < QT; ++q) {
-    int v = L1;
-    if (live_row && q < nq) {
-      int run = 0;
-      for (int j = 0; j < L1; ++j) {
-        run += s_cnt[(q * L2 + j) * ROWS + tid];
-        if (run >= s_mu[q]) {
-          v = j;
-          break;
-        }
-      }
-    }
-    lf[q] = v;
-  }
+  wlsh::first_frequent_levels<ROWS, QT>(s_cnt, s_mu, nq, live_row, a.L, lf);
 
   // ---- weighted l_p distance, DC dims at a time ---------------------------
   float acc0[QT], acc1[QT];

@@ -1,36 +1,74 @@
-"""Public wrappers the engine calls around the query-step kernels.
+"""Public wrappers the engine, the builder and the serving path call.
 
-``fused_query_block`` is the engine's fused pass over a block of rows
-(pass-1 histograms or pass-2 stop-masked scores): it broadcasts the
-per-query scalars, casts to the kernels' dtypes and calls the kernel
-wrapper of ``fused_query.py``, which launches the CUDA kernel for tensors on
-the card and takes the plain torch version for tensors on the CPU.
+Each op broadcasts per-query scalars, casts to the kernels' dtypes and
+calls a kernel wrapper, which launches the CUDA kernel for tensors on the
+card and takes the plain torch version for tensors on the CPU:
 
-``freq_level`` and ``weighted_lp_dist`` serve the unfused oracle route
-(``use_kernels="off"``); they reach their plain versions on every device.
+  ``fused_query_block``  the engine's fused pass over a block of rows
+                         (pass-1 histograms or pass-2 stop-masked scores)
+                         -> ``fused_query.py``
+  ``hash_encode``        bucket codes (device-encode build, query encode)
+                         -> ``hash_encode.py``
+  ``freq_level``         first-frequent levels, stage 1 of the unfused
+                         route -> ``freq_level.py``
+  ``weighted_lp_dist``   weighted l_p distances under one weight; p != 2
+                         -> ``weighted_lp.py``, p = 2 the norms expansion
+                         (a matrix product, no kernel), as in the JAX
+                         package
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import freq_level as _freq_level
 from . import fused_query, ref
+from . import hash_encode as _hash_encode
+from . import weighted_lp as _weighted_lp
 
-__all__ = ["freq_level", "fused_query_block", "weighted_lp_dist"]
+__all__ = ["freq_level", "fused_query_block", "hash_encode",
+           "weighted_lp_dist"]
 
 
 def _per_query(v, q: int, dtype, dev):
     return torch.as_tensor(v, dtype=dtype, device=dev).expand(q).contiguous()
 
 
+def _f32(x):
+    return x.to(torch.float32).contiguous()
+
+
+def hash_encode(points, weight, proj, b_int, b_frac, width: float):
+    """(n, beta) int32 level-1 bucket codes."""
+    return _hash_encode.hash_encode(
+        _f32(points), _f32(weight), _f32(proj),
+        b_int.to(torch.int32).contiguous(), _f32(b_frac), float(width))
+
+
 def freq_level(codes_p, codes_q, mu, c: int, n_levels: int, beta_q=None):
-    """(Q, n) int32 first-frequent-level matrix (n_levels+1 = never)."""
-    return ref.freq_level_ref(codes_p, codes_q, mu, c, n_levels, beta_q)
+    """(Q, n) int32 first-frequent-level matrix (n_levels+1 = never).
+
+    Dead rows are the caller's business; rows past a block multiple need
+    no pad code (``int32 max // 2`` in the reference's padding), since the
+    kernel walks exactly n rows.
+    """
+    dev = codes_p.device
+    q, beta = codes_q.shape
+    mu = _per_query(mu, q, torch.int32, dev)
+    beta_q = _per_query(beta if beta_q is None else beta_q, q, torch.int32,
+                        dev)
+    return _freq_level.freq_level(
+        codes_p.to(torch.int32).contiguous(),
+        codes_q.to(torch.int32).contiguous(), mu, beta_q, c=int(c),
+        n_levels=int(n_levels))
 
 
 def weighted_lp_dist(queries, points, weight, p: float):
     """(Q, n) f32 weighted l_p distances under one weight vector."""
-    return ref.weighted_lp_ref(queries, points, weight, p)
+    if abs(p - 2.0) < 1e-9:
+        return ref.weighted_lp_ref(queries, points, weight, p)
+    return _weighted_lp.weighted_lp(_f32(queries), _f32(points),
+                                    _f32(weight), float(p))
 
 
 def fused_query_block(
@@ -66,10 +104,10 @@ def fused_query_block(
                         dev)
     args = (
         codes_p.to(torch.int32).contiguous(),
-        points.to(torch.float32).contiguous(),
+        _f32(points),
         codes_q.to(torch.int32).contiguous(),
-        queries.to(torch.float32).contiguous(),
-        q_weight.to(torch.float32).contiguous(),
+        _f32(queries),
+        _f32(q_weight),
         mu,
         beta_q,
     )

@@ -9,15 +9,25 @@ quietly to the CPU.
 ``IndexConfig`` / ``ServiceConfig`` / the launcher's ``--use-kernels``,
 onto the concrete query pipeline for a device:
 
-  ============  =============================  =========================
-  use_kernels   cuda                           cpu
-  ============  =============================  =========================
-  "on"          fused, CUDA C++ kernels        fused, plain torch version
-                (kernels/csrc/fused_query.cu)  of the same two passes
-  "off"         unfused stage-by-stage oracle  the same oracle
-  ============  =============================  =========================
+  ============  ==============================  ========================
+  use_kernels   cuda                            cpu
+  ============  ==============================  ========================
+  "on"          fused, CUDA C++ kernels         fused, plain torch
+                (kernels/csrc/fused_query.cu)   version of the same two
+                                                passes
+  "off"         unfused stages: the freq_level  the same stages with the
+                CUDA kernel (kernels/csrc/      plain torch freq_level
+                freq_level.cu), then per-query
+                distances in torch (the norms
+                expansion for p = 2), then
+                torch histograms
+  ============  ==============================  ========================
 
-Which version of a fused pass runs is decided by the device of the tensors
+A plan without host codes is encoded through the ``hash_encode`` CUDA
+kernel on the card (``kernels/csrc/hash_encode.cu``) on either route, and
+through its plain torch version on the CPU.
+
+Which version of a kernel runs is decided by the device of the tensors
 a wrapper is given, never by a fallback: on a CUDA tensor a wrapper
 launches its kernel or raises.
 """
@@ -63,9 +73,9 @@ class KernelPath:
     """Resolved query pipeline for one (``use_kernels``, device) pair.
 
     ``fused`` — both scan passes go through ``ops.fused_query_block``
-                (``False``: the unfused stage-by-stage oracle).
-    ``cuda``  — the fused passes run as the CUDA kernels (``False``: their
-                plain torch versions, on the CPU).
+                (``False``: the unfused stages, ``ops.freq_level`` first).
+    ``cuda``  — the kernels of the route run as CUDA kernels (``False``:
+                their plain torch versions, on the CPU).
     """
 
     fused: bool
@@ -81,20 +91,22 @@ class KernelPath:
 
 def resolve(use_kernels: bool | str, device: str | torch.device) -> KernelPath:
     """Map a ``use_kernels`` value and a device onto a ``KernelPath``."""
-    dev = torch.device(device)
-    if normalize(use_kernels) == "off":
-        return KernelPath(fused=False, cuda=False)
-    return KernelPath(fused=True, cuda=dev.type == "cuda")
+    cuda = torch.device(device).type == "cuda"
+    return KernelPath(fused=normalize(use_kernels) == "on", cuda=cuda)
 
 
 def describe(use_kernels: bool | str, device: str | torch.device) -> str:
     """One-line report of the resolved kernel path for the CLI."""
     path = resolve(use_kernels, device)
     dev = torch.device(device)
-    where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-             else "cpu")
+    where = str(dev)
+    if dev.type == "cuda" and torch.cuda.is_available():
+        where = torch.cuda.get_device_name(dev)
     if not path.fused:
-        return f"unfused reference stages (torch) on {where}"
+        if not path.cuda:
+            return f"unfused stages, plain torch versions, on {where}"
+        return (f"unfused stages: freq_level CUDA C++ kernel (sm_90a), then "
+                f"torch distances and histograms, on {where}")
     if not path.cuda:
         return f"fused query step, plain torch version, on {where}"
     return f"fused query step, CUDA C++ kernels (sm_90a), on {where}"

@@ -1,8 +1,10 @@
 """Plain torch versions of the query-step kernels.
 
 These define the semantics the CUDA kernels are held to: integer outputs
-exactly, distances to a float32 tolerance.  They run on any device; the
-kernel wrappers (``fused_query.py``) take them for tensors on the CPU, and
+exactly (hash codes too: the kernel sums in ``hash_encode_ref``'s order),
+distances to a float32 tolerance.  They run on any device; the kernel
+wrappers (``fused_query.py``, ``hash_encode.py``, ``freq_level.py``,
+``weighted_lp.py``) take them for tensors on the CPU, and
 ``chip_smoke.py`` runs them on the card beside the kernels.  Shapes:
 
   hash_encode_ref : (n, d) x (d, beta) -> (n, beta) int32 bucket codes
@@ -38,6 +40,8 @@ import torch
 
 __all__ = [
     "hash_encode_ref",
+    "hash_code_window",
+    "unbias_codes",
     "freq_level_ref",
     "weighted_lp_ref",
     "log_c",
@@ -59,12 +63,86 @@ def _is_p(p: float, v: float) -> bool:
     return abs(p - v) < 1e-9
 
 
+_RUN, _TILE = 8, 32  # hash_encode's sum order: 8-dim runs in 32-dim tiles
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+
 def hash_encode_ref(points, proj, b_int, b_frac, weight, width):
-    """floor((a . (W o x))/w + b_frac) + b_int, exact-int split of b*."""
+    """floor((a . (W o x))/w + b_frac) + b_int, exact-int split of b*.
+
+    Every output is summed over d in one fixed order, whatever the number
+    of rows: products ``(x_i w_i) a_ij`` rounded on their own, summed in
+    runs of 8 dims, each run added to its 32-dim tile's sum, each tile's
+    sum added to the total (multiply and add rounded apart, no FMA).  The
+    CUDA kernel sums in the same order, so the two agree bit for bit and a
+    row encodes the same alone or in any batch.  At d = 400 this order
+    stays within ~10 * 2**-24 * S of the exact sum (S = sum |x_i w_i
+    a_ij|) on heavy-tailed (p <= 1) projections, where one sequential sum
+    reaches ~40 and a blocked matrix product ~30.
+
+    ``floor(u)`` converts to int32 saturating, as XLA's convert does:
+    u >= 2**31 gives INT_MAX, u < -2**31 gives INT_MIN.  Then ``+ b_int``
+    wraps in int32.
+    """
+    dev = points.device
     x = points.float() * weight.float()
-    u = (x @ proj.float()) / torch.tensor(width, dtype=torch.float32,
-                                         device=x.device) + b_frac
-    return torch.floor(u).to(torch.int32) + b_int.to(torch.int32)
+    a = proj.float()
+    n, d = x.shape
+    beta = a.shape[1]
+    w = torch.tensor(width, dtype=torch.float32, device=dev)
+    out = torch.empty((n, beta), dtype=torch.int32, device=dev)
+    step = _row_chunk(1, beta)
+    for lo in range(0, n, step):
+        xs = x[lo : lo + step]
+        acc = torch.zeros((len(xs), beta), dtype=torch.float32, device=dev)
+        for t0 in range(0, d, _TILE):
+            tile = torch.zeros_like(acc)
+            for r0 in range(t0, min(d, t0 + _TILE), _RUN):
+                run = torch.zeros_like(acc)
+                for i in range(r0, min(d, r0 + _RUN)):
+                    run += xs[:, i, None] * a[i]
+                tile += run
+            acc += tile
+        u = acc / w + b_frac.float()
+        hi, low = u >= 2.0**31, u < -(2.0**31)
+        v = torch.floor(torch.where(hi | low, 0.0, u)).to(torch.int32)
+        v = torch.where(hi, _I32_MAX, torch.where(low, _I32_MIN, v))
+        out[lo : lo + step] = v + b_int.to(torch.int32)
+    return out
+
+
+def hash_code_window(points, proj, b_frac, weight, width,
+                     slack: float = 16.0):
+    """(lo, hi) int64 (n, beta): where a float32 encode's ``code - b_int``
+    (wrapped to int32) may lie, from float64.
+
+    With u = (x o w) @ a / width + b_frac and S = sum_i |x_i w_i a_ij| /
+    width + |b_frac| in float64, and E = slack * 2**-24 * S, the window is
+    [floor(u - E), floor(u + E)] clamped to the int32 range: where u >=
+    2**31 + E only INT_MAX is allowed, where u < -2**31 - E only INT_MIN.
+    A truncating floor, a lost b_frac, an off-by-one b_int or a wrapped
+    overflow falls outside it.
+    """
+    x = points.double() * weight.double()
+    a = proj.double()
+    bf = b_frac.double()
+    lo = torch.empty((x.shape[0], a.shape[1]), dtype=torch.int64,
+                     device=x.device)
+    hi = torch.empty_like(lo)
+    step = _row_chunk(4, a.shape[1])
+    for r in range(0, x.shape[0], step):
+        xs = x[r : r + step]
+        u = xs @ a / width + bf
+        e = slack * 2.0**-24 * (xs.abs() @ a.abs() / abs(width) + bf.abs())
+        lo[r : r + step] = torch.floor(u - e).clamp(_I32_MIN, _I32_MAX).long()
+        hi[r : r + step] = torch.floor(u + e).clamp(_I32_MIN, _I32_MAX).long()
+    return lo, hi
+
+
+def unbias_codes(codes, b_int):
+    """``codes - b_int`` wrapped to int32, as int64 (the floor of u)."""
+    v = codes.long() - b_int.long()
+    return (v + 2**31) % 2**32 - 2**31
 
 
 def freq_level_ref(codes_p, codes_q, mu, c: int, n_levels: int, beta_q=None):

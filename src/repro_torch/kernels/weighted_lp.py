@@ -1,0 +1,53 @@
+"""Weighted l_p distances (p != 2): the CUDA C++ kernel and its wrapper.
+
+``weighted_lp`` gives the (Q, n) float32 matrix
+``(sum_i |(x_i - q_i) w_i|^p)^(1/p)`` under one weight vector; the kernel
+is in ``csrc/weighted_lp.cu``.  As in the JAX package it serves no serving
+path: ``ops.weighted_lp_dist`` reaches it for p != 2, and p = 2 takes the
+norms expansion there instead, so this wrapper rejects p = 2 on the card.
+
+For tensors on the CPU the wrapper takes the plain torch version
+(``ref.weighted_lp_ref``).  For CUDA tensors it checks device, dtype,
+contiguity and shape, allocates the output, launches on the current
+stream and raises if the launch fails; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _cuda, ref
+
+__all__ = ["launch_counts", "weighted_lp"]
+
+launch_counts = _cuda.counter("weighted_lp")
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGS = [_P] * 3 + [_I] * 3 + [_F, _P, _P]
+
+
+def weighted_lp(queries, points, weight, p: float):
+    """(Q, n) float32 weighted l_p distances of ``queries`` (Q, d) to
+    ``points`` (n, d) under ``weight`` (d,), p != 2 on the card."""
+    if queries.device.type == "cpu":
+        return ref.weighted_lp_ref(queries, points, weight, p)
+    if abs(p - 2.0) < 1e-9 or not p > 0:
+        raise ValueError(f"the weighted_lp kernel takes 0 < p != 2, got {p}")
+    dev = queries.device
+    q, d = queries.shape
+    n = points.shape[0]
+    for args in (("queries", queries, torch.float32, (q, d)),
+                 ("points", points, torch.float32, (n, d)),
+                 ("weight", weight, torch.float32, (d,))):
+        _cuda.check(*args, dev)
+    if max(n * d, q * n) >= 2**31:
+        raise ValueError("inputs too large for 32-bit indices")
+    out = torch.empty((q, n), dtype=torch.float32, device=dev)
+    fn = _cuda.function("wlsh_weighted_lp", _ARGS)
+    with torch.cuda.device(dev):
+        err = fn(queries.data_ptr(), points.data_ptr(), weight.data_ptr(), q,
+                 n, d, float(p), out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _cuda.launched("weighted_lp", err, launch_counts)
+    return out

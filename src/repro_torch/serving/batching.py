@@ -15,7 +15,10 @@ frontend-independent:
 ``coalesce``/``pad_take``/``run_plans``/``merge_topk`` are pure numpy.
 ``Batcher`` owns the stateful side: every group's state resident on the
 service's device (built on first use or by ``warmup``), the step cache,
-host float64 query encoding and per-group serving counters.
+query encoding and per-group serving counters.  Query codes come from the
+same encoding as the group's data codes: host float64 when the plan ships
+host codes, the device encode (``hash_encode``) when the state was built
+on the device.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 from ..core.serving_plan import ServingPlan
 from ..index.builder import build_group_state, pad_cols
 from ..index.config import IndexConfig, pad_beta, pad_levels
-from ..index.engine import QueryState, QueryStepCache
+from ..index.engine import QueryState, QueryStepCache, encode_queries
 from ..kernels import platform as kplatform
 
 __all__ = [
@@ -332,10 +335,15 @@ class Batcher:
     def run_batch(self, gi: int, queries, weight_ids):
         """One step launch for 1..q_batch same-group requests.
 
-        Pads ragged input by cycling the real rows, host-encodes the real
-        rows in float64 (row-independent, so padding cannot perturb real
-        rows), and returns ``(ids, dists, stop_levels, n_checked)`` sliced
-        back to the real rows.
+        Pads ragged input by cycling the real rows, encodes the queries
+        and returns ``(ids, dists, stop_levels, n_checked)`` sliced back to
+        the real rows.  Host f64 query codes pair only with plan-shipped
+        host codes; a device-built (f32) state needs device-encoded
+        queries, or floor-boundary jitter mixes the two encodings and a
+        query can miss its own point.  Both encodes are row-independent,
+        so padding cannot perturb real rows: the host path encodes each
+        real row once and gathers, the device path encodes the padded
+        batch.
         """
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         weight_ids = np.atleast_1d(np.asarray(weight_ids, np.int64))
@@ -344,22 +352,24 @@ class Batcher:
         real = len(queries)
         take = pad_take(real, cfg.q_batch)
         g = self.plan.groups[gi]
-        if g.codes is None:
-            raise NotImplementedError(
-                "the plan ships no host codes; device query encoding is not "
-                "ported yet")
         wtake = weight_ids[take]
         slots = self.plan.member_slot[wtake]
-        codes = pad_cols(g.encode_host(queries), cfg.beta)[take]
         dev = self.device
+        state = self.state(gi)
 
         def put(x, dtype):
             return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
 
+        q_dev = put(queries[take], np.float32)
+        if g.codes is None:
+            codes = encode_queries(state, q_dev)
+        else:
+            codes = put(pad_cols(g.encode_host(queries), cfg.beta)[take],
+                        np.int32)
         d_b, i_b, stop_b, chk_b = step(
-            self.state(gi),
-            put(queries[take], np.float32),
-            put(codes, np.int32),
+            state,
+            q_dev,
+            codes,
             put(self.plan.weights[wtake], np.float32),
             put(g.mu_members[slots], np.int32),
             put(g.r_min_members[slots], np.float32),

@@ -5,9 +5,12 @@ The host planner partitions the weight vector set S into table groups
 distance function, and is answered in *that* weight's group (Algorithm 2).
 All queries of a ``query`` call are present up front, so they are routed,
 coalesced into same-group batches of ``q_batch``, answered through
-``Batcher.run_batch`` and returned in submission order.  Query bucket codes
-are computed on the host in float64 against the exported family, so the
-answers are bit-exact with ``WLSHIndex.search_dense``'s candidate sets.
+``Batcher.run_batch`` and returned in submission order.  With a plan that
+ships host codes, query bucket codes are computed on the host in float64
+against the exported family, so the answers are bit-exact with
+``WLSHIndex.search_dense``'s candidate sets.  A plan exported without
+codes (``include_codes=False``) is encoded on the device, data and
+queries alike, through the ``hash_encode`` kernel.
 """
 
 from __future__ import annotations

@@ -4,11 +4,12 @@ Run on a machine with a CUDA card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The first test builds ``kernels/csrc/fused_query.cu`` with nvcc.  Each
-kernel is held to its plain torch version on the same CUDA tensors:
-histograms and the +inf mask exactly, finite scores to rtol 1e-5 (or the
-p = 2 atol of the norms expansion).  ``chip_smoke.py`` repeats this at the
-main path's shapes.
+The fixture builds every ``kernels/csrc/*.cu`` with nvcc.  Each kernel is
+held to its plain torch version on the same CUDA tensors: histograms,
+first-frequent levels and the +inf mask exactly, hash codes exactly (the
+kernel sums in the plain version's order) and within the float64 window,
+finite scores to rtol 1e-5 (or the p = 2 atol of the norms expansion).
+``chip_smoke.py`` repeats this at the main path's shapes.
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
-from repro_torch.kernels import fused_query, ref
+from repro_torch.kernels import _cuda, fused_query, ops, ref
+from repro_torch.kernels.freq_level import freq_level
+from repro_torch.kernels.hash_encode import hash_encode
+from repro_torch.kernels.weighted_lp import weighted_lp
 
 from _torch_inputs import assert_scores_close, make_pass_inputs
 
@@ -27,7 +31,7 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    fused_query.build()
+    _cuda.build()
     return torch.device("cuda")
 
 
@@ -103,3 +107,106 @@ def test_service_on_the_card_matches_the_cpu(dev):
     np.testing.assert_array_equal(out[0].stop_levels, out[1].stop_levels)
     np.testing.assert_array_equal(out[0].n_checked, out[1].n_checked)
     np.testing.assert_allclose(out[0].dists, out[1].dists, rtol=1e-6)
+
+
+def _family(p, d, beta, seed, dev):
+    from repro_torch.core.families import sample_lp_family
+
+    rng = np.random.default_rng(seed)
+    cw = rng.uniform(1, 10, d).astype(np.float32)
+    fam = sample_lp_family(d, beta, p, 40.0, cw, 500.0, 3, seed=seed)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+        cw, fam.proj, fam.b_int, fam.b_frac)], fam.width
+
+
+@pytest.mark.parametrize("p", [2.0, 1.0, 0.5])
+@pytest.mark.parametrize("n,d,beta", [(333, 70, 100), (64, 400, 64)])
+def test_hash_encode_matches_plain_version(dev, p, n, d, beta):
+    (w, proj, b_int, b_frac), width = _family(p, d, beta, 3, dev)
+    x = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 10_000, (n, d)).astype(np.float32)).to(dev)
+    _cuda.reset_launch_counts()
+    got = hash_encode(x, w, proj, b_int, b_frac, width)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["hash_encode"] == 1
+    want = ref.hash_encode_ref(x, proj, b_int, b_frac, w, width)
+    assert torch.equal(got, want)
+    lo, hi = ref.hash_code_window(x, proj, b_frac, w, width)
+    v = ref.unbias_codes(got, b_int)
+    assert bool(((v >= lo) & (v <= hi)).all())
+    for rows in (1, 7, 64):  # a row's codes do not depend on its batch
+        assert torch.equal(hash_encode(x[:rows].contiguous(), w, proj,
+                                       b_int, b_frac, width), got[:rows])
+
+
+@pytest.mark.parametrize("c", [2, 3, 4])
+def test_freq_level_matches_plain_version(dev, c):
+    t = _tensors((1000, 8, 40, 11, c, 8), 5, dev)
+    _cuda.reset_launch_counts()
+    got = freq_level(t["cp"], t["cq"], t["mu"], t["beta_q"], c=c,
+                     n_levels=8)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["freq_level"] == 1
+    want = ref.freq_level_ref(t["cp"], t["cq"], t["mu"], c, 8, t["beta_q"])
+    assert torch.equal(got, want)
+    assert len(torch.unique(got)) > 4
+
+
+@pytest.mark.parametrize("p", [1.0, 0.5])
+def test_weighted_lp_matches_plain_version(dev, p):
+    t = _tensors((777, 70, 8, 9, 3, 4), 6, dev)
+    w = t["qw"][0].contiguous()
+    _cuda.reset_launch_counts()
+    got = weighted_lp(t["qs"], t["pts"], w, p)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["weighted_lp"] == 1
+    want = ref.weighted_lp_ref(t["qs"], t["pts"], w, p)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    ops.weighted_lp_dist(t["qs"], t["pts"], w, 2.0)  # the expansion
+    assert _cuda.launch_counts()["weighted_lp"] == 1
+    with pytest.raises(ValueError):
+        weighted_lp(t["qs"], t["pts"], w, 2.0)
+
+
+def test_new_wrappers_check_their_inputs(dev):
+    t = _tensors((300, 8, 16, 2, 3, 6), 2, dev)
+    (w, proj, b_int, b_frac), width = _family(1.0, 8, 16, 2, dev)
+    with pytest.raises(TypeError):
+        hash_encode(t["pts"], w, proj, b_int.float(), b_frac, width)
+    with pytest.raises(ValueError):
+        hash_encode(t["pts"], w[:4], proj, b_int, b_frac, width)
+    with pytest.raises(ValueError):
+        hash_encode(t["pts"], w.cpu(), proj, b_int, b_frac, width)
+    with pytest.raises(TypeError):
+        freq_level(t["cp"].float(), t["cq"], t["mu"], t["beta_q"], c=3,
+                   n_levels=6)
+    with pytest.raises(ValueError):
+        freq_level(t["cp"], t["cq"], t["mu"][:1], t["beta_q"], c=3,
+                   n_levels=6)
+    with pytest.raises(ValueError):
+        weighted_lp(t["qs"], t["pts"].t().contiguous().t(), t["qw"][0], 1.0)
+    with pytest.raises(ValueError):
+        weighted_lp(t["qs"], t["pts"], t["qw"][0].cpu(), 1.0)
+
+
+@pytest.mark.parametrize("p,tau", [(2.0, 500.0), (0.5, 2_000.0)])
+def test_service_without_host_codes_finds_itself(dev, p, tau):
+    from repro_torch.core.datagen import make_dataset, make_weight_set
+    from repro_torch.core.params import PlanConfig
+    from repro_torch.core.wlsh import WLSHIndex
+    from repro_torch.serving import RetrievalService, ServiceConfig
+
+    data = make_dataset(n=2048, d=24, seed=3)
+    weights = make_weight_set(size=8, d=24, n_subset=4, n_subrange=10,
+                              seed=4)
+    plan = WLSHIndex(data, weights, PlanConfig(p=p, c=3, n=2048), tau=tau,
+                     v=4, v_prime=4, seed=5).export_serving_plan(
+                         include_codes=False)
+    svc = RetrievalService(plan, data, cfg=ServiceConfig(k=5, q_batch=8))
+    rows = np.arange(0, 2048, 97)
+    wids = np.random.default_rng(6).integers(0, 8, len(rows))
+    _cuda.reset_launch_counts()
+    res = svc.query(data[rows], wids)
+    np.testing.assert_array_equal(res.ids[:, 0], rows)
+    assert np.all(res.dists[:, 0] < 1e-3)
+    assert _cuda.launch_counts()["hash_encode"] > 0

@@ -18,7 +18,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import fused_query, ops, platform, ref
+from repro_torch.kernels import _cuda, fused_query, ops, platform, ref
 
 from _torch_inputs import assert_scores_close, make_pass_inputs
 
@@ -120,20 +120,82 @@ def test_weighted_lp_matches_jax(p):
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-def test_hash_encode_matches_jax():
+@pytest.mark.parametrize("p", _PS)
+def test_hash_encode_matches_jax(p):
+    """The port's plain version, JAX's hash_encode_ref and JAX's Pallas
+    kernel (interpret mode) all lie in the float64 window: with u the
+    float64 value of (x o w) @ A / width + b_frac and E = 16 * 2**-24 *
+    (sum |x_i w_i A_ij| / width + |b_frac|), code - b_int in [floor(u - E),
+    floor(u + E)] clamped to int32 (only INT_MAX where u >= 2**31 + E)."""
+    from repro_torch.core.families import sample_lp_family
+
     rng = np.random.default_rng(8)
-    pts = rng.uniform(0, 1000, (50, 12)).astype(np.float32)
-    w = rng.uniform(1, 10, 12).astype(np.float32)
-    proj = rng.standard_normal((12, 40)).astype(np.float32)
-    b_int = rng.integers(0, 81, 40).astype(np.int32)
-    b_frac = rng.uniform(0, 1, 40).astype(np.float32)
-    got = np.asarray(ref.hash_encode_ref(*(torch.from_numpy(a) for a in (
-        pts, proj, b_int, b_frac, w)), 37.5))
-    want = np.asarray(jref.hash_encode_ref(pts, proj, b_int, b_frac, w,
-                                           37.5))
+    d, beta = 24, 64
+    pts = rng.uniform(0, 10_000, (300, d)).astype(np.float32)
+    cw = rng.uniform(1, 10, d).astype(np.float32)
+    fam = sample_lp_family(d, beta, p, 40.0, cw, 500.0, 3, seed=9)
+    args = (pts, fam.proj, fam.b_int, fam.b_frac, cw)
+    got = np.asarray(ref.hash_encode_ref(*(torch.from_numpy(a) for a in args),
+                                         fam.width))
     assert got.dtype == np.int32
-    assert np.mean(got != want) < 1e-2  # f32 floor-boundary jitter only
-    assert np.abs(got.astype(np.int64) - want).max() <= 1
+    lo, hi = ref.hash_code_window(*(torch.from_numpy(a) for a in (
+        pts, fam.proj, fam.b_frac, cw)), fam.width)
+    for codes in (got,
+                  np.asarray(jref.hash_encode_ref(*args, fam.width)),
+                  np.asarray(jops.hash_encode(pts, cw, fam.proj, fam.b_int,
+                                              fam.b_frac, fam.width,
+                                              use_pallas="interpret"))):
+        v = ref.unbias_codes(torch.from_numpy(np.array(codes)),
+                             torch.from_numpy(fam.b_int))
+        assert bool(((v >= lo) & (v <= hi)).all())
+
+
+@pytest.mark.parametrize("c", [2, 3])
+def test_ops_freq_level_matches_jax_kernel(c):
+    """ops.freq_level on the CPU equals the Pallas kernel (interpret mode)
+    exactly, at n not a multiple of its 256-row block."""
+    n, beta, q, L = 300, 40, 5, 8
+    cp, cq, _, _, _, mu, beta_q, _, _ = make_pass_inputs(n, 8, beta, q, c,
+                                                         L, seed=10)
+    got = ops.freq_level(torch.from_numpy(cp), torch.from_numpy(cq),
+                         torch.from_numpy(mu), c, L, torch.from_numpy(beta_q))
+    want = jops.freq_level(cp, cq, mu, c, L, beta_q, use_pallas="interpret")
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    assert len(np.unique(np.asarray(got))) > L // 2
+
+
+@pytest.mark.parametrize("p", [1.0, 0.5])
+def test_ops_weighted_lp_matches_jax_kernel(p):
+    """ops.weighted_lp_dist on the CPU is within rtol 1e-5 of the Pallas
+    kernel (interpret mode, bn=128, bd=64; ragged n and d)."""
+    rng = np.random.default_rng(11)
+    qs = rng.uniform(0, 1000, (5, 100)).astype(np.float32)
+    pts = rng.uniform(0, 1000, (300, 100)).astype(np.float32)
+    w = rng.uniform(1, 10, 100).astype(np.float32)
+    got = ops.weighted_lp_dist(*(torch.from_numpy(a) for a in (qs, pts, w)),
+                               p)
+    want = jops.weighted_lp_dist(qs, pts, w, p, use_pallas="interpret",
+                                 bn=128, bd=64)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5,
+                               atol=0)
+
+
+def test_cpu_ops_launch_no_kernel():
+    """On CPU tensors every op runs its plain version and counts nothing."""
+    (cp, cq, pts, qs, qw, mu, beta_q, _), _ = _inputs(_SHAPES[1], seed=12)
+    t = {k: torch.from_numpy(v) for k, v in dict(
+        cp=cp, cq=cq, pts=pts, qs=qs, qw=qw, mu=mu, beta_q=beta_q).items()}
+    _cuda.reset_launch_counts()
+    ops.freq_level(t["cp"], t["cq"], t["mu"], 2, 6, t["beta_q"])
+    for p in _PS:
+        ops.weighted_lp_dist(t["qs"], t["pts"], t["qw"][0], p)
+    q = len(t["qw"])
+    ops.hash_encode(t["pts"], t["qw"][0], t["qw"].T, torch.zeros(
+        q, dtype=torch.int32), torch.zeros(q), 1.0)
+    assert set(_cuda.launch_counts()) == {
+        "fused_query_hist", "fused_query_scores", "hash_encode",
+        "freq_level", "weighted_lp"}
+    assert not any(_cuda.launch_counts().values())
 
 
 def test_scalar_broadcast_and_default_beta():
@@ -177,6 +239,13 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
 ])
 def test_platform_resolves_per_device(knob, device, label):
     assert platform.resolve(knob, device).label == label
+
+
+def test_platform_describes_the_unfused_route_on_the_card():
+    line = platform.describe("off", "cuda")
+    assert "freq_level" in line and "CUDA" in line
+    assert "freq_level" not in platform.describe("on", "cuda")
+    assert "plain torch" in platform.describe("off", "cpu")
 
 
 def test_platform_rejects_unknown_knob():
