@@ -353,6 +353,7 @@ def _check_hash_encode(torch, dev) -> float:
             _need(miss_k == 0 and miss_p == 0,
                   f"hash_encode p={p} d={d}: codes outside the window")
             _need(same, f"hash_encode p={p} d={d}: codes depend on the batch")
+            _need(differ == 0, f"hash_encode p={p} d={d}: kernel != plain")
             del got, want, gap, batch, alone
     return err
 
@@ -593,7 +594,7 @@ def phase_slice(torch, dev):
                                       cf["reps"])
     _need_launches(launches, {"fused_query_hist": None,
                               "fused_query_scores": None, "hash_encode": 0,
-                              "freq_level": 0}, "slice")
+                              "freq_level": 0, "weighted_lp": 0}, "slice")
     res = runs[-1]
     n_served = n_q * cf["reps"]
     say(f"slice serve: {cf['reps']} x {n_q} queries in {len(lat)} batches, "
@@ -692,12 +693,15 @@ def phase_encode(torch, dev, sl):
     svc.warmup()
     _sync(torch, dev)
     t_build = time.time() - t0
-    built = _cuda.launch_counts()["hash_encode"]
+    built = _cuda.launch_counts()
+    _need_launches(built, {"hash_encode": plan_nc.n_groups,
+                           "fused_query_hist": 0, "fused_query_scores": 0,
+                           "freq_level": 0, "weighted_lp": 0}, "encode build")
+    built = built["hash_encode"]
     say(f"encode build: {plan_nc.n_groups} states encoded on the card by "
         f"{built} hash_encode launches in {t_build:.2f}s, {svc.resident_bytes}"
         f" bytes resident; peak device memory {_peak(torch, dev)} bytes "
         f"(the host-code leg's states still resident)")
-    _need(built == plan_nc.n_groups, "one hash_encode launch per group")
 
     # the widest group's codes against float64, the host codes and the
     # plain version on the card
@@ -722,6 +726,7 @@ def phase_encode(torch, dev, sl):
         f"{vs_plain:.3g} of all from the plain version on the card "
         f"({time.time() - t0:.1f}s)")
     _need(miss == 0, "device-built codes outside the float64 window")
+    _need(vs_plain == 0, "device-built codes differ from the plain version")
 
     # self-queries: 64 corpus rows spread over the corpus, no noise, under
     # random weight ids, and one batch holding a single real row
@@ -748,7 +753,8 @@ def phase_encode(torch, dev, sl):
     _need_launches(launches, {"hash_encode": n_batches,
                               "fused_query_hist": n_batches,
                               "fused_query_scores": n_batches,
-                              "freq_level": 0}, "encode serve")
+                              "freq_level": 0, "weighted_lp": 0},
+                   "encode serve")
     res = runs[-1]
     data_t = torch.from_numpy(data).to(dev).double()
     rec, ratio = _quality(torch, dev, data_t, sl["weights"], qpts, wids, res,
@@ -767,7 +773,8 @@ def phase_encode(torch, dev, sl):
     _need(built + launches["hash_encode"] == plan_nc.n_groups + n_batches,
           "hash_encode launches != groups + batches")
     _free(torch, svc)
-    return dict(launches=built + launches["hash_encode"])
+    return dict(launches=built + launches["hash_encode"],
+                weighted_lp=launches["weighted_lp"])
 
 
 def phase_unfused(torch, dev, sl):
@@ -789,7 +796,8 @@ def phase_unfused(torch, dev, sl):
     n_batches = len(lat)
     _need_launches(launches, {"freq_level": 2 * n_batches,
                               "fused_query_hist": 0, "fused_query_scores": 0,
-                              "hash_encode": 0}, "unfused serve")
+                              "hash_encode": 0, "weighted_lp": 0},
+                   "unfused serve")
     res = runs[-1]
     agree = ((res.stop_levels == fused.stop_levels)
              & (res.n_checked == fused.n_checked)
@@ -844,7 +852,8 @@ def phase_unfused(torch, dev, sl):
     _need(int(agree.sum()) >= len(qpts) - 2,
           f"only {int(agree.sum())} queries agree with the fused leg")
     _free(torch, svc)
-    return dict(launches=launches["freq_level"], pass1=(t_f, t_u))
+    return dict(launches=launches["freq_level"],
+                weighted_lp=launches["weighted_lp"], pass1=(t_f, t_u))
 
 
 def _bound(bytes_, ops_ms: float):
@@ -929,6 +938,8 @@ def _times_hash_encode(torch, dev, errs, smi, inputs, launches):
     gap = _top((ref.unbias_codes(got, st.b_int)
                 - ref.unbias_codes(plain[0], st.b_int)).abs().double())
     _need(miss == 0, "hash_encode: main-path codes outside the window")
+    _need(differ == 0, "hash_encode: main-path codes differ from the plain "
+          "version")
     flops = 2 * n * d * beta
     bytes_ = 4 * (n * d + d + d * beta + 2 * beta + n * beta)
     bound = _bound(bytes_, 1e3 * flops / F32_FLOPS)
@@ -971,7 +982,7 @@ def _times_freq_level(torch, dev, errs, smi, inputs, launches):
                 bound)
 
 
-def _times_weighted_lp(torch, dev, errs, smi, inputs):
+def _times_weighted_lp(torch, dev, errs, smi, inputs, launches):
     """Q = 64 against the widest group's vectors under the first query's
     weight, p = 1 (the JSON row) and p = 0.5."""
     from repro_torch.kernels import ref
@@ -1007,8 +1018,7 @@ def _times_weighted_lp(torch, dev, errs, smi, inputs):
             f"{bound[1]}; max rel err {rel:.3g} [{smi}]")
         rows[p] = (ms, plain_ms, bound, lib_ms)
     ms, plain_ms, bound, lib_ms = rows[1.0]
-    # on no serving path, as in the JAX package: 0 launches on the legs
-    return _row("weighted_lp", 0, err, ms, plain_ms, bound, lib_ms)
+    return _row("weighted_lp", launches, err, ms, plain_ms, bound, lib_ms)
 
 
 def phase_times(torch, dev, sl, legs, errs, smi):
@@ -1018,7 +1028,10 @@ def phase_times(torch, dev, sl, legs, errs, smi):
                                     legs["encode"]["launches"]))
     table.append(_times_freq_level(torch, dev, errs, smi, inputs,
                                    legs["unfused"]["launches"]))
-    table.append(_times_weighted_lp(torch, dev, errs, smi, inputs))
+    # on no serving path, as in the JAX package: each leg counted 0
+    table.append(_times_weighted_lp(
+        torch, dev, errs, smi, inputs, sl["launches"]["weighted_lp"]
+        + legs["encode"]["weighted_lp"] + legs["unfused"]["weighted_lp"]))
     return table
 
 

@@ -65,6 +65,7 @@ def _is_p(p: float, v: float) -> bool:
 
 _RUN, _TILE = 8, 32  # hash_encode's sum order: 8-dim runs in 32-dim tiles
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+_WINDOW_ULPS = 16.0  # hash_code_window's E, in units of 2**-24 * S
 
 
 def hash_encode_ref(points, proj, b_int, b_frac, weight, width):
@@ -111,13 +112,12 @@ def hash_encode_ref(points, proj, b_int, b_frac, weight, width):
     return out
 
 
-def hash_code_window(points, proj, b_frac, weight, width,
-                     slack: float = 16.0):
+def hash_code_window(points, proj, b_frac, weight, width):
     """(lo, hi) int64 (n, beta): where a float32 encode's ``code - b_int``
     (wrapped to int32) may lie, from float64.
 
     With u = (x o w) @ a / width + b_frac and S = sum_i |x_i w_i a_ij| /
-    width + |b_frac| in float64, and E = slack * 2**-24 * S, the window is
+    width + |b_frac| in float64, and E = 16 * 2**-24 * S, the window is
     [floor(u - E), floor(u + E)] clamped to the int32 range: where u >=
     2**31 + E only INT_MAX is allowed, where u < -2**31 - E only INT_MIN.
     A truncating floor, a lost b_frac, an off-by-one b_int or a wrapped
@@ -133,7 +133,8 @@ def hash_code_window(points, proj, b_frac, weight, width,
     for r in range(0, x.shape[0], step):
         xs = x[r : r + step]
         u = xs @ a / width + bf
-        e = slack * 2.0**-24 * (xs.abs() @ a.abs() / abs(width) + bf.abs())
+        s = xs.abs() @ a.abs() / abs(width) + bf.abs()
+        e = _WINDOW_ULPS * 2.0**-24 * s
         lo[r : r + step] = torch.floor(u - e).clamp(_I32_MIN, _I32_MAX).long()
         hi[r : r + step] = torch.floor(u + e).clamp(_I32_MIN, _I32_MAX).long()
     return lo, hi

@@ -195,6 +195,7 @@ def test_cli_check_on_cpu(capsys):
         "--n-queries", "8", "--k", "3", "--v", "4", "--q-batch", "4",
         "--device", "cpu", "--check"]))
     assert out["n_check_failures"] == 0
+    assert out["n_self_misses"] is None
     assert "check vs search_dense: 8/8 exact" in capsys.readouterr().out
 
 
@@ -205,6 +206,6 @@ def test_cli_check_without_host_codes_on_cpu(capsys):
         "--n", "512", "--d", "16", "--n-weights", "4", "--n-subset", "2",
         "--n-queries", "8", "--k", "3", "--v", "4", "--q-batch", "4",
         "--device", "cpu", "--check"]), include_codes=False)
-    assert out["n_check_failures"] == 0
+    assert out["n_self_misses"] == 0
     assert "check self-queries on device codes: 8/8 rank 0" in (
         capsys.readouterr().out)
