@@ -12,10 +12,13 @@ non-zero:
   3. kernels — every kernel against its plain torch version on the card
                at ~65k rows with a ragged tail: both fused-query passes
                (p in {2, 1, 0.5}, Q=64, d=400, beta=512, beta_q ~ 450,
-               L=16, n_valid below the row count); hash_encode (d in
-               {400, 397}, beta in {512, 449}, the projections of real
-               p = 2, 1, 0.5 families) within the float64 window and
-               row-independent; freq_level (c in {2, 3}) exactly;
+               L=16, n_valid below the row count); hash_encode ((d,
+               beta) in {(400, 512), (397, 449)}, and a ragged (12,345,
+               37, 257) across every edge of its 128 x 64 blocks and
+               32-dim slabs; the projections of real p = 2, 1, 0.5
+               families) equal to its plain version, within the float64
+               window and row-independent; freq_level (c in {2, 3})
+               exactly;
                weighted_lp (p in {1, 0.5}, d in {400, 397}) to rtol 1e-5
   4. slice   — the synchronous query path at the paper's default data
                scale (n=400,000, d=400, |S|=24, p=2, tau=500, c=3,
@@ -49,6 +52,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -76,7 +80,11 @@ SFU_OPS = 132 * 16 * 1.98e9
 SLICE = dict(n=400_000, d=400, n_weights=24, n_subset=6, n_subrange=20,
              p=2.0, tau=500.0, c=3, v=6, k=10, q_batch=64, n_queries=256,
              n_check=8, reps=3)
-CHECK_ROWS = 65_536 - 53  # ragged against the kernel's 128-row blocks
+CHECK_ROWS = 65_536 - 53  # ragged against the kernels' 128-row blocks
+# (n, d, beta) of the hash_encode checks; the last is ragged against its
+# 128-row, 64-code blocks, its 32-dim slabs and its 8-dim runs
+HASH_SHAPES = ((CHECK_ROWS, 400, 512), (CHECK_ROWS, 397, 449),
+               (12_345, 37, 257))
 
 _CSRC = "src/repro_torch/kernels/csrc/"
 KERNELS = {  # name: (the TPU kernel it replaces, its CUDA source)
@@ -197,8 +205,24 @@ def phase_build():
         f"{info['seconds']:.1f}s")
     for src, report in info.get("ptxas", {}).items():
         regs = [ln.strip() for ln in report.splitlines()
-                if "registers" in ln or "Compiling entry" in ln]
+                if "registers" in ln or "Compiling entry" in ln
+                or "spill" in ln]
         say(f"  ptxas {src}: {' | '.join(regs)}")
+
+
+def _ptxas_summary(src: str) -> str:
+    """Registers and spill bytes of ``src``'s first kernel, from the build
+    phase's ptxas report."""
+    from repro_torch.kernels import _cuda
+
+    report = _cuda.build_info.get("ptxas", {}).get(src, "")
+    regs = re.search(r"Used (\d+) registers", report)
+    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      report)
+    if not (regs and spill):
+        return "ptxas: not reported (no fresh build in this run)"
+    return (f"ptxas: {regs[1]} registers, {spill[1]} B spill stores, "
+            f"{spill[2]} B spill loads")
 
 
 def _hold(torch, inp, p, kernel_out, plain_out, label):
@@ -309,8 +333,8 @@ def _check_hash_encode(torch, dev) -> float:
     from repro_torch.kernels.hash_encode import hash_encode
 
     err = 0.0
-    for d, beta in ((400, 512), (397, 449)):
-        x = torch.from_numpy(make_dataset(CHECK_ROWS, d, seed=d)).to(dev)
+    for n, d, beta in HASH_SHAPES:
+        x = torch.from_numpy(make_dataset(n, d, seed=d)).to(dev)
         weights = make_weight_set(8, d, n_subset=2, n_subrange=20,
                                   seed=d + 1)
         for p in (2.0, 1.0, 0.5):
@@ -343,7 +367,7 @@ def _check_hash_encode(torch, dev) -> float:
                 fam.width)[0] for i in range(64)])
             same = (torch.equal(batch, got[:64])
                     and torch.equal(alone, got[:64]))
-            say(f"kernels hash_encode p={p} n={CHECK_ROWS} d={d} "
+            say(f"kernels hash_encode p={p} n={n} d={d} "
                 f"beta={beta}: outside the float64 window (E = 16 * 2^-24 "
                 f"* S): kernel {miss_k}, plain {miss_p}; kernel != plain on "
                 f"{differ:.3g} of codes; {sat} entries at the saturated "
@@ -947,8 +971,8 @@ def _times_hash_encode(torch, dev, errs, smi, inputs, launches):
         f"): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul "
         f"(the product alone, TF32 off) {lib_ms:.3f} ms, bound "
         f"{bound[0]:.3f} ms by {bound[1]} ({flops} flops, {bytes_} bytes); "
-        f"{miss} codes outside the window, kernel != plain on {differ:.3g} "
-        f"[{smi}]")
+        f"{miss} codes outside the window, kernel != plain on {differ:.3g}; "
+        f"{_ptxas_summary('hash_encode.cu')} [{smi}]")
     return _row("hash_encode", launches, max(errs["hash_encode"], gap), ms,
                 plain_ms, bound, lib_ms)
 

@@ -7,10 +7,11 @@ device-encode build and the query encode of a plan without host codes
 run through it.
 
 For tensors on the CPU the wrapper takes the plain torch version
-(``ref.hash_encode_ref``), which sums in the kernel's order, so the two
-agree bit for bit.  For CUDA tensors it checks device, dtype, contiguity
-and shape, allocates the output, launches on the current stream and
-raises if the launch fails; there is no fallback.
+(``ref.hash_encode_ref``), which takes the kernel's fused multiply-adds
+in the kernel's order and rounds each once, so the two agree bit for
+bit.  For CUDA tensors it checks device, dtype, contiguity and shape,
+allocates the output, launches on the current stream and raises if the
+launch fails; there is no fallback.
 """
 
 from __future__ import annotations

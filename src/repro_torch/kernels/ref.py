@@ -1,11 +1,12 @@
 """Plain torch versions of the query-step kernels.
 
 These define the semantics the CUDA kernels are held to: integer outputs
-exactly (hash codes too: the kernel sums in ``hash_encode_ref``'s order),
-distances to a float32 tolerance.  They run on any device; the kernel
-wrappers (``fused_query.py``, ``hash_encode.py``, ``freq_level.py``,
-``weighted_lp.py``) take them for tensors on the CPU, and
-``chip_smoke.py`` runs them on the card beside the kernels.  Shapes:
+exactly (hash codes too: the kernel takes ``hash_encode_ref``'s fused
+multiply-adds in its order, and ``fma_f32`` rounds each once, as the
+card's FMA does), distances to a float32 tolerance.  They run on any
+device; the kernel wrappers (``fused_query.py``, ``hash_encode.py``,
+``freq_level.py``, ``weighted_lp.py``) take them for tensors on the CPU,
+and ``chip_smoke.py`` runs them on the card beside the kernels.  Shapes:
 
   hash_encode_ref : (n, d) x (d, beta) -> (n, beta) int32 bucket codes
   freq_level_ref  : (n, beta) codes x (Q, beta) query codes -> (Q, n) int32
@@ -39,6 +40,7 @@ import math
 import torch
 
 __all__ = [
+    "fma_f32",
     "hash_encode_ref",
     "hash_code_window",
     "unbias_codes",
@@ -68,18 +70,44 @@ _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
 _WINDOW_ULPS = 16.0  # hash_code_window's E, in units of 2**-24 * S
 
 
+def fma_f32(x, a, c):
+    """``fmaf(x, a, c)`` elementwise on float32 tensors: ``x * a + c``
+    rounded once to float32 (to nearest, ties to even), as the card's FMA.
+
+    ``x * a`` is exact in float64 (24 + 24 bits fit in 53).  The float64
+    sum ``s`` of it and ``c`` is rounded to odd: where TwoSum finds it
+    inexact and its last bit is even, it moves one ulp toward the exact
+    value.  Rounding that to float32 gives the correctly rounded result;
+    rounding the nearest float64 to float32 instead would round twice and
+    could land on the wrong side of a float32 midpoint.
+    """
+    p = x.double() * a.double()
+    r = c.double()
+    s = p + r
+    bb = s - p
+    err = (p - (s - bb)) + (r - bb)  # TwoSum: s + err == p + r exactly
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.copysign(torch.full_like(s, math.inf), err)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def hash_encode_ref(points, proj, b_int, b_frac, weight, width):
     """floor((a . (W o x))/w + b_frac) + b_int, exact-int split of b*.
 
     Every output is summed over d in one fixed order, whatever the number
-    of rows: products ``(x_i w_i) a_ij`` rounded on their own, summed in
-    runs of 8 dims, each run added to its 32-dim tile's sum, each tile's
-    sum added to the total (multiply and add rounded apart, no FMA).  The
-    CUDA kernel sums in the same order, so the two agree bit for bit and a
-    row encodes the same alone or in any batch.  At d = 400 this order
-    stays within ~10 * 2**-24 * S of the exact sum (S = sum |x_i w_i
-    a_ij|) on heavy-tailed (p <= 1) projections, where one sequential sum
-    reaches ~40 and a blocked matrix product ~30.
+    of rows.  With ``xw_i = RN(x_i w_i)`` in float32, the dims fall into
+    32-dim tiles and each tile into 8-dim runs (the last run and tile may
+    be ragged); ``run = fma(xw_i, a_ij, run)`` from 0 over a run's dims,
+    each rounded once (``fma_f32``), then ``tile = RN(tile + run)`` after
+    each run and ``acc = RN(acc + tile)`` after each tile.  The CUDA
+    kernel takes the same steps with ``__fmaf_rn`` / ``__fadd_rn``, so the
+    two agree bit for bit and a row encodes the same alone or in any
+    batch.  At d = 400 this order stays within ~10 * 2**-24 * S of the
+    exact sum (S = sum |x_i w_i a_ij|) on heavy-tailed (p <= 1)
+    projections, where one sequential sum reaches ~40 and a blocked
+    matrix product ~30; an FMA rounds once where a multiply and an add
+    round twice, so it can only come closer.
 
     ``floor(u)`` converts to int32 saturating, as XLA's convert does:
     u >= 2**31 gives INT_MAX, u < -2**31 gives INT_MIN.  Then ``+ b_int``
@@ -92,7 +120,7 @@ def hash_encode_ref(points, proj, b_int, b_frac, weight, width):
     beta = a.shape[1]
     w = torch.tensor(width, dtype=torch.float32, device=dev)
     out = torch.empty((n, beta), dtype=torch.int32, device=dev)
-    step = _row_chunk(1, beta)
+    step = _row_chunk(2, beta)  # fma_f32's float64 temporaries: half
     for lo in range(0, n, step):
         xs = x[lo : lo + step]
         acc = torch.zeros((len(xs), beta), dtype=torch.float32, device=dev)
@@ -101,7 +129,7 @@ def hash_encode_ref(points, proj, b_int, b_frac, weight, width):
             for r0 in range(t0, min(d, t0 + _TILE), _RUN):
                 run = torch.zeros_like(acc)
                 for i in range(r0, min(d, r0 + _RUN)):
-                    run += xs[:, i, None] * a[i]
+                    run = fma_f32(xs[:, i, None], a[i], run)
                 tile += run
             acc += tile
         u = acc / w + b_frac.float()

@@ -120,7 +120,11 @@ def _family(p, d, beta, seed, dev):
 
 
 @pytest.mark.parametrize("p", [2.0, 1.0, 0.5])
-@pytest.mark.parametrize("n,d,beta", [(333, 70, 100), (64, 400, 64)])
+@pytest.mark.parametrize("n,d,beta", [(333, 70, 100), (64, 400, 64),
+                                      # across the kernel's 128 x 64 block,
+                                      # 32-dim slab and 8-dim run edges
+                                      (1, 33, 65), (129, 397, 449),
+                                      (1000, 31, 513)])
 def test_hash_encode_matches_plain_version(dev, p, n, d, beta):
     (w, proj, b_int, b_frac), width = _family(p, d, beta, 3, dev)
     x = torch.from_numpy(np.random.default_rng(4).uniform(

@@ -12,6 +12,9 @@ the absolute error scale with the norms, not with the distance.
 
 from __future__ import annotations
 
+import math
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
@@ -148,6 +151,100 @@ def test_hash_encode_matches_jax(p):
         v = ref.unbias_codes(torch.from_numpy(np.array(codes)),
                              torch.from_numpy(fam.b_int))
         assert bool(((v >= lo) & (v <= hi)).all())
+
+
+def _round_f32(v: Fraction) -> float:
+    """``v`` rounded to float32, to nearest with ties to even, exactly."""
+    if v == 0:
+        return 0.0
+    m = abs(v)
+    e = m.numerator.bit_length() - m.denominator.bit_length()
+    if Fraction(2) ** e > m:
+        e -= 1  # 2**e <= m < 2**(e + 1)
+    quantum = Fraction(2) ** (max(e, -126) - 23)  # subnormals: 2**-149
+    return math.copysign(float(round(m / quantum) * quantum), v)
+
+
+def _fma_exact(x, a, c) -> float:
+    return _round_f32(Fraction(float(x)) * Fraction(float(a))
+                      + Fraction(float(c)))
+
+
+def _fma_triples(kind: str, rng):
+    def f32(n, lo, hi):
+        return (rng.standard_normal(n) * 2.0 ** rng.integers(lo, hi, n)
+                ).astype(np.float32)
+
+    if kind == "double_rounding":  # RN to float64, then to float32, is off
+        one = np.float32(1 + 2.0**-12)
+        return (np.array([one]), np.array([one]),
+                np.array([2.0**-80], np.float32))
+    n = 2_000
+    x, a = f32(n, -30, 30), f32(n, -30, 30)
+    if kind == "random":
+        return x, a, f32(n, -70, 70)
+    # cancelling: c within a few float32 ulps of -(x * a)
+    c = (-(x.astype(np.float64) * a)).astype(np.float32)
+    steps = rng.integers(-3, 4, n)
+    toward = np.where(steps > 0, np.inf, -np.inf).astype(np.float32)
+    for _ in range(3):
+        c = np.where(np.abs(steps) > 0, np.nextafter(c, toward), c)
+        steps = steps - np.sign(steps)
+    return x, a, c
+
+
+@pytest.mark.parametrize("kind", ["random", "cancelling", "double_rounding"])
+def test_fma_f32_rounds_once(kind):
+    """ref.fma_f32 equals x * a + c taken exactly (fractions.Fraction) and
+    rounded once to float32 with ties to even, as the card's FMA."""
+    x, a, c = _fma_triples(kind, np.random.default_rng(21))
+    got = ref.fma_f32(*(torch.from_numpy(v) for v in (x, a, c))).numpy()
+    want = np.array([_fma_exact(*t) for t in zip(x, a, c)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    if kind == "double_rounding":
+        assert got[0] == np.float32(1 + 2.0**-11 + 2.0**-23)
+        assert np.float32(np.float64(x[0]) * np.float64(a[0])
+                          + np.float64(c[0])) != got[0]
+
+
+@pytest.mark.parametrize("p", _PS)
+def test_hash_encode_ref_takes_the_fma_order(p):
+    """One row at d = 37 (a ragged last run and tile) summed by a scalar
+    loop in the kernel's order, each FMA exact and rounded once, equals
+    hash_encode_ref's row bit for bit: at the family's width, and at a
+    power-of-two width that puts the largest |u| near 2**30, so the codes
+    carry the sums' last bits."""
+    from repro_torch.core.families import sample_lp_family
+
+    d, beta = 37, 16
+    rng = np.random.default_rng(22)
+    x = rng.uniform(0, 10_000, (1, d)).astype(np.float32)
+    cw = rng.uniform(1, 10, d).astype(np.float32)
+    fam = sample_lp_family(d, beta, p, 40.0, cw, 500.0, 3, seed=23)
+    xw = x[0] * cw  # float32, rounded once
+    sums = []
+    for j in range(beta):
+        acc = np.float32(0)
+        for t0 in range(0, d, 32):
+            tile = np.float32(0)
+            for r0 in range(t0, min(d, t0 + 32), 8):
+                run = np.float32(0)
+                for i in range(r0, min(d, r0 + 8)):
+                    run = np.float32(_fma_exact(xw[i], fam.proj[i, j], run))
+                tile = np.float32(tile + run)
+            acc = np.float32(acc + tile)
+        sums.append(acc)
+    top = max(abs(float(v)) for v in sums)
+    for width in (fam.width, 2.0 ** (math.ceil(math.log2(top)) - 30)):
+        got = ref.hash_encode_ref(*(torch.from_numpy(v) for v in (
+            x, fam.proj, fam.b_int, fam.b_frac, cw)), width).numpy()[0]
+        w32 = np.float32(width)
+        for j, acc in enumerate(sums):
+            u = np.float32(np.float32(acc / w32) + fam.b_frac[j])
+            v = (2**31 - 1 if u >= 2.0**31 else -(2**31)
+                 if u < -(2.0**31) else math.floor(u))
+            want = (v + int(fam.b_int[j]) + 2**31) % 2**32 - 2**31
+            assert got[j] == want, (width, j)
 
 
 @pytest.mark.parametrize("c", [2, 3])
