@@ -8,11 +8,16 @@ non-zero:
 
   1. device  — nvidia-smi's name and power limit, torch and CUDA versions
   2. build   — compile every kernels/csrc/*.cu with nvcc for sm_90a (one
-               object per source, in parallel) into one library
+               object per source, in parallel) into one library; ptxas
+               registers and spills per source, and the fused passes'
+               shared bytes per block and resident blocks per SM
   3. kernels — every kernel against its plain torch version on the card
                at ~65k rows with a ragged tail: both fused-query passes
                (p in {2, 1, 0.5}, Q=64, d=400, beta=512, beta_q ~ 450,
-               L=16, n_valid below the row count); hash_encode ((d,
+               L=16, n_valid below the row count; and c in {2, 3} at
+               L=24 with Q=61, on real codes and on codes at the level
+               test's edges: INT_MIN, INT_MAX, -1, 0, +-3^19, 3^20 -
+               2^31, pairs that differ by +-c^k); hash_encode ((d,
                beta) in {(400, 512), (397, 449)}, and a ragged (12,345,
                37, 257) across every edge of its 128 x 64 blocks and
                32-dim slabs; the projections of real p = 2, 1, 0.5
@@ -40,6 +45,10 @@ non-zero:
                one PyTorch call that computes the same function where
                there is one, and the bound from bytes and operations
 
+Named in ``--phases`` only: ``variants`` builds the fused passes with
+other tile sizes (``FQ_VARIANTS``) and times each at the widest group's
+shape on seeded codes.
+
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, the script fails before
@@ -62,9 +71,15 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "tests"))  # _torch_inputs: edge codes
 
 PHASES = ("device", "build", "kernels", "slice", "encode", "unfused",
           "times")
+EXTRA_PHASES = ("variants",)  # run only when named in --phases
+# (ROWS, QT, TC, the wide c = 3 word test at every L) of the fused passes
+# timed by the variants phase; the first is the default build's
+FQ_VARIANTS = ((128, 8, 16, 0), (128, 16, 16, 0), (128, 8, 16, 1),
+               (128, 8, 32, 0), (256, 8, 16, 0), (64, 8, 16, 0))
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
 # float32 outside the tensor cores, int32 at 64 lanes per SM x 132 SMs
@@ -110,14 +125,15 @@ def say(msg: str) -> None:
 
 
 def _kernel_inputs(p: float, n_rows: int, seed: int, torch, dev,
-                   d: int = SLICE["d"]):
+                   d: int = SLICE["d"], q: int = 64, c: int = 3,
+                   L: int = 16):
     """Seeded pass inputs at the kernel-check shapes, as tensors on dev."""
     from repro_torch.core.datagen import make_dataset, make_weight_set
     from repro_torch.core.distances import radius_bounds
     from repro_torch.core.families import hash_codes_np, sample_lp_family
 
     rng = np.random.default_rng(seed)
-    q, beta, L, c = 64, 512, 16, 3
+    beta = 512
     data = make_dataset(n_rows, d, seed=seed)
     weights = make_weight_set(8, d, n_subset=2, n_subrange=20, seed=seed + 1)
     # p < 1 families are so heavy-tailed that codes overflow int32 at this
@@ -154,6 +170,21 @@ def _kernel_inputs(p: float, n_rows: int, seed: int, torch, dev,
         stop=put(stop, np.int32),
         c=c, n_levels=L,
     )
+
+
+def _edge_inputs(n_rows: int, q: int, c: int, L: int, seed: int, torch,
+                 dev):
+    """``_kernel_inputs``' dict with codes at the level test's edges
+    (``tests/_torch_inputs.make_edge_inputs``)."""
+    from _torch_inputs import make_edge_inputs
+
+    arrs = make_edge_inputs(n_rows, SLICE["d"], 512, q, c, L, seed)
+    names = ("codes_p", "codes_q", "points", "queries", "q_weight", "mu",
+             "beta_q", "r_min", "stop")
+    inp = {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+           for k, a in zip(names, arrs)}
+    inp.update(c=c, n_levels=L)
+    return inp
 
 
 def _pass_args(inp, which):
@@ -208,21 +239,41 @@ def phase_build():
                 if "registers" in ln or "Compiling entry" in ln
                 or "spill" in ln]
         say(f"  ptxas {src}: {' | '.join(regs)}")
+    from repro_torch.kernels import fused_query
+
+    say(f"build fused_query.cu {_ptxas_summary('fused_query.cu')}")
+    for c, L in ((3, 16), (2, 24)):
+        say(f"build {_occupancy_line(fused_query, c, L)}")
 
 
-def _ptxas_summary(src: str) -> str:
-    """Registers and spill bytes of ``src``'s first kernel, from the build
-    phase's ptxas report."""
+def _ptxas_summary(src: str, report: str | None = None) -> str:
+    """Registers and spill bytes of ``src``'s kernels (the most over its
+    entry points), from the build phase's ptxas report."""
     from repro_torch.kernels import _cuda
 
-    report = _cuda.build_info.get("ptxas", {}).get(src, "")
-    regs = re.search(r"Used (\d+) registers", report)
-    spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      report)
+    if report is None:
+        report = _cuda.build_info.get("ptxas", {}).get(src, "")
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+    spill = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       report)
     if not (regs and spill):
         return "ptxas: not reported (no fresh build in this run)"
-    return (f"ptxas: {regs[1]} registers, {spill[1]} B spill stores, "
-            f"{spill[2]} B spill loads")
+    return (f"ptxas: {max(regs)} registers, "
+            f"{max(int(st) for st, _ in spill)} B spill stores, "
+            f"{max(int(ld) for _, ld in spill)} B spill loads (most over "
+            f"{len(regs)} kernels)")
+
+
+def _occupancy_line(fq, c: int, L: int) -> str:
+    """Shared bytes per block and resident blocks per SM of both fused
+    passes at (c, L), from the loaded library."""
+    occ = {w: fq.occupancy(w, c, L) for w in ("hist", "scores")}
+    o = occ["hist"]
+    return (f"fused_query c={c} L={L}: ROWS={o['rows']} QT={o['qt']} "
+            f"TC={o['tc']}; " + "; ".join(
+                f"{w} {v['smem_bytes']} B shared per block, "
+                f"{v['blocks_per_sm']} blocks per SM, {v['registers']} "
+                f"registers" for w, v in occ.items()))
 
 
 def _hold(torch, inp, p, kernel_out, plain_out, label):
@@ -436,30 +487,51 @@ def _check_weighted_lp(torch, dev) -> float:
     return err
 
 
-def phase_kernels(torch, dev):
-    """Each kernel against its plain version on the card."""
+def _check_fused(torch, dev, inp, p, label):
+    """Both fused passes against their plain versions on ``inp``, rows at
+    and past ``n_rows - 777`` dead (``_hold``'s rules)."""
     from repro_torch.kernels import fused_query, ref
 
-    n_rows = CHECK_ROWS
+    n_rows = inp["codes_p"].shape[0]
     n_valid = n_rows - 777  # dead tail below the row count
+    kw = dict(boff=0, n_valid=n_valid, c=inp["c"], n_levels=inp["n_levels"],
+              p=p)
+    row_ok = torch.arange(n_rows, device=dev) < n_valid
+    hf, hg = fused_query.fused_query_hist(*_pass_args(inp, "hist"), **kw)
+    sc = fused_query.fused_query_scores(*_pass_args(inp, "scores"), **kw)
+    _sync(torch, dev)
+    rf, rg = ref.fused_query_hist_ref(*_pass_args(inp, "hist"), row_ok,
+                                      c=kw["c"], n_levels=kw["n_levels"], p=p)
+    rs = ref.fused_query_scores_ref(*_pass_args(inp, "scores"), row_ok,
+                                    c=kw["c"], n_levels=kw["n_levels"], p=p)
+    _sync(torch, dev)
+    q, beta = inp["codes_q"].shape
+    return _hold(torch, inp, p, (hf, hg, sc), (rf, rg, rs),
+                 f"{label} (Q={q} n={n_rows} beta={beta} c={inp['c']} "
+                 f"L={inp['n_levels']}; first frequent levels 0..L+2 "
+                 f"counted {rf.sum(0).tolist()})")
+
+
+def phase_kernels(torch, dev):
+    """Each kernel against its plain version on the card."""
+    n_rows = CHECK_ROWS
     err = {"fused_query_hist": 0.0, "fused_query_scores": 0.0}
     for i, p in enumerate((2.0, 1.0, 0.5)):
         inp = _kernel_inputs(p, n_rows, seed=100 + i, torch=torch, dev=dev)
-        kw = dict(boff=0, n_valid=n_valid, c=inp["c"],
-                  n_levels=inp["n_levels"], p=p)
-        row_ok = torch.arange(n_rows, device=dev) < n_valid
-        hf, hg = fused_query.fused_query_hist(*_pass_args(inp, "hist"), **kw)
-        sc = fused_query.fused_query_scores(*_pass_args(inp, "scores"), **kw)
-        _sync(torch, dev)
-        rf, rg = ref.fused_query_hist_ref(
-            *_pass_args(inp, "hist"), row_ok, c=kw["c"],
-            n_levels=kw["n_levels"], p=p)
-        rs = ref.fused_query_scores_ref(
-            *_pass_args(inp, "scores"), row_ok, c=kw["c"],
-            n_levels=kw["n_levels"], p=p)
-        _sync(torch, dev)
-        err = _max_err(err, _hold(torch, inp, p, (hf, hg, sc), (rf, rg, rs),
-                                  f"kernels p={p}"))
+        err = _max_err(err, _check_fused(torch, dev, inp, p,
+                                         f"kernels p={p}"))
+    # the word test's edges: c = 2 and 3 at L = 24 (IndexConfig's default
+    # depth), Q = 61 ragged against the query block, on real codes and on
+    # codes at the int32 extremes, the signs' meeting point and +-c^k
+    for i, c in enumerate((2, 3)):
+        inp = _kernel_inputs(2.0, n_rows, seed=130 + i, torch=torch, dev=dev,
+                             q=61, c=c, L=24)
+        err = _max_err(err, _check_fused(torch, dev, inp, 2.0,
+                                         f"kernels c={c} L=24 p=2.0"))
+        inp = _edge_inputs(n_rows, 61, c, 24, 140 + i, torch, dev)
+        err = _max_err(err, _check_fused(torch, dev, inp, 2.0,
+                                         f"kernels edge codes c={c} L=24 "
+                                         f"p=2.0"))
     err["hash_encode"] = _check_hash_encode(torch, dev)
     err["freq_level"] = _check_freq_level(torch, dev)
     err["weighted_lp"] = _check_weighted_lp(torch, dev)
@@ -880,6 +952,93 @@ def phase_unfused(torch, dev, sl):
                 weighted_lp=launches["weighted_lp"], pass1=(t_f, t_u))
 
 
+def phase_variants(torch, dev, smi):
+    """The fused passes built with other tile sizes (``-DWLSH_FQ_ROWS``,
+    ``_QT``, ``_TC``) or the wide word test (``-DWLSH_FQ_WIDE``), one nvcc
+    each in parallel, timed at the widest group's shape on seeded real
+    codes (n = 400,000, beta = 512, Q = 64, d = 400, L = 16, c = 3, p = 2);
+    the first is held to the plain version, the others to the first
+    (integers exactly).  Pass 1 is also timed with d = 0 (the matching
+    alone), with d = 0 and c = 2 (the matching without c = 3's base-3
+    conversion) and with beta_q = 0 (the distance alone)."""
+    from repro_torch.kernels import _cuda, fused_query
+
+    out_dir = _cuda._BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs, cmds = [], []
+    for rows, qt, tc, wide in FQ_VARIANTS:
+        lib = out_dir / f"libwlsh_fq_{rows}_{qt}_{tc}_{wide}.so"
+        libs.append(lib)
+        cmds.append([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v",
+                     f"-DWLSH_FQ_ROWS={rows}", f"-DWLSH_FQ_QT={qt}",
+                     f"-DWLSH_FQ_TC={tc}", f"-DWLSH_FQ_WIDE={wide}",
+                     "-shared", "-o", str(lib),
+                     str(_cuda.CSRC / "fused_query.cu")])
+    t0 = time.perf_counter()
+    reports = _cuda._run(cmds)
+    say(f"variants: {len(cmds)} builds of fused_query.cu in parallel in "
+        f"{time.perf_counter() - t0:.1f}s")
+    n = SLICE["n"]
+    inp = _kernel_inputs(2.0, n, seed=150, torch=torch, dev=dev)
+    kw = dict(boff=0, n_valid=n, c=inp["c"], n_levels=inp["n_levels"], p=2.0)
+    hist, scores = _pass_args(inp, "hist"), _pass_args(inp, "scores")
+    no_dims = [t[:, :0].contiguous() if k in ("points", "queries", "q_weight")
+               else t for k, t in zip(("codes_p", "points", "codes_q",
+                                       "queries", "q_weight"), hist)]
+    match_only = no_dims + hist[5:]
+    dist_only = hist[:6] + [torch.zeros_like(inp["beta_q"]), hist[7]]
+    first = None
+    for (rows, qt, tc, wide), lib, report in zip(FQ_VARIANTS, libs, reports):
+        _cuda.load(lib)
+        out = (*fused_query.fused_query_hist(*hist, **kw),
+               fused_query.fused_query_scores(*scores, **kw))
+        _sync(torch, dev)
+        if first is None:
+            from repro_torch.kernels import ref
+
+            row_ok = torch.ones(n, dtype=torch.bool, device=dev)
+            plain = (*ref.fused_query_hist_ref(*hist, row_ok, c=kw["c"],
+                                               n_levels=kw["n_levels"], p=2.0),
+                     ref.fused_query_scores_ref(*scores, row_ok, c=kw["c"],
+                                                n_levels=kw["n_levels"],
+                                                p=2.0))
+            _hold(torch, inp, 2.0, out, plain, "variants default vs plain")
+            first, same = out, "the plain version's (above)"
+        else:
+            _need(torch.equal(out[0], first[0])
+                  and torch.equal(torch.isinf(out[2]),
+                                  torch.isinf(first[2])),
+                  f"variant {rows}/{qt}/{tc}/{wide}: hist_f or the +inf "
+                  f"mask differs from the default build's")
+            fin = ~torch.isinf(first[2])
+            same = (f"the default's hist_f and +inf mask; hist_g "
+                    f"{int((out[1] - first[1]).abs().sum()) // 2} rows "
+                    f"moved, scores max |diff| "
+                    f"{_top((out[2] - first[2])[fin].abs().double()):.3g}")
+        t_h = _time_ms(lambda: fused_query.fused_query_hist(*hist, **kw),
+                       torch, reps=5)
+        t_s = _time_ms(lambda: fused_query.fused_query_scores(*scores, **kw),
+                       torch, reps=5)
+        t_m = _time_ms(lambda: fused_query.fused_query_hist(*match_only,
+                                                            **kw),
+                       torch, reps=5)
+        t_d = _time_ms(lambda: fused_query.fused_query_hist(*dist_only, **kw),
+                       torch, reps=5)
+        kw2 = dict(kw, c=2)  # the same codes through c = 2's words
+        t_2 = _time_ms(lambda: fused_query.fused_query_hist(*match_only,
+                                                            **kw2),
+                       torch, reps=5)
+        occ = fused_query.occupancy("hist", kw["c"], kw["n_levels"])
+        say(f"variants ROWS={rows} QT={qt} TC={tc} wide={wide}: hist {t_h:.3f} ms (d = 0: {t_m:.3f} ms, d = 0 and "
+            f"c = 2: {t_2:.3f} ms, beta_q = 0: {t_d:.3f} ms), scores "
+            f"{t_s:.3f} ms; {occ['smem_bytes']} B "
+            f"shared per block, {occ['blocks_per_sm']} blocks per SM; "
+            f"{_ptxas_summary('fused_query.cu', report)}; equal to {same} "
+            f"[{smi}]")
+        del out
+    _cuda.load()
+
+
 def _bound(bytes_, ops_ms: float):
     """(bound ms, what bounds it) from bytes and the operations' time."""
     bytes_ms = 1e3 * bytes_ / HBM_BYTES_PER_S
@@ -926,6 +1085,8 @@ def _times_fused(torch, dev, sl, errs, smi, inputs):
     err = _hold(torch, inp, cfg.p, out_k, out_p,
                 f"times check (group {gi}, the main path's inputs)")
     errs = _max_err(errs, err)
+    say(f"times {_occupancy_line(fused_query, cfg.c, cfg.n_levels)}; "
+        f"{_ptxas_summary('fused_query.cu')} [{smi}]")
     table = []
     for name in ("fused_query_hist", "fused_query_scores"):
         bound = _bound(in_bytes + out_bytes[name], ops_ms)
@@ -1062,10 +1223,11 @@ def phase_times(torch, dev, sl, legs, errs, smi):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
+                    help="comma-separated subset of "
+                    + ",".join(PHASES + EXTRA_PHASES))
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES)
+    unknown = set(phases) - set(PHASES) - set(EXTRA_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -1084,6 +1246,8 @@ def main(argv=None) -> int:
     errs = None
     if "kernels" in phases:
         errs = phase_kernels(torch, dev)
+    if "variants" in phases:
+        phase_variants(torch, dev, smi)
     sl, legs = None, {}
     if "slice" in phases:
         sl = phase_slice(torch, dev)

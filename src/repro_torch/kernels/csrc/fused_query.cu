@@ -15,9 +15,11 @@
 // the row is dead.
 //
 // What bounds it on this card: integer work.  Pass 1 reads n*beta*4 +
-// n*d*4 bytes per launch but makes Q*n*beta_q level-agreement tests, each
-// up to L+1 levels deep, so it sits far above the memory roofline; the
-// distance adds Q*n*d multiply-adds in float32.
+// n*d*4 bytes per launch but makes Q*n*beta_q level-agreement tests, so it
+// sits far above the memory roofline; the distance adds Q*n*d
+// multiply-adds in float32.  Each test costs about 13 instructions (one a
+// quarter-rate bit scan) and one shared-memory atomic, so issue and the
+// shared-memory pipe bound the matching together.
 //
 // What the design does about it:
 //   * One launch covers the whole state; the TPU grid's sequential block
@@ -25,19 +27,33 @@
 //     integer atomics (shared memory per block, then one global add per
 //     nonzero bin), so the result equals the reference's running sums.
 //   * A block takes ROWS rows (one thread each) and QT queries, so every
-//     code and vector tile it stages in shared memory serves QT queries
-//     (the Pallas grid re-reads codes for every query).
-//   * The first-frequent level comes from level_match.cuh, shared with the
-//     standalone freq_level kernel: codes staged TC lanes at a time,
-//     per-level query codes computed once per block, branch-free
-//     first-agreement counts per (query, row) in shared memory, floor
-//     division toward minus infinity with c = 2 and c = 3 as template
-//     constants.
+//     code and vector tile it stages serves QT queries.  The QT-query
+//     blocks of one row tile are neighbours in launch order, so all but
+//     the first read the tile's codes and vectors from L2, not HBM.
+//   * Level test in constant time (level_match.cuh,
+//     count_agreements_words): for c = 2 and c = 3 the first agreeing
+//     level of a (row, lane) is one more than the highest differing base-c
+//     digit of the two codes, from an XOR and a bit scan of their digit
+//     words, without branches; a query's words are made once per block, a
+//     row's once per block for all QT queries, and each test adds one to a
+//     per-(query, row) level count in shared memory with one atomic, laid
+//     out so that a warp's 32 updates hit 32 banks.  Any other c walks the
+//     levels with floor division (count_agreements).
+//   * The matching (query words, code tile, counts) and the distance
+//     (vector tile, query weights) are never live together: lf[] is in
+//     registers once the counts are read.  They share one region of
+//     shared memory, so more blocks fit on an SM (4 of 128 threads at
+//     L = 16).
 //   * Float order follows the reference: p = 2 uses the norms expansion
 //     qw2 - 2 cross + onorm clamped at 0, then sqrtf; the good-level ceil
 //     is logf(max(dist, 1e-30)) / log(c) - logf(c r_min) / log(c).  The
 //     file is built without fast math, so logf, powf, sqrtf and division
 //     are the accurate ones.
+//
+// ROWS, QT and TC and the narrow c = 3 word test at L <= 16 were chosen by
+// timing variants on the card: chip_smoke.py --phases device,variants
+// builds this file with -DWLSH_FQ_ROWS, -DWLSH_FQ_QT, -DWLSH_FQ_TC and
+// -DWLSH_FQ_WIDE overrides.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,12 +61,25 @@
 
 #include "level_match.cuh"
 
+#ifndef WLSH_FQ_ROWS
+#define WLSH_FQ_ROWS 128
+#endif
+#ifndef WLSH_FQ_QT
+#define WLSH_FQ_QT 8
+#endif
+#ifndef WLSH_FQ_TC
+#define WLSH_FQ_TC 16
+#endif
+#ifndef WLSH_FQ_WIDE  // 1: c = 3 takes the wide word test at every L
+#define WLSH_FQ_WIDE 0
+#endif
+
 namespace {
 
-constexpr int ROWS = 128;  // rows per block, one thread per row
-constexpr int QT = 8;      // queries per block
-constexpr int TC = 16;     // code lanes staged per chunk
-constexpr int DC = 32;     // vector dims staged per chunk
+constexpr int ROWS = WLSH_FQ_ROWS;  // rows per block, one thread per row
+constexpr int QT = WLSH_FQ_QT;      // queries per block
+constexpr int TC = WLSH_FQ_TC;      // code lanes staged per chunk
+constexpr int DC = 32;              // vector dims staged per chunk
 
 struct Args {
   const int* codes_p;     // (B, beta)
@@ -70,34 +99,50 @@ struct Args {
 };
 
 using Match = wlsh::MatchSmem<ROWS, QT, TC>;
+using Words = wlsh::WordSmem<ROWS, QT, TC>;
+
+__host__ __device__ constexpr size_t align16(size_t x) {
+  return (x + 15) / 16 * 16;
+}
 
 // Shared-memory carve-up, shared by the kernel and the host size check.
+// The matching's arrays and the distance's share [0, meta).
 struct Layout {
-  size_t qb, ctile, ptile, wa, wb, meta, hist, cnt, total;
+  size_t tab, qw, ctile, cnt, ptile, wa, wb, meta, hist, total;
 };
 
+template <int C>
 __host__ __device__ inline Layout layout(int L) {
   Layout s;
   const size_t L3 = L + 3;
-  s.qb = 0;                                             // int [QT][TC][L+1]
-  s.ctile = s.qb + Match::qb(L);                        // int [ROWS][TC+1]
-  s.ptile = s.ctile + Match::ctile();                   // float [ROWS][DC+1]
-  s.wa = s.ptile + sizeof(float) * ROWS * (DC + 1);     // float [QT][DC]
-  s.wb = s.wa + sizeof(float) * QT * DC;                // float [QT][DC]
-  s.meta = s.wb + sizeof(float) * QT * DC;              // 5 x [QT] words
-  s.hist = s.meta + sizeof(int) * 5 * QT;               // int [2][QT][L+3]
-  s.cnt = s.hist + sizeof(int) * 2 * QT * L3;           // u16 [QT][L+2][ROWS]
-  s.total = s.cnt + Match::cnt(L);
+  // matching: c = 3 digit table, query words (c = 2, 3) or per-level
+  // query codes (other c), code tile, level counts
+  s.tab = 0;                                             // u16 [3^6]
+  s.qw = s.tab + (C == 3 ? Words::tab() : 0);            // uint2 [TC][QT]
+  s.ctile = s.qw + align16(C ? Words::qw() : Match::qb(L));  // int [ROWS][TC+1]
+  s.cnt = s.ctile + align16(Match::ctile());             // u16 [QT][L+2][ROWS]
+  const size_t match_end = s.cnt + Match::cnt(L);
+  // distance, over the same bytes
+  s.ptile = 0;                                           // float [ROWS][DC+1]
+  s.wa = s.ptile + sizeof(float) * ROWS * (DC + 1);      // float [QT][DC]
+  s.wb = s.wa + sizeof(float) * QT * DC;                 // float [QT][DC]
+  const size_t dist_end = s.wb + sizeof(float) * QT * DC;
+  s.meta = align16(match_end > dist_end ? match_end : dist_end);  // 5 x [QT]
+  s.hist = s.meta + sizeof(int) * 5 * QT;                // int [2][QT][L+3]
+  s.total = s.hist + sizeof(int) * 2 * QT * L3;
   return s;
 }
 
-// MODE 0 = pass 1 (histograms), MODE 1 = pass 2 (scores).
-template <int MODE, int C>
+// MODE 0 = pass 1 (histograms), MODE 1 = pass 2 (scores); WIDE picks the
+// c = 3 word test for L > 16 (level_match.cuh, Digits).
+template <int MODE, int C, bool WIDE>
 __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay = layout(a.L);
-  int* s_qb = reinterpret_cast<int*>(smem + lay.qb);
+  const Layout lay = layout<C>(a.L);
+  unsigned short* s_tab = reinterpret_cast<unsigned short*>(smem + lay.tab);
+  unsigned char* s_qw = smem + lay.qw;
   int* s_ctile = reinterpret_cast<int*>(smem + lay.ctile);
+  unsigned short* s_cnt = reinterpret_cast<unsigned short*>(smem + lay.cnt);
   float* s_ptile = reinterpret_cast<float*>(smem + lay.ptile);
   float* s_wa = reinterpret_cast<float*>(smem + lay.wa);
   float* s_wb = reinterpret_cast<float*>(smem + lay.wb);
@@ -108,12 +153,13 @@ __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
   float* s_qw2 = reinterpret_cast<float*>(s_stop + QT);
   int* s_hf = reinterpret_cast<int*>(smem + lay.hist);
   int* s_hg = s_hf + QT * (a.L + 3);
-  unsigned short* s_cnt = reinterpret_cast<unsigned short*>(smem + lay.cnt);
 
   const int L2 = a.L + 2, L3 = a.L + 3;
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * ROWS;
-  const int q0 = blockIdx.y * QT;
+  // the query blocks of one row tile are neighbours in launch order
+  const int nqb = (a.Q + QT - 1) / QT;
+  const int row0 = (blockIdx.x / nqb) * ROWS;
+  const int q0 = (blockIdx.x % nqb) * QT;
   const int nq = min(QT, a.Q - q0);
   const int row = row0 + tid;
   const bool live_row = row < a.B;
@@ -139,7 +185,12 @@ __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
     }
     s_qw2[tid] = qw2;
   }
-  for (int i = tid; i < QT * L2 * ROWS; i += ROWS) s_cnt[i] = 0;
+  {
+    uint4* c4 = reinterpret_cast<uint4*>(s_cnt);  // Match::cnt is 16 B whole
+    for (int i = tid; i < (int)(Match::cnt(a.L) / 16); i += ROWS)
+      c4[i] = make_uint4(0, 0, 0, 0);
+  }
+  if (C == 3) wlsh::Base3::fill(s_tab, ROWS);
   if (MODE == 0)
     for (int i = tid; i < 2 * QT * L3; i += ROWS) s_hf[i] = 0;
   __syncthreads();
@@ -148,11 +199,21 @@ __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
   for (int q = 0; q < nq; ++q) bmax = max(bmax, s_bq[q]);
 
   // ---- first-frequent level (level_match.cuh) ---------------------------
-  wlsh::count_agreements<ROWS, QT, TC, C>(a.codes_p, a.codes_q, a.B, a.beta,
-                                          row0, q0, nq, a.c, a.L, s_bq, bmax,
-                                          s_qb, s_ctile, s_cnt);
   int lf[QT];
-  wlsh::first_frequent_levels<ROWS, QT>(s_cnt, s_mu, nq, live_row, a.L, lf);
+  if constexpr (C == 0) {
+    wlsh::count_agreements<ROWS, QT, TC, C>(
+        a.codes_p, a.codes_q, a.B, a.beta, row0, q0, nq, a.c, a.L, s_bq,
+        bmax, reinterpret_cast<int*>(s_qw), s_ctile, s_cnt);
+    wlsh::first_frequent_levels<ROWS, QT>(s_cnt, s_mu, nq, live_row, a.L,
+                                          lf);
+  } else {
+    wlsh::count_agreements_words<ROWS, QT, TC, C, WIDE>(
+        a.codes_p, a.codes_q, a.B, a.beta, row0, q0, nq, a.L, s_bq, bmax,
+        s_tab, reinterpret_cast<uint2*>(s_qw), s_ctile, s_cnt);
+    wlsh::first_frequent_levels_at<ROWS, QT>(
+        s_cnt, s_mu, nq, live_row, a.L, wlsh::count_slot<ROWS>(tid), lf);
+  }
+  __syncthreads();  // the distance's tiles overwrite the counts
 
   // ---- weighted l_p distance, DC dims at a time ---------------------------
   float acc0[QT], acc1[QT];
@@ -268,21 +329,34 @@ __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
   }
 }
 
-template <int MODE, int C>
+template <int MODE, int C, bool WIDE>
+cudaError_t set_smem(size_t* smem, int L) {
+  *smem = layout<C>(L).total;
+  return cudaFuncSetAttribute(fused_query_kernel<MODE, C, WIDE>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
+}
+
+template <int MODE, int C, bool WIDE>
 int launch_c(const Args& a, cudaStream_t stream) {
-  const size_t smem = layout(a.L).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_query_kernel<MODE, C>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (layout<C>(a.L).total > 227 * 1024) return (int)cudaErrorInvalidValue;
+  size_t smem;
+  const cudaError_t err = set_smem<MODE, C, WIDE>(&smem, a.L);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.B + ROWS - 1) / ROWS, (a.Q + QT - 1) / QT);
-  fused_query_kernel<MODE, C><<<grid, ROWS, smem, stream>>>(a);
+  const int nblocks = ((a.B + ROWS - 1) / ROWS) * ((a.Q + QT - 1) / QT);
+  fused_query_kernel<MODE, C, WIDE><<<nblocks, ROWS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// c = 3 takes the wide word test above L = 16 (level_match.cuh, Digits);
+// c = 2 the narrow one; any other c the division walk.
+inline bool wide3(int L) { return WLSH_FQ_WIDE || L > 16; }
+
 template <int MODE>
 int launch(Args& a, void* stream) {
-  if (a.L < 0 || a.beta > 65535 || layout(a.L).total > 227 * 1024)
+  if (a.L < 0 || a.beta > 65535 ||
+      (long long)((a.B + ROWS - 1) / ROWS) * ((a.Q + QT - 1) / QT) >
+          0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   if (a.B <= 0 || a.Q <= 0) return (int)cudaGetLastError();
   a.pkind = fabsf(a.p - 2.0f) < 1e-6f ? 0 : (fabsf(a.p - 1.0f) < 1e-6f ? 1 : 2);
@@ -290,9 +364,38 @@ int launch(Args& a, void* stream) {
   a.logc = (float)log((double)a.c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.c) {
-    case 2: return launch_c<MODE, 2>(a, s);
-    case 3: return launch_c<MODE, 3>(a, s);
-    default: return launch_c<MODE, 0>(a, s);
+    case 2: return launch_c<MODE, 2, false>(a, s);
+    case 3: return wide3(a.L) ? launch_c<MODE, 3, true>(a, s)
+                              : launch_c<MODE, 3, false>(a, s);
+    default: return launch_c<MODE, 0, false>(a, s);
+  }
+}
+
+template <int MODE, int C, bool WIDE>
+int occupancy_c(int L, int* out) {
+  size_t smem;
+  cudaError_t err = set_smem<MODE, C, WIDE>(&smem, L);
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, fused_query_kernel<MODE, C, WIDE>);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[1], fused_query_kernel<MODE, C, WIDE>, ROWS, smem);
+  out[0] = (int)smem;
+  out[2] = attr.numRegs;
+  out[3] = ROWS;
+  out[4] = QT;
+  out[5] = TC;
+  return (int)err;
+}
+
+template <int MODE>
+int occupancy(int c, int L, int* out) {
+  switch (c) {
+    case 2: return occupancy_c<MODE, 2, false>(L, out);
+    case 3: return wide3(L) ? occupancy_c<MODE, 3, true>(L, out)
+                            : occupancy_c<MODE, 3, false>(L, out);
+    default: return occupancy_c<MODE, 0, false>(L, out);
   }
 }
 
@@ -333,6 +436,14 @@ int wlsh_fused_query_scores(const int* codes_p, const float* points,
   a.B = B; a.beta = beta; a.Q = Q; a.d = d; a.boff = boff;
   a.n_valid = n_valid; a.c = c; a.L = L; a.p = p;
   return launch<1>(a, stream);
+}
+
+// What one launch of pass `mode` (0 = hist, 1 = scores) at (c, L) gets:
+// out[0] dynamic shared bytes per block, out[1] resident blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[2] registers per
+// thread, out[3..5] ROWS, QT, TC.  Returns the CUDA error code.
+int wlsh_fused_query_occupancy(int mode, int c, int L, int* out) {
+  return mode == 0 ? occupancy<0>(c, L, out) : occupancy<1>(c, L, out);
 }
 
 }  // extern "C"

@@ -28,6 +28,7 @@ __all__ = [
     "fused_query_hist",
     "fused_query_scores",
     "launch_counts",
+    "occupancy",
     "reset_launch_counts",
 ]
 
@@ -35,6 +36,7 @@ launch_counts = _cuda.counter("fused_query_hist", "fused_query_scores")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _HIST_ARGS = [_P] * 8 + [_I] * 8 + [_F, _P, _P, _P]
 _SCORES_ARGS = [_P] * 8 + [_I] * 8 + [_F, _P, _P]
+_OCC_KEYS = ("smem_bytes", "blocks_per_sm", "registers", "rows", "qt", "tc")
 
 
 def _check_inputs(codes_p, points, codes_q, queries, q_weight, mu, beta_q,
@@ -119,3 +121,17 @@ def fused_query_scores(codes_p, points, codes_q, queries, q_weight, mu,
             scores.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _cuda.launched("fused_query_scores", err, launch_counts)
     return scores
+
+
+def occupancy(which: str, c: int, n_levels: int) -> dict:
+    """What one launch of pass ``which`` ("hist" or "scores") at (c, L)
+    gets on the current card: dynamic shared bytes per block, resident
+    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    registers per thread, and the kernel's ROWS, QT and TC."""
+    out = (ctypes.c_int * len(_OCC_KEYS))()
+    fn = _cuda.function("wlsh_fused_query_occupancy", [_I, _I, _I, _P])
+    err = fn(0 if which == "hist" else 1, int(c), int(n_levels), out)
+    if err:
+        raise RuntimeError(f"fused_query occupancy query failed: CUDA "
+                           f"error {err}")
+    return dict(zip(_OCC_KEYS, out))

@@ -15,6 +15,13 @@ and ``chip_smoke.py`` runs them on the card beside the kernels.  Shapes:
                     level-c^j buckets); n_levels + 1 if never frequent.
   weighted_lp_ref : (Q, d) x (n, d) -> (Q, n) distances under one weight
 
+``freq_level_words_ref`` computes ``freq_level_ref``'s output the way the
+fused CUDA kernel does for c in {2, 3}: the first agreeing level of each
+(row, lane) read off base-c digit words (``digit_words``,
+``first_agreeing_level``), counted per level, the first level whose
+running count reaches mu.  Only tests use it, to hold that method to the
+level-by-level floor division.
+
 The fused-query versions (``fused_query_hist_ref`` /
 ``fused_query_scores_ref``) define one fused pass over a block of rows:
 first-frequent level, weighted distance, good-level histogramming or
@@ -45,6 +52,10 @@ __all__ = [
     "hash_code_window",
     "unbias_codes",
     "freq_level_ref",
+    "dead_word",
+    "digit_words",
+    "first_agreeing_level",
+    "freq_level_words_ref",
     "weighted_lp_ref",
     "log_c",
     "per_query_l2",
@@ -203,6 +214,105 @@ def freq_level_ref(codes_p, codes_q, mu, c: int, n_levels: int, beta_q=None):
             blk.masked_fill_(hit, j)
             a = torch.div(a, c, rounding_mode="floor")
             b = torch.div(b, c, rounding_mode="floor")
+    return out
+
+
+_P10, _TAB3 = 3**10, 3**6
+
+
+def _wide(c: int, n_levels: int) -> bool:
+    """The kernel's wide c = 3 word test (L > 16; see
+    ``csrc/level_match.cuh``, struct Digits)."""
+    return c == 3 and n_levels > 16
+
+
+def dead_word(c: int, n_levels: int) -> int:
+    """The word of a (query, lane) past the query's lanes: its high half
+    differs from every code's, so it agrees at no level."""
+    return (2 << 8 if _wide(c, n_levels) else 255 if c == 3 else 1) << 32
+
+
+def digit_words(codes, c: int, n_levels: int):
+    """int64 digit words ``hi << 32 | lo`` of int32 ``codes``, as the
+    kernel forms them for c in {2, 3} at depth ``n_levels``.
+
+    c = 2: lo = bits 0..30, hi = the sign (0 or 2**32 - 1).  c = 3: the 21
+    base-3 digits of code + 3**20 (in [0, 3**21) for every int32); lo =
+    digits 0..15, 2 bits each; hi = digits 16..20 as their value, or 2
+    bits each for the wide test.  Built as the kernel builds them:
+    floor(code / 3**10) + 3**10 and code mod 3**10, split at 3**6 into
+    six-digit table entries.
+    """
+    a = codes.long()
+    if c == 2:
+        return (a & 0x7FFFFFFF) | ((a >> 31) & 0xFFFFFFFF) << 32
+    v = torch.arange(_TAB3, device=a.device)
+    tab = torch.zeros_like(v)
+    for k in range(6):
+        tab |= (v % 3) << (2 * k)
+        v = v // 3
+    q = torch.div(a, _P10, rounding_mode="floor")
+    lo, hi = a - q * _P10, q + _P10
+    low = (tab[lo % _TAB3] | (tab[lo // _TAB3] << 12)
+           | (tab[hi % _TAB3] << 20))
+    high = hi // _TAB3
+    return low | (tab[high] if _wide(c, n_levels) else high) << 32
+
+
+def _top_bit(x):
+    """The highest set bit of each int64 x in [0, 2**32), -1 for 0."""
+    _, bits = torch.frexp(x.double())
+    return bits.long() - 1
+
+
+def first_agreeing_level(wa, wb, c: int, n_levels: int):
+    """First level j <= n_levels with floor(a / c^j) == floor(b / c^j),
+    n_levels + 1 if none, from the digit words of a and b.
+
+    With hd the highest differing digit of the low halves (-1 if equal):
+    n_levels + 1 where the high halves differ, else min(hd + 1,
+    n_levels + 1); the wide test takes hd over both halves and gives
+    n_levels + 1 from the sign digit (20) up.
+    """
+    x = wa ^ wb
+    lo, hi = x & 0xFFFFFFFF, (x >> 32) & 0xFFFFFFFF
+    hd = _top_bit(lo) >> (c == 3)
+    never = n_levels + 1
+    if _wide(c, n_levels):
+        hd = torch.where(hi != 0, 16 + (_top_bit(hi) >> 1), hd)
+        return torch.where(hd >= 20, never, torch.clamp_max(hd + 1, never))
+    return torch.where(hi != 0, never, torch.clamp_max(hd + 1, never))
+
+
+def freq_level_words_ref(codes_p, codes_q, mu, c: int, n_levels: int,
+                         beta_q=None):
+    """``freq_level_ref`` by the fused kernel's method (c in {2, 3}).
+
+    Each (query, row, lane) gets its first agreeing level from digit words,
+    lanes at or past beta_q the dead word (level n_levels + 1); the result
+    is the first level whose running count of lanes reaches mu.
+    """
+    q, beta = codes_q.shape
+    dev = codes_q.device
+    mu = torch.as_tensor(mu, dtype=torch.int64, device=dev).expand(q)
+    if beta_q is None:
+        beta_q = beta
+    beta_q = torch.as_tensor(beta_q, dtype=torch.int64, device=dev).expand(q)
+    lane_ok = torch.arange(beta, device=dev)[None, :] < beta_q[:, None]
+    wq = torch.where(lane_ok, digit_words(codes_q, c, n_levels),
+                     dead_word(c, n_levels))
+    never = n_levels + 1
+    n = codes_p.shape[0]
+    out = torch.full((q, n), never, dtype=torch.int32, device=dev)
+    step = _row_chunk(4 * q, beta)  # int64 and float64 temporaries
+    for lo in range(0, n, step):
+        wp = digit_words(codes_p[lo : lo + step], c, n_levels)
+        m = first_agreeing_level(wq[:, None, :], wp[None], c, n_levels)
+        cnt = torch.zeros(m.shape[:2] + (never + 1,), dtype=torch.int64,
+                          device=dev).scatter_add_(2, m, torch.ones_like(m))
+        hit = cnt[..., :never].cumsum(-1) >= mu[:, None, None]
+        first = hit.int().argmax(-1).to(torch.int32)
+        out[:, lo : lo + step] = torch.where(hit.any(-1), first, never)
     return out
 
 

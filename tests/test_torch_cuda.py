@@ -22,7 +22,8 @@ from repro_torch.kernels.freq_level import freq_level
 from repro_torch.kernels.hash_encode import hash_encode
 from repro_torch.kernels.weighted_lp import weighted_lp
 
-from _torch_inputs import assert_scores_close, make_pass_inputs
+from _torch_inputs import (assert_scores_close, make_edge_inputs,
+                           make_pass_inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -36,17 +37,26 @@ def dev():
 
 
 def _tensors(shape, seed, dev):
-    n, d, beta, q, c, L = shape
-    arrs = make_pass_inputs(n, d, beta, q, c, L, seed)
+    n, d, beta, q, c, L, *codes = shape
+    make = make_edge_inputs if codes == ["edge"] else make_pass_inputs
+    arrs = make(n, d, beta, q, c, L, seed)
     names = ("cp", "cq", "pts", "qs", "qw", "mu", "beta_q", "r_min", "stop")
     return {k: torch.from_numpy(a).to(dev) for k, a in zip(names, arrs)}
 
 
 @pytest.mark.parametrize("p", [2.0, 1.0, 0.5])
 @pytest.mark.parametrize("shape", [(1000, 24, 40, 11, 3, 8),
-                                   (333, 70, 100, 3, 2, 12)], ids=str)
+                                   (333, 70, 100, 3, 2, 12),
+                                   # IndexConfig's L = 24, Q ragged against
+                                   # the 8-query block, and codes at the
+                                   # digit-word test's edges
+                                   (1000, 24, 64, 17, 2, 24),
+                                   (1000, 24, 64, 33, 3, 24),
+                                   (1000, 24, 64, 19, 2, 24, "edge"),
+                                   (1000, 24, 64, 19, 3, 24, "edge")],
+                         ids=str)
 def test_kernels_match_plain_versions(dev, p, shape):
-    n, _, _, _, c, L = shape
+    n, _, _, _, c, L = shape[:6]
     t = _tensors(shape, 1, dev)
     args = [t[k] for k in ("cp", "pts", "cq", "qs", "qw", "mu", "beta_q")]
     kw = dict(boff=5, n_valid=n - 50, c=c, n_levels=L, p=p)
