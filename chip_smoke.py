@@ -45,10 +45,6 @@ non-zero:
                one PyTorch call that computes the same function where
                there is one, and the bound from bytes and operations
 
-Named in ``--phases`` only: ``variants`` builds the fused passes with
-other tile sizes (``FQ_VARIANTS``) and times each at the widest group's
-shape on seeded codes.
-
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, the script fails before
@@ -71,15 +67,9 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
-sys.path.insert(0, os.path.join(ROOT, "tests"))  # _torch_inputs: edge codes
 
 PHASES = ("device", "build", "kernels", "slice", "encode", "unfused",
           "times")
-EXTRA_PHASES = ("variants",)  # run only when named in --phases
-# (ROWS, QT, TC, the wide c = 3 word test at every L) of the fused passes
-# timed by the variants phase; the first is the default build's
-FQ_VARIANTS = ((128, 8, 16, 0), (128, 16, 16, 0), (128, 8, 16, 1),
-               (128, 8, 32, 0), (256, 8, 16, 0), (64, 8, 16, 0))
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
 # float32 outside the tensor cores, int32 at 64 lanes per SM x 132 SMs
@@ -175,8 +165,8 @@ def _kernel_inputs(p: float, n_rows: int, seed: int, torch, dev,
 def _edge_inputs(n_rows: int, q: int, c: int, L: int, seed: int, torch,
                  dev):
     """``_kernel_inputs``' dict with codes at the level test's edges
-    (``tests/_torch_inputs.make_edge_inputs``)."""
-    from _torch_inputs import make_edge_inputs
+    (``repro_torch.kernels.probe_inputs.make_edge_inputs``)."""
+    from repro_torch.kernels.probe_inputs import make_edge_inputs
 
     arrs = make_edge_inputs(n_rows, SLICE["d"], 512, q, c, L, seed)
     names = ("codes_p", "codes_q", "points", "queries", "q_weight", "mu",
@@ -246,13 +236,12 @@ def phase_build():
         say(f"build {_occupancy_line(fused_query, c, L)}")
 
 
-def _ptxas_summary(src: str, report: str | None = None) -> str:
+def _ptxas_summary(src: str) -> str:
     """Registers and spill bytes of ``src``'s kernels (the most over its
     entry points), from the build phase's ptxas report."""
     from repro_torch.kernels import _cuda
 
-    if report is None:
-        report = _cuda.build_info.get("ptxas", {}).get(src, "")
+    report = _cuda.build_info.get("ptxas", {}).get(src, "")
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
     spill = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                        report)
@@ -952,93 +941,6 @@ def phase_unfused(torch, dev, sl):
                 weighted_lp=launches["weighted_lp"], pass1=(t_f, t_u))
 
 
-def phase_variants(torch, dev, smi):
-    """The fused passes built with other tile sizes (``-DWLSH_FQ_ROWS``,
-    ``_QT``, ``_TC``) or the wide word test (``-DWLSH_FQ_WIDE``), one nvcc
-    each in parallel, timed at the widest group's shape on seeded real
-    codes (n = 400,000, beta = 512, Q = 64, d = 400, L = 16, c = 3, p = 2);
-    the first is held to the plain version, the others to the first
-    (integers exactly).  Pass 1 is also timed with d = 0 (the matching
-    alone), with d = 0 and c = 2 (the matching without c = 3's base-3
-    conversion) and with beta_q = 0 (the distance alone)."""
-    from repro_torch.kernels import _cuda, fused_query
-
-    out_dir = _cuda._BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    libs, cmds = [], []
-    for rows, qt, tc, wide in FQ_VARIANTS:
-        lib = out_dir / f"libwlsh_fq_{rows}_{qt}_{tc}_{wide}.so"
-        libs.append(lib)
-        cmds.append([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v",
-                     f"-DWLSH_FQ_ROWS={rows}", f"-DWLSH_FQ_QT={qt}",
-                     f"-DWLSH_FQ_TC={tc}", f"-DWLSH_FQ_WIDE={wide}",
-                     "-shared", "-o", str(lib),
-                     str(_cuda.CSRC / "fused_query.cu")])
-    t0 = time.perf_counter()
-    reports = _cuda._run(cmds)
-    say(f"variants: {len(cmds)} builds of fused_query.cu in parallel in "
-        f"{time.perf_counter() - t0:.1f}s")
-    n = SLICE["n"]
-    inp = _kernel_inputs(2.0, n, seed=150, torch=torch, dev=dev)
-    kw = dict(boff=0, n_valid=n, c=inp["c"], n_levels=inp["n_levels"], p=2.0)
-    hist, scores = _pass_args(inp, "hist"), _pass_args(inp, "scores")
-    no_dims = [t[:, :0].contiguous() if k in ("points", "queries", "q_weight")
-               else t for k, t in zip(("codes_p", "points", "codes_q",
-                                       "queries", "q_weight"), hist)]
-    match_only = no_dims + hist[5:]
-    dist_only = hist[:6] + [torch.zeros_like(inp["beta_q"]), hist[7]]
-    first = None
-    for (rows, qt, tc, wide), lib, report in zip(FQ_VARIANTS, libs, reports):
-        _cuda.load(lib)
-        out = (*fused_query.fused_query_hist(*hist, **kw),
-               fused_query.fused_query_scores(*scores, **kw))
-        _sync(torch, dev)
-        if first is None:
-            from repro_torch.kernels import ref
-
-            row_ok = torch.ones(n, dtype=torch.bool, device=dev)
-            plain = (*ref.fused_query_hist_ref(*hist, row_ok, c=kw["c"],
-                                               n_levels=kw["n_levels"], p=2.0),
-                     ref.fused_query_scores_ref(*scores, row_ok, c=kw["c"],
-                                                n_levels=kw["n_levels"],
-                                                p=2.0))
-            _hold(torch, inp, 2.0, out, plain, "variants default vs plain")
-            first, same = out, "the plain version's (above)"
-        else:
-            _need(torch.equal(out[0], first[0])
-                  and torch.equal(torch.isinf(out[2]),
-                                  torch.isinf(first[2])),
-                  f"variant {rows}/{qt}/{tc}/{wide}: hist_f or the +inf "
-                  f"mask differs from the default build's")
-            fin = ~torch.isinf(first[2])
-            same = (f"the default's hist_f and +inf mask; hist_g "
-                    f"{int((out[1] - first[1]).abs().sum()) // 2} rows "
-                    f"moved, scores max |diff| "
-                    f"{_top((out[2] - first[2])[fin].abs().double()):.3g}")
-        t_h = _time_ms(lambda: fused_query.fused_query_hist(*hist, **kw),
-                       torch, reps=5)
-        t_s = _time_ms(lambda: fused_query.fused_query_scores(*scores, **kw),
-                       torch, reps=5)
-        t_m = _time_ms(lambda: fused_query.fused_query_hist(*match_only,
-                                                            **kw),
-                       torch, reps=5)
-        t_d = _time_ms(lambda: fused_query.fused_query_hist(*dist_only, **kw),
-                       torch, reps=5)
-        kw2 = dict(kw, c=2)  # the same codes through c = 2's words
-        t_2 = _time_ms(lambda: fused_query.fused_query_hist(*match_only,
-                                                            **kw2),
-                       torch, reps=5)
-        occ = fused_query.occupancy("hist", kw["c"], kw["n_levels"])
-        say(f"variants ROWS={rows} QT={qt} TC={tc} wide={wide}: hist {t_h:.3f} ms (d = 0: {t_m:.3f} ms, d = 0 and "
-            f"c = 2: {t_2:.3f} ms, beta_q = 0: {t_d:.3f} ms), scores "
-            f"{t_s:.3f} ms; {occ['smem_bytes']} B "
-            f"shared per block, {occ['blocks_per_sm']} blocks per SM; "
-            f"{_ptxas_summary('fused_query.cu', report)}; equal to {same} "
-            f"[{smi}]")
-        del out
-    _cuda.load()
-
-
 def _bound(bytes_, ops_ms: float):
     """(bound ms, what bounds it) from bytes and the operations' time."""
     bytes_ms = 1e3 * bytes_ / HBM_BYTES_PER_S
@@ -1224,10 +1126,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of "
-                    + ",".join(PHASES + EXTRA_PHASES))
+                    + ",".join(PHASES))
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
-    unknown = set(phases) - set(PHASES) - set(EXTRA_PHASES)
+    unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
@@ -1246,8 +1148,6 @@ def main(argv=None) -> int:
     errs = None
     if "kernels" in phases:
         errs = phase_kernels(torch, dev)
-    if "variants" in phases:
-        phase_variants(torch, dev, smi)
     sl, legs = None, {}
     if "slice" in phases:
         sl = phase_slice(torch, dev)

@@ -36,7 +36,6 @@ __all__ = [
     "function",
     "launch_counts",
     "launched",
-    "load",
     "reset_launch_counts",
 ]
 
@@ -134,22 +133,15 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
-def load(path=None) -> None:
-    """Bind the kernel wrappers to the library at ``path`` (default:
-    ``build()``'s), e.g. to time a variant built with other tile sizes."""
-    global _lib
-    _lib = ctypes.CDLL(str(path or build()))
-    _fns.clear()
-
-
 def function(name: str, argtypes):
-    """The C entry point ``name`` of the loaded library (built and loaded
-    on first use), with its ``ctypes`` signature; every entry point
-    returns the CUDA error code of its launch (0 = launched)."""
+    """The C entry point ``name`` of the built library (built on first
+    use), with its ``ctypes`` signature; every entry point returns the
+    CUDA error code of its launch (0 = launched)."""
+    global _lib
     fn = _fns.get(name)
     if fn is None:
         if _lib is None:
-            load()
+            _lib = ctypes.CDLL(str(build()))
         fn = getattr(_lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

@@ -51,9 +51,7 @@
 //     are the accurate ones.
 //
 // ROWS, QT and TC and the narrow c = 3 word test at L <= 16 were chosen by
-// timing variants on the card: chip_smoke.py --phases device,variants
-// builds this file with -DWLSH_FQ_ROWS, -DWLSH_FQ_QT, -DWLSH_FQ_TC and
-// -DWLSH_FQ_WIDE overrides.
+// timing variants on the card (PERF.md, the fused passes' variants table).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,25 +59,12 @@
 
 #include "level_match.cuh"
 
-#ifndef WLSH_FQ_ROWS
-#define WLSH_FQ_ROWS 128
-#endif
-#ifndef WLSH_FQ_QT
-#define WLSH_FQ_QT 8
-#endif
-#ifndef WLSH_FQ_TC
-#define WLSH_FQ_TC 16
-#endif
-#ifndef WLSH_FQ_WIDE  // 1: c = 3 takes the wide word test at every L
-#define WLSH_FQ_WIDE 0
-#endif
-
 namespace {
 
-constexpr int ROWS = WLSH_FQ_ROWS;  // rows per block, one thread per row
-constexpr int QT = WLSH_FQ_QT;      // queries per block
-constexpr int TC = WLSH_FQ_TC;      // code lanes staged per chunk
-constexpr int DC = 32;              // vector dims staged per chunk
+constexpr int ROWS = 128;  // rows per block, one thread per row
+constexpr int QT = 8;      // queries per block
+constexpr int TC = 16;     // code lanes staged per chunk
+constexpr int DC = 32;     // vector dims staged per chunk
 
 struct Args {
   const int* codes_p;     // (B, beta)
@@ -350,7 +335,7 @@ int launch_c(const Args& a, cudaStream_t stream) {
 
 // c = 3 takes the wide word test above L = 16 (level_match.cuh, Digits);
 // c = 2 the narrow one; any other c the division walk.
-inline bool wide3(int L) { return WLSH_FQ_WIDE || L > 16; }
+inline bool wide3(int L) { return L > 16; }
 
 template <int MODE>
 int launch(Args& a, void* stream) {
