@@ -22,9 +22,11 @@ non-zero:
                37, 257) across every edge of its 128 x 64 blocks and
                32-dim slabs; the projections of real p = 2, 1, 0.5
                families) equal to its plain version, within the float64
-               window and row-independent; freq_level (c in {2, 3})
+               window and row-independent; freq_level (c in {2, 3}
+               at L=16, and at L=24 with Q=61 on real and edge codes)
                exactly;
-               weighted_lp (p in {1, 0.5}, d in {400, 397}) to rtol 1e-5
+               weighted_lp (p in {1, 0.5, 1.5}, d in {400, 397}) to
+               rtol 1e-5
   4. slice   — the synchronous query path at the paper's default data
                scale (n=400,000, d=400, |S|=24, p=2, tau=500, c=3,
                v=v'=6) from a plan with host codes: plan, build every
@@ -72,11 +74,14 @@ PHASES = ("device", "build", "kernels", "slice", "encode", "unfused",
           "times")
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
-# float32 outside the tensor cores, int32 at 64 lanes per SM x 132 SMs
-# x 1.98 GHz boost clock, and the special-function units (log2, exp2) at
-# 16 results per SM per clock.
+# float32 outside the tensor cores (F32_FLOPS counts an FMA as two flops;
+# F32_OPS is one instruction a lane a clock, 128 lanes per SM x 132 SMs x
+# 1.98 GHz boost clock), int32 at 64 lanes per SM, and the
+# special-function units (sqrt, log2, exp2) at 16 results per SM per
+# clock.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F32_OPS = 132 * 128 * 1.98e9
 INT32_OPS = 132 * 64 * 1.98e9
 SFU_OPS = 132 * 16 * 1.98e9
 
@@ -105,6 +110,7 @@ KERNELS = {  # name: (the TPU kernel it replaces, its CUDA source)
                     _CSRC + "weighted_lp.cu"),
 }
 _SELF_QUERIES = 64  # corpus rows asked as queries on the device-encoded leg
+WLP_PS = (1.0, 0.5, 1.5)  # weighted_lp's |t|, sqrt(|t|) and powf terms
 
 
 def say(msg: str) -> None:
@@ -232,8 +238,11 @@ def phase_build():
     from repro_torch.kernels import fused_query
 
     say(f"build fused_query.cu {_ptxas_summary('fused_query.cu')}")
-    for c, L in ((3, 16), (2, 24)):
+    say(f"build freq_level.cu {_ptxas_summary('freq_level.cu')}")
+    say(f"build weighted_lp.cu {_ptxas_summary('weighted_lp.cu')}")
+    for c, L in ((3, 16), (2, 24), (3, 24)):
         say(f"build {_occupancy_line(fused_query, c, L)}")
+        say(f"build {_freq_level_occupancy(c, L)}")
 
 
 def _ptxas_summary(src: str) -> str:
@@ -263,6 +272,17 @@ def _occupancy_line(fq, c: int, L: int) -> str:
                 f"{w} {v['smem_bytes']} B shared per block, "
                 f"{v['blocks_per_sm']} blocks per SM, {v['registers']} "
                 f"registers" for w, v in occ.items()))
+
+
+def _freq_level_occupancy(c: int, L: int) -> str:
+    """Shared bytes per block, resident blocks per SM and registers of the
+    freq_level kernel at (c, L), from the loaded library."""
+    from repro_torch.kernels import freq_level
+
+    o = freq_level.occupancy(c, L)
+    return (f"freq_level c={c} L={L}: {o['smem_bytes']} B shared per block, "
+            f"{o['blocks_per_sm']} blocks per SM, {o['registers']} "
+            f"registers")
 
 
 def _hold(torch, inp, p, kernel_out, plain_out, label):
@@ -423,31 +443,40 @@ def _check_hash_encode(torch, dev) -> float:
 
 
 def _check_freq_level(torch, dev) -> float:
-    """The kernel vs its plain version, exactly, for c in {2, 3}."""
+    """The kernel vs its plain version, exactly, for c in {2, 3}: at L = 16
+    and Q = 64 on one input's codes read at both c, and at L = 24 (the
+    wide c = 3 word test) with Q = 61 on real and on edge codes."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.freq_level import freq_level
 
-    inp = _kernel_inputs(1.0, CHECK_ROWS, seed=110, torch=torch, dev=dev)
-    for c in (2, 3):
+    base = _kernel_inputs(1.0, CHECK_ROWS, seed=110, torch=torch, dev=dev)
+    cases = [("", c, base) for c in (2, 3)]
+    for i, c in enumerate((2, 3)):
+        cases.append(("", c, _kernel_inputs(1.0, CHECK_ROWS, seed=150 + i,
+                                            torch=torch, dev=dev, q=61, c=c,
+                                            L=24)))
+        cases.append(("edge codes ", c, _edge_inputs(CHECK_ROWS, 61, c, 24,
+                                                     160 + i, torch, dev)))
+    for label, c, inp in cases:
         args = (inp["codes_p"], inp["codes_q"], inp["mu"], inp["beta_q"])
-        got = freq_level(*args, c=c, n_levels=inp["n_levels"])
-        want = ref.freq_level_ref(inp["codes_p"], inp["codes_q"], inp["mu"],
-                                  c, inp["n_levels"], inp["beta_q"])
+        L = inp["n_levels"]
+        got = freq_level(*args, c=c, n_levels=L)
+        want = ref.freq_level_ref(*args[:3], c, L, inp["beta_q"])
         _sync(torch, dev)
-        hist = torch.bincount(got.flatten().long(),
-                              minlength=inp["n_levels"] + 2)
-        say(f"kernels freq_level c={c} Q={got.shape[0]} n={CHECK_ROWS} "
-            f"beta=512 L={inp['n_levels']}: "
+        hist = torch.bincount(got.flatten().long(), minlength=L + 2)
+        say(f"kernels freq_level {label}c={c} Q={got.shape[0]} "
+            f"n={CHECK_ROWS} beta=512 L={L}: "
             f"{'exact' if torch.equal(got, want) else 'DIFFERS'}; levels "
             f"0..L+1 counted {hist.tolist()}")
-        _need(torch.equal(got, want), f"freq_level c={c} differs from the "
-              f"plain version")
+        _need(torch.equal(got, want), f"freq_level {label}c={c} L={L} "
+              f"differs from the plain version")
     return 0.0
 
 
 def _check_weighted_lp(torch, dev) -> float:
-    """The kernel vs its plain version to rtol 1e-5 for p in {1, 0.5}; p =
-    2 takes the norms expansion and launches nothing."""
+    """The kernel vs its plain version to rtol 1e-5 for p in {1, 0.5, 1.5}
+    (each of its three terms); p = 2 takes the norms expansion and
+    launches nothing."""
     from repro_torch.kernels import _cuda, ops, ref
     from repro_torch.kernels.weighted_lp import weighted_lp
 
@@ -457,7 +486,7 @@ def _check_weighted_lp(torch, dev) -> float:
                              torch=torch, dev=dev, d=d)
         qs, pts = inp["queries"], inp["points"]
         w = inp["q_weight"][0].contiguous()
-        for p in (1.0, 0.5):
+        for p in WLP_PS:
             got = weighted_lp(qs, pts, w, p)
             want = ref.weighted_lp_ref(qs, pts, w, p)
             _sync(torch, dev)
@@ -1064,16 +1093,18 @@ def _times_freq_level(torch, dev, errs, smi, inputs, launches):
     say(f"times freq_level (group {gi}: n={n} beta_pad={beta} Q={q} "
         f"L={cfg.n_levels}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"bound {bound[0]:.3f} ms by {bound[1]} ({tests} level tests, "
-        f"{bytes_} bytes); exact [{smi}]")
+        f"{bytes_} bytes); exact; "
+        f"{_freq_level_occupancy(cfg.c, cfg.n_levels)}; "
+        f"{_ptxas_summary('freq_level.cu')} [{smi}]")
     return _row("freq_level", launches, errs["freq_level"], ms, plain_ms,
                 bound)
 
 
 def _times_weighted_lp(torch, dev, errs, smi, inputs, launches):
     """Q = 64 against the widest group's vectors under the first query's
-    weight, p = 1 (the JSON row) and p = 0.5."""
+    weight, p = 1 (the JSON row), 0.5 and 1.5."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.weighted_lp import weighted_lp
+    from repro_torch.kernels import weighted_lp as wlp
 
     gi, _, st, inp = inputs
     qs, pts = inp["queries"], st.points
@@ -1082,9 +1113,9 @@ def _times_weighted_lp(torch, dev, errs, smi, inputs, launches):
     n = pts.shape[0]
     qw, pw = qs * w, pts * w
     rows, err = {}, errs["weighted_lp"]
-    for p in (1.0, 0.5):
-        got = weighted_lp(qs, pts, w, p)
-        ms = _time_ms(lambda: weighted_lp(qs, pts, w, p), torch, reps=5)
+    for p in WLP_PS:
+        got = wlp.weighted_lp(qs, pts, w, p)
+        ms = _time_ms(lambda: wlp.weighted_lp(qs, pts, w, p), torch, reps=5)
         plain = []
         plain_ms = _time_ms(lambda: plain.append(ref.weighted_lp_ref(
             qs, pts, w, p)), torch, reps=1)
@@ -1094,15 +1125,22 @@ def _times_weighted_lp(torch, dev, errs, smi, inputs, launches):
         _need(rel <= 1e-5, f"weighted_lp p={p} outside rtol 1e-5 on the "
               f"main path's vectors")
         err = max(err, _top(diff))
-        ops_ms = 1e3 * 3 * q * n * d / F32_FLOPS
-        if p != 1.0:  # each powf takes a log2 and an exp2 on the SFUs
-            ops_ms = max(ops_ms, 1e3 * 2 * q * n * d / SFU_OPS)
+        # a term is a subtract, a multiply and an add of |t|, three FP32
+        # instructions that do not fuse without changing the rounding; p =
+        # 0.5 adds a sqrt on the special-function units, other p a powf's
+        # log2 and exp2
+        sfu = {1.0: 0, 0.5: 1}.get(p, 2)
+        ops_ms = 1e3 * q * n * d * max(3 / F32_OPS, sfu / SFU_OPS)
         bytes_ = 4 * (n * d + q * d + d + q * n)
         bound = _bound(bytes_, ops_ms)
+        occ = wlp.occupancy(p)
         say(f"times weighted_lp p={p} (group {gi}'s vectors: n={n} d={d} "
             f"Q={q}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"torch.cdist {lib_ms:.3f} ms, bound {bound[0]:.3f} ms by "
-            f"{bound[1]}; max rel err {rel:.3g} [{smi}]")
+            f"{bound[1]}; max rel err {rel:.3g}; {occ['smem_bytes']} B "
+            f"shared per block, {occ['blocks_per_sm']} blocks per SM, "
+            f"{occ['registers']} registers; "
+            f"{_ptxas_summary('weighted_lp.cu')} [{smi}]")
         rows[p] = (ms, plain_ms, bound, lib_ms)
     ms, plain_ms, bound, lib_ms = rows[1.0]
     return _row("weighted_lp", launches, err, ms, plain_ms, bound, lib_ms)

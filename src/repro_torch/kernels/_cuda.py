@@ -36,6 +36,7 @@ __all__ = [
     "function",
     "launch_counts",
     "launched",
+    "occupancy",
     "reset_launch_counts",
 ]
 
@@ -147,6 +148,20 @@ def function(name: str, argtypes):
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
+
+
+def occupancy(name: str, keys, *args) -> dict:
+    """What a kernel's launch gets on the current card, from the C entry
+    point ``name``, which takes the int or float ``args`` and fills one
+    int per key (e.g. shared bytes per block, resident blocks per SM,
+    registers per thread)."""
+    out = (ctypes.c_int * len(keys))()
+    fn = function(name, [ctypes.c_float if isinstance(a, float)
+                         else ctypes.c_int for a in args] + [ctypes.c_void_p])
+    err = fn(*args, out)
+    if err:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+    return dict(zip(keys, out))
 
 
 def check(name, t, dtype, shape, dev) -> None:

@@ -83,30 +83,21 @@ struct Args {
   float p, inv_p, logc;
 };
 
-using Match = wlsh::MatchSmem<ROWS, QT, TC>;
-using Words = wlsh::WordSmem<ROWS, QT, TC>;
-
-__host__ __device__ constexpr size_t align16(size_t x) {
-  return (x + 15) / 16 * 16;
-}
+using wlsh::align16;
 
 // Shared-memory carve-up, shared by the kernel and the host size check.
 // The matching's arrays and the distance's share [0, meta).
 struct Layout {
-  size_t tab, qw, ctile, cnt, ptile, wa, wb, meta, hist, total;
+  size_t ptile, wa, wb, meta, hist, total;
 };
 
 template <int C>
 __host__ __device__ inline Layout layout(int L) {
   Layout s;
   const size_t L3 = L + 3;
-  // matching: c = 3 digit table, query words (c = 2, 3) or per-level
-  // query codes (other c), code tile, level counts
-  s.tab = 0;                                             // u16 [3^6]
-  s.qw = s.tab + (C == 3 ? Words::tab() : 0);            // uint2 [TC][QT]
-  s.ctile = s.qw + align16(C ? Words::qw() : Match::qb(L));  // int [ROWS][TC+1]
-  s.cnt = s.ctile + align16(Match::ctile());             // u16 [QT][L+2][ROWS]
-  const size_t match_end = s.cnt + Match::cnt(L);
+  // matching: wlsh::match_layout (digit table, query words or level codes,
+  // code tile, level counts)
+  const size_t match_end = wlsh::match_layout<ROWS, QT, TC, C>(L).end;
   // distance, over the same bytes
   s.ptile = 0;                                           // float [ROWS][DC+1]
   s.wa = s.ptile + sizeof(float) * ROWS * (DC + 1);      // float [QT][DC]
@@ -124,10 +115,6 @@ template <int MODE, int C, bool WIDE>
 __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay = layout<C>(a.L);
-  unsigned short* s_tab = reinterpret_cast<unsigned short*>(smem + lay.tab);
-  unsigned char* s_qw = smem + lay.qw;
-  int* s_ctile = reinterpret_cast<int*>(smem + lay.ctile);
-  unsigned short* s_cnt = reinterpret_cast<unsigned short*>(smem + lay.cnt);
   float* s_ptile = reinterpret_cast<float*>(smem + lay.ptile);
   float* s_wa = reinterpret_cast<float*>(smem + lay.wa);
   float* s_wb = reinterpret_cast<float*>(smem + lay.wb);
@@ -170,34 +157,16 @@ __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
     }
     s_qw2[tid] = qw2;
   }
-  {
-    uint4* c4 = reinterpret_cast<uint4*>(s_cnt);  // Match::cnt is 16 B whole
-    for (int i = tid; i < (int)(Match::cnt(a.L) / 16); i += ROWS)
-      c4[i] = make_uint4(0, 0, 0, 0);
-  }
-  if (C == 3) wlsh::Base3::fill(s_tab, ROWS);
+  wlsh::match_init<ROWS, QT, TC, C>(smem, a.L);
   if (MODE == 0)
     for (int i = tid; i < 2 * QT * L3; i += ROWS) s_hf[i] = 0;
   __syncthreads();
 
-  int bmax = 0;
-  for (int q = 0; q < nq; ++q) bmax = max(bmax, s_bq[q]);
-
   // ---- first-frequent level (level_match.cuh) ---------------------------
   int lf[QT];
-  if constexpr (C == 0) {
-    wlsh::count_agreements<ROWS, QT, TC, C>(
-        a.codes_p, a.codes_q, a.B, a.beta, row0, q0, nq, a.c, a.L, s_bq,
-        bmax, reinterpret_cast<int*>(s_qw), s_ctile, s_cnt);
-    wlsh::first_frequent_levels<ROWS, QT>(s_cnt, s_mu, nq, live_row, a.L,
-                                          lf);
-  } else {
-    wlsh::count_agreements_words<ROWS, QT, TC, C, WIDE>(
-        a.codes_p, a.codes_q, a.B, a.beta, row0, q0, nq, a.L, s_bq, bmax,
-        s_tab, reinterpret_cast<uint2*>(s_qw), s_ctile, s_cnt);
-    wlsh::first_frequent_levels_at<ROWS, QT>(
-        s_cnt, s_mu, nq, live_row, a.L, wlsh::count_slot<ROWS>(tid), lf);
-  }
+  wlsh::first_frequent<ROWS, QT, TC, C, WIDE>(a.codes_p, a.codes_q, a.B,
+                                              a.beta, row0, q0, nq, a.c, a.L,
+                                              s_mu, s_bq, smem, lf);
   __syncthreads();  // the distance's tiles overwrite the counts
 
   // ---- weighted l_p distance, DC dims at a time ---------------------------
@@ -333,10 +302,6 @@ int launch_c(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// c = 3 takes the wide word test above L = 16 (level_match.cuh, Digits);
-// c = 2 the narrow one; any other c the division walk.
-inline bool wide3(int L) { return L > 16; }
-
 template <int MODE>
 int launch(Args& a, void* stream) {
   if (a.L < 0 || a.beta > 65535 ||
@@ -350,7 +315,7 @@ int launch(Args& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.c) {
     case 2: return launch_c<MODE, 2, false>(a, s);
-    case 3: return wide3(a.L) ? launch_c<MODE, 3, true>(a, s)
+    case 3: return wlsh::wide3(a.L) ? launch_c<MODE, 3, true>(a, s)
                               : launch_c<MODE, 3, false>(a, s);
     default: return launch_c<MODE, 0, false>(a, s);
   }
@@ -378,7 +343,7 @@ template <int MODE>
 int occupancy(int c, int L, int* out) {
   switch (c) {
     case 2: return occupancy_c<MODE, 2, false>(L, out);
-    case 3: return wide3(L) ? occupancy_c<MODE, 3, true>(L, out)
+    case 3: return wlsh::wide3(L) ? occupancy_c<MODE, 3, true>(L, out)
                             : occupancy_c<MODE, 3, false>(L, out);
     default: return occupancy_c<MODE, 0, false>(L, out);
   }

@@ -1,5 +1,5 @@
-// First-agreeing-level matching for the fused query passes (fused_query.cu)
-// and the standalone freq_level kernel (freq_level.cu).
+// First-agreeing-level matching, shared by the fused query passes
+// (fused_query.cu) and the standalone freq_level kernel (freq_level.cu).
 //
 // For a block of ROWS rows (one thread each) and QT queries: the first
 // level j <= L at which at least mu[q] of the query's first beta_q[q]
@@ -12,25 +12,28 @@
 // monotone in the level (a//c^j == b//c^j implies equality at every
 // higher level).  Two ways to find m:
 //
-//   * count_agreements_words (c = 2 and c = 3; the fused passes): a
-//     constant-time test on base-c digit words.  Agreement at level j
-//     holds exactly when the base-c digits of a and b agree from position
-//     j up, so m is one more than the highest differing digit, read off
-//     the XOR of two words with one bit scan (FLO).  Each query code
-//     becomes its word once per block (8 B in shared memory, two queries
-//     per 128-bit load), each row code once per block for all QT queries
-//     (c = 3: one int32 floor division by 3^10 and three lookups in a
-//     3^6-entry table).  A test is branch-free: an XOR, the scan, a
-//     shift, a compare, a select and a min, then one shared-memory atomic
-//     add on the count.  The counts sit in slot order (count_slot), so a
-//     warp's 32 updates hit 32 banks.
-//   * count_agreements (any c, including a run-time one; freq_level): the
+//   * count_agreements_words (c = 2 and c = 3): a constant-time test on
+//     base-c digit words.  Agreement at level j holds exactly when the
+//     base-c digits of a and b agree from position j up, so m is one more
+//     than the highest differing digit, read off the XOR of two words
+//     with one bit scan (FLO).  Each query code becomes its word once per
+//     block (8 B in shared memory, two queries per 128-bit load), each row
+//     code once per block for all QT queries (c = 3: one int32 floor
+//     division by 3^10 and three lookups in a 3^6-entry table).  A test is
+//     branch-free: an XOR, the scan, a shift, a compare, a select and a
+//     min, then one shared-memory atomic add on the count.  The counts sit
+//     in slot order (count_slot), so a warp's 32 updates hit 32 banks.
+//     wide3(L) picks the word test for c = 3 (Digits).
+//   * count_agreements (any other c, including a run-time one): the
 //     query's code divided down once per block into its L+1 level codes
 //     (in shared memory, read as warp-wide broadcasts), the row's code
 //     once per level, and m counted as the number of disagreeing levels,
 //     without branches.  Floor division rounds toward minus infinity
-//     (codes can be negative), with c a template constant for c = 2 and
-//     c = 3 (0 = read it at run time).
+//     (codes can be negative), with c a template constant where the
+//     caller has one (0 = read it at run time).
+//
+// match_layout, match_init and first_frequent wrap both for a kernel:
+// where the arrays sit in shared memory, their set-up, and lf[] per query.
 
 #pragma once
 
@@ -47,22 +50,13 @@ __device__ __forceinline__ int floor_div(int x, int c) {
   return (r != 0 && ((r < 0) != (dv < 0))) ? q - 1 : q;
 }
 
-// Shared-memory sizes of the matching, for the callers' layouts.
-template <int ROWS, int QT, int TC>
-struct MatchSmem {
-  // int [QT][TC][L+1] per-level query codes
-  static __host__ __device__ size_t qb(int L) {
-    return sizeof(int) * QT * TC * (L + 1);
-  }
-  // int [ROWS][TC+1] row codes of one lane chunk
-  static __host__ __device__ size_t ctile() {
-    return sizeof(int) * ROWS * (TC + 1);
-  }
-  // u16 [QT][L+2][ROWS] first-agreement level counts
-  static __host__ __device__ size_t cnt(int L) {
-    return sizeof(unsigned short) * QT * (L + 2) * ROWS;
-  }
-};
+// c = 3 takes the wide word test above L = 16, the narrow one up to it
+// (Digits); ref._wide is the same rule.
+__host__ __device__ constexpr bool wide3(int L) { return L > 16; }
+
+__host__ __device__ constexpr size_t align16(size_t x) {
+  return (x + 15) / 16 * 16;
+}
 
 // Adds, for every live row (row0 + tid < B) and query q < nq of the block,
 // one to s_cnt[(q * (L+2) + m) * ROWS + tid] per lane < s_bq[q] whose first
@@ -245,17 +239,6 @@ __device__ __forceinline__ int count_slot(int tid) {
   return (tid & ~63) + ((tid & 31) << 1) + ((tid >> 5) & 1);
 }
 
-// Shared-memory sizes of the word matching, for the callers' layouts.
-template <int ROWS, int QT, int TC>
-struct WordSmem {
-  // u16 [3^6] c = 3 digit table, padded to 16 B
-  static __host__ __device__ size_t tab() {
-    return (sizeof(unsigned short) * kTab3 + 15) / 16 * 16;
-  }
-  // uint2 [TC][QT] query words of one lane chunk
-  static __host__ __device__ size_t qw() { return sizeof(uint2) * TC * QT; }
-};
-
 // As count_agreements, for c = 2 or 3 through digit words (narrow or
 // WIDE, see Digits), with the counts in slot order: adds one to
 // s_cnt[(q * (L+2) + m) * ROWS + count_slot(tid)] per lane < s_bq[q] whose
@@ -349,6 +332,75 @@ __device__ __forceinline__ void first_frequent_levels(
     int L, int (&lf)[QT]) {
   first_frequent_levels_at<ROWS, QT>(s_cnt, s_mu, nq, live_row, L,
                                      (int)threadIdx.x, lf);
+}
+
+// ---- a kernel's matching half ---------------------------------------------
+
+// Byte offsets of the matching's arrays in a block's shared memory, from
+// 0: the c = 3 digit table (u16 [3^6]), the query words (uint2 [TC][QT];
+// c = 2, 3) or per-level query codes (int [QT][TC][L+1]; any other c),
+// the code tile (int [ROWS][TC+1]), the level counts (u16
+// [QT][L+2][ROWS]); end is 16-B aligned.
+struct MatchLayout {
+  size_t tab, qw, ctile, cnt, end;
+};
+
+template <int ROWS, int QT, int TC, int C>
+__host__ __device__ inline MatchLayout match_layout(int L) {
+  MatchLayout s;
+  s.tab = 0;
+  s.qw = s.tab + (C == 3 ? align16(sizeof(unsigned short) * kTab3) : 0);
+  s.ctile = s.qw + align16(C ? sizeof(uint2) * TC * QT
+                             : sizeof(int) * QT * TC * (L + 1));
+  s.cnt = s.ctile + align16(sizeof(int) * ROWS * (TC + 1));
+  // the counts are 16 B whole (ROWS is a multiple of 64)
+  s.end = s.cnt + sizeof(unsigned short) * QT * (L + 2) * ROWS;
+  return s;
+}
+
+// Zeroes the level counts (16-B stores) and, for c = 3, fills the digit
+// table.  The caller synchronises the block before first_frequent.
+template <int ROWS, int QT, int TC, int C>
+__device__ __forceinline__ void match_init(unsigned char* smem, int L) {
+  const MatchLayout lay = match_layout<ROWS, QT, TC, C>(L);
+  uint4* c4 = reinterpret_cast<uint4*>(smem + lay.cnt);
+  for (int i = threadIdx.x; i < (int)((lay.end - lay.cnt) / 16); i += ROWS)
+    c4[i] = make_uint4(0, 0, 0, 0);
+  if (C == 3) Base3::fill(reinterpret_cast<unsigned short*>(smem + lay.tab),
+                          ROWS);
+}
+
+// lf[q] = the first frequent level of row row0 + tid for query q0 + q
+// (L+1 if none, also for a dead row or q >= nq): count_agreements_words
+// for C = 2 and 3 (WIDE: wide3(L)), count_agreements for C = 0 (c read at
+// run time).  s_mu and s_bq (per-query lane counts, clamped to [0, beta])
+// lie outside the matching's arrays and are visible to every thread, and
+// match_init has run.  Synchronises the block; the matching's arrays are
+// free again once every thread has returned.
+template <int ROWS, int QT, int TC, int C, bool WIDE>
+__device__ __forceinline__ void first_frequent(
+    const int* __restrict__ codes_p, const int* __restrict__ codes_q, int B,
+    int beta, int row0, int q0, int nq, int c, int L, const int* s_mu,
+    const int* s_bq, unsigned char* smem, int (&lf)[QT]) {
+  const MatchLayout lay = match_layout<ROWS, QT, TC, C>(L);
+  int* s_ctile = reinterpret_cast<int*>(smem + lay.ctile);
+  unsigned short* s_cnt = reinterpret_cast<unsigned short*>(smem + lay.cnt);
+  const bool live_row = row0 + (int)threadIdx.x < B;
+  int bmax = 0;
+  for (int q = 0; q < nq; ++q) bmax = max(bmax, s_bq[q]);
+  if constexpr (C == 0) {
+    count_agreements<ROWS, QT, TC, C>(
+        codes_p, codes_q, B, beta, row0, q0, nq, c, L, s_bq, bmax,
+        reinterpret_cast<int*>(smem + lay.qw), s_ctile, s_cnt);
+    first_frequent_levels<ROWS, QT>(s_cnt, s_mu, nq, live_row, L, lf);
+  } else {
+    count_agreements_words<ROWS, QT, TC, C, WIDE>(
+        codes_p, codes_q, B, beta, row0, q0, nq, L, s_bq, bmax,
+        reinterpret_cast<const unsigned short*>(smem + lay.tab),
+        reinterpret_cast<uint2*>(smem + lay.qw), s_ctile, s_cnt);
+    first_frequent_levels_at<ROWS, QT>(s_cnt, s_mu, nq, live_row, L,
+                                       count_slot<ROWS>(threadIdx.x), lf);
+  }
 }
 
 }  // namespace wlsh

@@ -3,9 +3,10 @@
 ``freq_level`` gives, per (query, row), the first virtual-rehashing level
 j <= L at which at least mu[q] of the query's first beta_q[q] tables put
 the row in the query's bucket (L+1 if never), as a (Q, n) int32 matrix;
-the kernel is in ``csrc/freq_level.cu`` and shares its level matching
-with the fused passes (``csrc/level_match.cuh``).  Stage 1 of the
-engine's unfused route (``use_kernels="off"``) runs through it.
+the kernel is in ``csrc/freq_level.cu`` and is the fused passes' level
+matching (``csrc/level_match.cuh``): digit words for c = 2 and 3, the
+level walk for any other c.  Stage 1 of the engine's unfused route
+(``use_kernels="off"``) runs through it.
 
 For tensors on the CPU the wrapper takes the plain torch version
 (``ref.freq_level_ref``).  For CUDA tensors it checks device, dtype,
@@ -22,11 +23,12 @@ import torch
 
 from . import _cuda, ref
 
-__all__ = ["freq_level", "launch_counts"]
+__all__ = ["freq_level", "launch_counts", "occupancy"]
 
 launch_counts = _cuda.counter("freq_level")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 4 + [_I] * 5 + [_P, _P]
+_OCC_KEYS = ("smem_bytes", "blocks_per_sm", "registers")
 
 
 def freq_level(codes_p, codes_q, mu, beta_q, *, c: int, n_levels: int):
@@ -53,3 +55,12 @@ def freq_level(codes_p, codes_q, mu, beta_q, *, c: int, n_levels: int):
                  out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _cuda.launched("freq_level", err, launch_counts)
     return out
+
+
+def occupancy(c: int, n_levels: int) -> dict:
+    """What one launch at (c, L) gets on the current card: dynamic shared
+    bytes per block, resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and registers per
+    thread."""
+    return _cuda.occupancy("wlsh_freq_level_occupancy", _OCC_KEYS, int(c),
+                           int(n_levels))

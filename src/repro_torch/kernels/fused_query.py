@@ -128,10 +128,6 @@ def occupancy(which: str, c: int, n_levels: int) -> dict:
     gets on the current card: dynamic shared bytes per block, resident
     blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
     registers per thread, and the kernel's ROWS, QT and TC."""
-    out = (ctypes.c_int * len(_OCC_KEYS))()
-    fn = _cuda.function("wlsh_fused_query_occupancy", [_I, _I, _I, _P])
-    err = fn(0 if which == "hist" else 1, int(c), int(n_levels), out)
-    if err:
-        raise RuntimeError(f"fused_query occupancy query failed: CUDA "
-                           f"error {err}")
-    return dict(zip(_OCC_KEYS, out))
+    return _cuda.occupancy("wlsh_fused_query_occupancy", _OCC_KEYS,
+                           0 if which == "hist" else 1, int(c),
+                           int(n_levels))

@@ -2,7 +2,9 @@
 
 ``weighted_lp`` gives the (Q, n) float32 matrix
 ``(sum_i |(x_i - q_i) w_i|^p)^(1/p)`` under one weight vector; the kernel
-is in ``csrc/weighted_lp.cu``.  As in the JAX package it serves no serving
+is in ``csrc/weighted_lp.cu`` (a 4-row x 8-query register tile per thread,
+with the term chosen by p: |t| for p = 1, sqrt(|t|) for p = 0.5, powf for
+any other p).  As in the JAX package it serves no serving
 path: ``ops.weighted_lp_dist`` reaches it for p != 2, and p = 2 takes the
 norms expansion there instead, so this wrapper rejects p = 2 on the card.
 
@@ -20,11 +22,12 @@ import torch
 
 from . import _cuda, ref
 
-__all__ = ["launch_counts", "weighted_lp"]
+__all__ = ["launch_counts", "occupancy", "weighted_lp"]
 
 launch_counts = _cuda.counter("weighted_lp")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = [_P] * 3 + [_I] * 3 + [_F, _P, _P]
+_OCC_KEYS = ("smem_bytes", "blocks_per_sm", "registers")
 
 
 def weighted_lp(queries, points, weight, p: float):
@@ -51,3 +54,12 @@ def weighted_lp(queries, points, weight, p: float):
                  torch.cuda.current_stream(dev).cuda_stream)
     _cuda.launched("weighted_lp", err, launch_counts)
     return out
+
+
+def occupancy(p: float) -> dict:
+    """What one launch at ``p`` gets on the current card: static shared
+    bytes per block, resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and registers per
+    thread."""
+    return _cuda.occupancy("wlsh_weighted_lp_occupancy", _OCC_KEYS,
+                           float(p))

@@ -166,9 +166,29 @@ def test_freq_level_matches_plain_version(dev, c):
     assert len(torch.unique(got)) > 4
 
 
-@pytest.mark.parametrize("p", [1.0, 0.5])
-def test_weighted_lp_matches_plain_version(dev, p):
-    t = _tensors((777, 70, 8, 9, 3, 4), 6, dev)
+@pytest.mark.parametrize("c", [2, 3])
+@pytest.mark.parametrize("L", [8, 16, 24])
+@pytest.mark.parametrize("codes", ["seeded", "edge"])
+def test_freq_level_word_tests_match_plain_version(dev, c, L, codes):
+    """The digit-word matcher (narrow, and wide for c = 3 at L = 24) with Q
+    ragged against the 8-query block and n against the 128-row tile."""
+    shape = (1000, 8, 64, 61, c, L) + (("edge",) if codes == "edge" else ())
+    t = _tensors(shape, 7 + L, dev)
+    args = (t["cp"], t["cq"], t["mu"])
+    _cuda.reset_launch_counts()
+    got = freq_level(*args, t["beta_q"], c=c, n_levels=L)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["freq_level"] == 1
+    assert torch.equal(got, ref.freq_level_ref(*args, c, L, t["beta_q"]))
+    assert torch.equal(got, ref.freq_level_words_ref(*args, c, L,
+                                                     t["beta_q"]))
+    assert len(torch.unique(got)) > 4
+
+
+@pytest.mark.parametrize("p", [1.0, 0.5, 1.5])
+@pytest.mark.parametrize("n,d,q", [(777, 70, 9), (1001, 397, 61)])
+def test_weighted_lp_matches_plain_version(dev, p, n, d, q):
+    t = _tensors((n, d, 8, q, 3, 4), 6, dev)
     w = t["qw"][0].contiguous()
     _cuda.reset_launch_counts()
     got = weighted_lp(t["qs"], t["pts"], w, p)
@@ -180,6 +200,34 @@ def test_weighted_lp_matches_plain_version(dev, p):
     assert _cuda.launch_counts()["weighted_lp"] == 1
     with pytest.raises(ValueError):
         weighted_lp(t["qs"], t["pts"], w, 2.0)
+
+
+@pytest.mark.parametrize("p", [1.0, 0.5])
+def test_weighted_lp_single_terms_equal_plain_version(dev, p):
+    """At d = 1 a distance is one term, |t| for p = 1 and sqrt(|t|)**2 for
+    p = 0.5, so the kernel must give the plain version's bits: for p = 0.5
+    its branch-free square root must be sqrtf's (PyTorch's pow(x, 0.5) is
+    its sqrt kernel).  Magnitudes span the float32 range, with zeros,
+    subnormals and infinities among the terms."""
+    rng = np.random.default_rng(8)
+    n, q = 4099, 61
+
+    def spread(shape):
+        scale = 2.0 ** rng.integers(-149, 127, shape)
+        return (rng.uniform(1, 2, shape) * scale
+                * rng.choice([-1.0, 1.0], shape)).astype(np.float32)
+
+    qs, pts = spread((q, 1)), spread((n, 1))
+    pts[:q] = qs  # t = 0
+    for w in (spread((1,)), np.float32([3e-39]), np.float32([7.5])):
+        args = [torch.from_numpy(a).to(dev) for a in (qs, pts, np.abs(w))]
+        _cuda.reset_launch_counts()
+        got = weighted_lp(*args, p)
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts()["weighted_lp"] == 1
+        want = ref.weighted_lp_ref(*args, p)
+        assert not torch.isnan(want).any()
+        assert torch.equal(got, want)
 
 
 def test_new_wrappers_check_their_inputs(dev):

@@ -261,7 +261,7 @@ def test_ops_freq_level_matches_jax_kernel(c):
     assert len(np.unique(np.asarray(got))) > L // 2
 
 
-@pytest.mark.parametrize("p", [1.0, 0.5])
+@pytest.mark.parametrize("p", [1.0, 0.5, 1.5])
 def test_ops_weighted_lp_matches_jax_kernel(p):
     """ops.weighted_lp_dist on the CPU is within rtol 1e-5 of the Pallas
     kernel (interpret mode, bn=128, bd=64; ragged n and d)."""
