@@ -41,7 +41,24 @@ non-zero:
                freq_level kernel, then torch distances and histograms):
                hist_f equal to the fused kernel's, answers equal to the
                fused leg's, and pass 1 of both routes timed
-  7. times   — each kernel on the main path's inputs for the widest
+  7. paged   — the slice's 256 queries through a RetrievalService that
+               keeps 3 of the 7 group states on the card (LRU eviction,
+               offload to pinned host memory, restore on a copy stream):
+               answers equal to the slice leg's bit for bit, restores > 0
+               with no hash_encode launch, the fused passes launched as
+               often as on the slice leg, peak device memory below the
+               slice leg's; restores and evictions, bytes and device ms
+               per restore (CUDA events on the copy stream), pinned
+               bytes, per-batch latency and q/s
+  8. async   — the same queries as open-loop arrivals at half the paged
+               leg's q/s (real clock, 5 ms deadline) into an
+               AsyncRetrievalService under the same budget, driven by a
+               ServiceDriver thread with DeadlinePrefetch: every future
+               resolves, each answer equals the slice leg's, a prefetch
+               overlapped at least one restore; submit-to-resolve
+               latency, deadline misses, wasted prefetches and the
+               restore cost model's learned rate
+  9. times   — each kernel on the main path's inputs for the widest
                group: held to its plain version there (the rules of
                phase 3), its time, its plain version's time, the time of
                one PyTorch call that computes the same function where
@@ -71,7 +88,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "kernels", "slice", "encode", "unfused",
-          "times")
+          "paged", "async", "times")
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
 # float32 outside the tensor cores (F32_FLOPS counts an FMA as two flops;
@@ -110,6 +127,9 @@ KERNELS = {  # name: (the TPU kernel it replaces, its CUDA source)
                     _CSRC + "weighted_lp.cu"),
 }
 _SELF_QUERIES = 64  # corpus rows asked as queries on the device-encoded leg
+PAGED_SLOTS = 3  # group states the paged and async legs keep on the card
+ASYNC_DELAY_MS = 5.0  # the async leg's deadline budget
+ASYNC_LOAD = 0.5  # the async leg's arrival rate, as a share of paged q/s
 WLP_PS = (1.0, 0.5, 1.5)  # weighted_lp's |t|, sqrt(|t|) and powf terms
 
 
@@ -646,10 +666,19 @@ def _reset_peak(torch, dev) -> None:
 
 
 def _free(torch, svc) -> None:
-    """Drop a service's group states and return their memory."""
-    svc.batcher.states.clear()
+    """Empty a service's state cache and return the device memory.  The
+    serving legs here set ``offload_evicted=False``, so nothing is copied
+    to the host on the way out; the next lease rebuilds the state."""
+    svc.state_cache.clear()
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
+
+
+def _state(svc, gi):
+    """Group ``gi``'s state (built on first use).  It stays on the card
+    after the lease: these services keep every group resident."""
+    with svc.state_cache.lease(gi) as st:
+        return st
 
 
 def _need_launches(launches, want: dict, leg: str) -> None:
@@ -680,7 +709,7 @@ def phase_slice(torch, dev):
     plan = host.export_serving_plan()
     t_plan = time.time() - t0
     svc = RetrievalService(plan, data, cfg=ServiceConfig(
-        k=k, q_batch=q_batch, device=str(dev)))
+        k=k, q_batch=q_batch, offload_evicted=False, device=str(dev)))
     t0 = time.time()
     svc.warmup()
     _sync(torch, dev)
@@ -706,6 +735,7 @@ def phase_slice(torch, dev):
     _reset_peak(torch, dev)
     runs, lat, t_q, launches = _serve(torch, dev, svc, qpts, wids,
                                       cf["reps"])
+    peak = _peak(torch, dev)
     _need_launches(launches, {"fused_query_hist": None,
                               "fused_query_scores": None, "hash_encode": 0,
                               "freq_level": 0, "weighted_lp": 0}, "slice")
@@ -713,7 +743,7 @@ def phase_slice(torch, dev):
     n_served = n_q * cf["reps"]
     say(f"slice serve: {cf['reps']} x {n_q} queries in {len(lat)} batches, "
         f"{t_q:.3f}s ({n_served / t_q:.1f} q/s), identical across runs; "
-        f"{_lat(lat)}; peak device memory {_peak(torch, dev)} bytes; mean "
+        f"{_lat(lat)}; peak device memory {peak} bytes; mean "
         f"stop level {res.stop_levels.mean():.2f}, mean n_checked "
         f"{res.n_checked.mean():.1f}")
 
@@ -734,7 +764,7 @@ def phase_slice(torch, dev):
         f"{ratio:.4f}")
     return dict(svc=svc, plan=plan, host=host, data=data, weights=weights,
                 qpts=qpts, wids=wids, res=res, launches=launches,
-                recall=rec, ratio=ratio)
+                recall=rec, ratio=ratio, peak=peak)
 
 
 def _widest(svc, plan) -> int:
@@ -778,7 +808,7 @@ def _slice_pass_inputs(sl, torch, dev):
     rows = np.where(plan.group_of[wids] == gi)[0]
     take = rows[np.arange(cfg.q_batch) % len(rows)]
     _, _, inp = _batch_inputs(svc, plan, sl["qpts"], wids, take, torch, dev)
-    st = svc.batcher.state(gi)
+    st = _state(svc, gi)
     inp.update(codes_p=st.codes, points=st.points)
     step = svc.step_cache.get(dev, cfg)
     _, _, stop, _ = step(st, inp["queries"], inp["codes_q"], inp["q_weight"],
@@ -800,7 +830,8 @@ def phase_encode(torch, dev, sl):
     plan_nc = sl["host"].export_serving_plan(include_codes=False)
     _need(all(g.codes is None for g in plan_nc.groups), "plan ships codes")
     svc = RetrievalService(plan_nc, data, cfg=ServiceConfig(
-        k=cf["k"], q_batch=cf["q_batch"], device=str(dev)))
+        k=cf["k"], q_batch=cf["q_batch"], offload_evicted=False,
+        device=str(dev)))
     _reset_peak(torch, dev)
     _cuda.reset_launch_counts()
     t0 = time.time()
@@ -820,7 +851,7 @@ def phase_encode(torch, dev, sl):
     # the widest group's codes against float64, the host codes and the
     # plain version on the card
     gi = _widest(svc, plan_nc)
-    st = svc.batcher.state(gi)
+    st = _state(svc, gi)
     bg = plan.groups[gi].beta_group
     ones = torch.ones(plan.d, dtype=torch.float32, device=dev)
     t0 = time.time()
@@ -902,7 +933,7 @@ def phase_unfused(torch, dev, sl):
     qpts, wids, fused = sl["qpts"], sl["wids"], sl["res"]
     svc = RetrievalService(plan, sl["data"], cfg=ServiceConfig(
         k=cf["k"], q_batch=cf["q_batch"], use_kernels="off",
-        device=str(dev)))
+        offload_evicted=False, device=str(dev)))
     svc.warmup()
     svc.query(qpts, wids)  # warm
     _sync(torch, dev)
@@ -919,7 +950,7 @@ def phase_unfused(torch, dev, sl):
     for qi in np.where(~agree)[0]:  # which good-level bins moved
         gi, cfg, inp = _batch_inputs(svc, plan, qpts, wids, np.array([qi]),
                                      torch, dev)
-        st = svc.batcher.state(gi)
+        st = _state(svc, gi)
         args = (inp["codes_q"], inp["queries"], inp["q_weight"], inp["mu"],
                 inp["r_min"], inp["beta_q"])
         _, hg = ops.fused_query_block(
@@ -968,6 +999,147 @@ def phase_unfused(torch, dev, sl):
     _free(torch, svc)
     return dict(launches=launches["freq_level"],
                 weighted_lp=launches["weighted_lp"], pass1=(t_f, t_u))
+
+
+def _same_answers(res, want) -> bool:
+    return all(np.array_equal(getattr(res, f), getattr(want, f))
+               for f in ("ids", "dists", "stop_levels", "n_checked"))
+
+
+def phase_paged(torch, dev, sl):
+    """The slice's queries through a service that keeps PAGED_SLOTS of
+    the plan's group states on the card and pages the rest."""
+    from repro_torch.serving.retrieval import RetrievalService, ServiceConfig
+
+    cf, plan = SLICE, sl["plan"]
+    qpts, wids = sl["qpts"], sl["wids"]
+    _free(torch, sl["svc"])  # the unpaged leg's states leave the card
+    svc = RetrievalService(plan, sl["data"], cfg=ServiceConfig(
+        k=cf["k"], q_batch=cf["q_batch"], max_resident_groups=PAGED_SLOTS,
+        device=str(dev)))
+    t0 = time.time()
+    svc.warmup()
+    svc.query(qpts, wids)  # warm: every group offloaded once, allocator
+    _sync(torch, dev)
+    t_warm = time.time() - t0
+    svc.reset_stats()
+    pager = svc.batcher.pager
+    n0 = len(pager.summary()["copy_ms"])
+    _reset_peak(torch, dev)
+    runs, lat, t_q, launches = _serve(torch, dev, svc, qpts, wids,
+                                      cf["reps"])
+    peak = _peak(torch, dev)
+    want = {name: sl["launches"][name] for name in
+            ("fused_query_hist", "fused_query_scores")}
+    _need_launches(launches, dict(want, hash_encode=0, freq_level=0,
+                                  weighted_lp=0), "paged")
+    cache = svc.cache_summary()
+    ps = pager.summary()
+    copy_ms = np.array(ps["copy_ms"][n0:])
+    copy_b = np.array(ps["copy_bytes"][n0:], np.float64)
+    same = all(_same_answers(r, sl["res"]) for r in runs)
+    n_served = len(qpts) * cf["reps"]
+    qps = n_served / t_q
+    say(f"paged serve: {cf['reps']} x {len(qpts)} queries with "
+        f"{PAGED_SLOTS} of {plan.n_groups} group states on the card, "
+        f"{len(lat)} batches, {t_q:.3f}s ({qps:.1f} q/s); {_lat(lat)}; "
+        f"{cache['n_restores']} restores, {cache['n_evictions']} "
+        f"evictions, {cache['n_hits']} hits, {cache['n_builds']} builds; "
+        f"answers {'equal to' if same else 'DIFFER FROM'} the slice leg's "
+        f"bit for bit; peak device memory {peak} bytes (slice leg "
+        f"{sl['peak']}); warmup {t_warm:.1f}s")
+    _need(same, "paged answers differ from the unpaged slice leg's")
+    _need(cache["n_restores"] > 0, "the paged leg restored nothing")
+    _need(len(copy_ms) == cache["n_restores"],
+          f"{len(copy_ms)} timed copies for {cache['n_restores']} restores")
+    _need(peak < sl["peak"], "paged peak memory not below the slice leg's")
+    rate = copy_b / (copy_ms / 1e3)
+    say(f"paged restores (CUDA events on the copy stream): "
+        f"{copy_b.mean():.0f} bytes per restore mean ({copy_b.min():.0f}"
+        f"-{copy_b.max():.0f}), {copy_ms.mean():.3f} ms mean, p50 "
+        f"{np.percentile(copy_ms, 50):.3f} ms, p95 "
+        f"{np.percentile(copy_ms, 95):.3f} ms, {rate.mean() / 1e9:.2f} "
+        f"GB/s mean; {ps['pinned_bytes']} bytes of pinned host buffers "
+        f"({ps['n_offloads']} offloads in the leg's life); cost model "
+        f"{svc.state_cache.cost_model.bytes_per_s / 1e9:.2f} GB/s after "
+        f"{svc.state_cache.cost_model.n_observed} timed misses")
+    return dict(svc=svc, qps=qps, launches=launches)
+
+
+def phase_async(torch, dev, sl, paged):
+    """Open-loop arrivals into the async frontend over the paged leg's
+    service, driven by a ServiceDriver thread with DeadlinePrefetch."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.serving import (AsyncRetrievalService,
+                                     DeadlinePrefetch, ServiceDriver)
+
+    qpts, wids = sl["qpts"], sl["wids"]
+    svc = paged["svc"]
+    rate = ASYNC_LOAD * paged["qps"]
+    arrivals = np.cumsum(np.random.default_rng(17).exponential(
+        1.0 / rate, len(qpts)))
+    asvc = AsyncRetrievalService(svc, max_delay_ms=ASYNC_DELAY_MS)
+    driver = ServiceDriver(asvc, prefetch=DeadlinePrefetch())
+    svc.reset_stats()
+    _cuda.reset_launch_counts()
+    driver.start()
+    futs, t_sub = [], []
+    t0 = time.monotonic()
+    try:
+        for i in range(len(qpts)):
+            delay = t0 + arrivals[i] - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            t_sub.append(time.monotonic())
+            futs.append(driver.submit(qpts[i], wids[i]))
+        deadline = time.monotonic() + 300.0
+        while not all(f.done() for f in futs):
+            _need(time.monotonic() < deadline, "async futures unresolved")
+            time.sleep(0.005)
+    finally:
+        driver.stop(drain=True)
+    t_all = time.monotonic() - t0
+    _sync(torch, dev)
+    launches = _cuda.launch_counts()
+    n_batches = sum(s["n_batches"] for s in svc.stats_summary().values())
+    _need_launches(launches, {"fused_query_hist": n_batches,
+                              "fused_query_scores": n_batches,
+                              "hash_encode": 0, "freq_level": 0,
+                              "weighted_lp": 0}, "async")
+    want = sl["res"]
+    same = sum(
+        np.array_equal(f.result().ids, want.ids[i])
+        and np.array_equal(f.result().dists, want.dists[i])
+        and f.result().stop_level == want.stop_levels[i]
+        and f.result().n_checked == want.n_checked[i]
+        for i, f in enumerate(futs))
+    wait_ms = 1e3 * (np.array([f.t_resolved for f in futs])
+                     - np.array(t_sub))
+    cache, d = svc.cache_summary(), driver.stats
+    model = svc.state_cache.cost_model
+    say(f"async serve: {len(qpts)} open-loop arrivals at {rate:.1f} q/s "
+        f"({ASYNC_LOAD:.0%} of the paged leg's), deadline "
+        f"{ASYNC_DELAY_MS} ms, {PAGED_SLOTS} of {svc.plan.n_groups} "
+        f"states on the card: {asvc.n_launched_full} full / "
+        f"{asvc.n_launched_deadline} deadline / {asvc.n_launched_drain} "
+        f"drain launches ({n_batches} batches) in {t_all:.3f}s; "
+        f"submit-to-resolve p50 {np.percentile(wait_ms, 50):.2f} ms, p95 "
+        f"{np.percentile(wait_ms, 95):.2f} ms; {same}/{len(qpts)} answers "
+        f"equal to the slice leg's")
+    say(f"async driver: {d.n_ticks} ticks, {d.n_launches} launches, "
+        f"deadline misses {d.n_deadline_misses}/{d.n_deadlines_due}, "
+        f"{d.n_prefetches_issued} prefetches issued; cache "
+        f"{cache['n_restores']} restores ({cache['n_restore_overlapped']} "
+        f"overlapped by a prefetch), {cache['n_prefetch_wasted']} wasted "
+        f"prefetches, {cache['n_evictions']} evictions, {cache['n_hits']} "
+        f"hits; cost model {model.bytes_per_s / 1e9:.2f} GB/s learned "
+        f"over {model.n_observed} restores")
+    _need(asvc.n_launched_drain == 0, "the driver left futures to drain")
+    _need(same == len(qpts), "async answers differ from the slice leg's")
+    _need(cache["n_restore_overlapped"] > 0,
+          "no prefetch overlapped a restore")
+    _free(torch, svc)
+    return dict(launches=launches)
 
 
 def _bound(bytes_, ops_ms: float):
@@ -1189,13 +1361,18 @@ def main(argv=None) -> int:
     sl, legs = None, {}
     if "slice" in phases:
         sl = phase_slice(torch, dev)
-    for leg, fn in (("encode", phase_encode), ("unfused", phase_unfused)):
+    for leg, fn in (("encode", phase_encode), ("unfused", phase_unfused),
+                    ("paged", phase_paged)):
         if leg in phases:
             if sl is None:
                 raise SystemExit(f"the {leg} phase needs the slice phase")
             legs[leg] = fn(torch, dev, sl)
+    if "async" in phases:
+        if "paged" not in legs:
+            raise SystemExit("the async phase needs the paged phase")
+        legs["async"] = phase_async(torch, dev, sl, legs["paged"])
     if "times" in phases:
-        if sl is None or errs is None or len(legs) < 2:
+        if sl is None or errs is None or len(legs) < len(PHASES) - 5:
             raise SystemExit("the times phase needs every other phase")
         table = phase_times(torch, dev, sl, legs, errs, smi)
         say(json.dumps({"kernels": table}))

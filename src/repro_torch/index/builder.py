@@ -11,9 +11,19 @@ on the device as they are, so the device engine sees bit-identical
 candidate sets to the host oracle.  Otherwise it encodes the group's rows
 on the device through ``ops.hash_encode`` (the CUDA kernel on the card),
 and queries must then be encoded the same way (``engine.encode_queries``).
+
+Paging moves built states between the device and host memory, bit for
+bit (``offload_state`` / ``restore_state``); ``StatePager`` adds what the
+card needs around them: one pinned host copy per group, reused across
+evict/restore cycles, and restores enqueued on a dedicated copy stream
+with a CUDA event that every launch stream waits on before it reads the
+restored state.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -24,7 +34,13 @@ from ..kernels.platform import resolve_device
 from .config import IndexConfig
 from .engine import QueryState
 
-__all__ = ["build_group_state", "pad_cols"]
+__all__ = [
+    "StatePager",
+    "build_group_state",
+    "offload_state",
+    "pad_cols",
+    "restore_state",
+]
 
 # Row-capacity padding fill of a host-code build: a fixed sentinel code and
 # zero vectors (a device-encoded build encodes its zero vectors instead).
@@ -109,3 +125,198 @@ def build_group_state(
         width=torch.tensor(1.0, dtype=torch.float32, device=dev),
         n_valid=n_rows,
     )
+
+
+def _tensor_fields(state: QueryState):
+    """(name, tensor) of every tensor field of ``state``."""
+    for f in dataclasses.fields(QueryState):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.Tensor):
+            yield f.name, v
+
+
+def offload_state(state: QueryState,
+                  out: QueryState | None = None) -> QueryState:
+    """Copy a ``QueryState`` into host memory, bit for bit.
+
+    Every tensor keeps its dtype and shape.  From the card the copies land
+    in pinned (page-locked) host memory, so a later ``restore_state`` can
+    upload them asynchronously; on the CPU they are clones.  ``out``, an
+    earlier host copy of the same shapes (a group's bytes keep their
+    shapes), is written in place and returned, so a group's pinned
+    buffers are allocated once and reused across evict/restore cycles.
+    The copy is synchronous: the result holds the bytes on return.
+    """
+    pin = state.device.type == "cuda"
+    fields = {}
+    for name, t in _tensor_fields(state):
+        dst = getattr(out, name) if out is not None else None
+        if (dst is None or dst.shape != t.shape or dst.dtype != t.dtype
+                or dst.device.type != "cpu"):
+            dst = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+        dst.copy_(t)
+        fields[name] = dst
+    return QueryState(n_valid=state.n_valid, **fields)
+
+
+def restore_state(host: QueryState, device: str | torch.device,
+                  stream=None) -> QueryState:
+    """Upload an ``offload_state`` copy to ``device``: the same bytes.
+
+    No re-encode and no new query step: one host-to-device copy per
+    tensor.  On the card the tensors are allocated on ``stream`` (the
+    current stream when None) and the copies are enqueued there without
+    blocking the host (``non_blocking`` from pinned memory); the caller
+    orders every later use after them (``StatePager.ready``).  On the CPU
+    the tensors are fresh clones.
+    """
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return QueryState(n_valid=host.n_valid, **{
+            name: t.to(dev, copy=True) for name, t in _tensor_fields(host)})
+    stream = stream if stream is not None else torch.cuda.current_stream(dev)
+    with torch.cuda.stream(stream):
+        fields = {name: torch.empty(t.shape, dtype=t.dtype, device=dev)
+                  .copy_(t, non_blocking=True)
+                  for name, t in _tensor_fields(host)}
+    return QueryState(n_valid=host.n_valid, **fields)
+
+
+@dataclasses.dataclass
+class _Copy:
+    """One in-flight or finished restore on the copy stream."""
+
+    start: object  # torch.cuda.Event (timing)
+    end: object  # torch.cuda.Event (timing); launch streams wait on it
+    nbytes: int
+    streams: set = dataclasses.field(default_factory=set)  # waited on it
+
+
+@dataclasses.dataclass
+class _Group:
+    """A group's paging record: its device state and its host buffers."""
+
+    state: object = None  # weakref to the group's current device state
+    host: QueryState | None = None  # its host copy (pinned on the card)
+    copy: _Copy | None = None  # the restore that produced ``state``
+
+
+class StatePager:
+    """Offload and restore executors for a ``StateCache`` on one device.
+
+    ``offload(state)`` copies an evicted state into its group's host
+    buffers (pinned on the card, allocated once per group) and
+    ``restore(gi, host)`` uploads them again.  On the card a restore
+    allocates its tensors on a dedicated copy stream and enqueues the
+    copies there between two timing events, so a prefetch returns at once
+    and the upload overlaps the launches that run meanwhile.  Every launch
+    that reads a restored state calls ``ready(gi, state)`` first: the
+    launching stream (the current stream of the calling thread) waits on
+    the copy's end event and each tensor is recorded on that stream, so
+    neither a launch nor the caching allocator can touch the memory
+    before the copy is done.  An offload waits for the restore that
+    filled its group's buffers before it overwrites them.
+
+    ``restore_timings`` hands the ``StateCache`` the device time of each
+    finished copy; ``summary`` reports the finished copies' bytes and
+    times, and the pinned host bytes.  On the CPU the same executors clone
+    and nothing waits.
+    """
+
+    def __init__(self, device: str | torch.device):
+        self.device = resolve_device(device)
+        self._groups: dict[int, _Group] = {}
+        self._stream = None  # the copy stream, created on first restore
+        self._untimed: list[_Copy] = []  # copies whose time is not read yet
+        self._copy_ms: list[float] = []  # device time of finished copies
+        self._copy_bytes: list[int] = []
+        self._n_reported = 0  # copies already handed to restore_timings
+        self.n_offloads = 0
+
+    def _group(self, gi: int) -> _Group:
+        return self._groups.setdefault(int(gi), _Group())
+
+    def adopt(self, gi: int, state: QueryState) -> QueryState:
+        """Record a freshly built ``state`` as group ``gi``'s; returns it."""
+        g = self._group(gi)
+        g.state = weakref.ref(state)
+        g.copy = None
+        return state
+
+    def offload(self, state: QueryState) -> QueryState:
+        """StateCache offload executor: ``state``'s bytes in host memory."""
+        self.n_offloads += 1
+        g = next((r for r in self._groups.values()
+                  if r.state is not None and r.state() is state), None)
+        if g is None:
+            return offload_state(state)
+        if g.copy is not None:
+            # the restore read these buffers and wrote ``state``: both
+            # must be done before the buffers are overwritten from it
+            g.copy.end.synchronize()
+        g.host = offload_state(state, out=g.host)
+        return g.host
+
+    def restore(self, gi: int, host: QueryState) -> QueryState:
+        """StateCache restore executor: upload ``host`` for group ``gi``."""
+        g = self._group(gi)
+        if self.device.type != "cuda":
+            state = restore_state(host, self.device)
+            g.state, g.copy, g.host = weakref.ref(state), None, host
+            return state
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(self._stream)
+        state = restore_state(host, self.device, stream=self._stream)
+        end.record(self._stream)
+        g.state, g.host = weakref.ref(state), host
+        g.copy = _Copy(start, end, state.nbytes)
+        self._untimed.append(g.copy)
+        return state
+
+    def ready(self, gi: int, state: QueryState) -> None:
+        """Order the current stream's next launches after ``state``'s
+        restore copy (a no-op on the CPU and for built states)."""
+        g = self._groups.get(int(gi))
+        if g is None or g.copy is None or g.state() is not state:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        if stream.cuda_stream in g.copy.streams:
+            return
+        stream.wait_event(g.copy.end)
+        for _, t in _tensor_fields(state):
+            t.record_stream(stream)
+        g.copy.streams.add(stream.cuda_stream)
+
+    def _poll(self) -> None:
+        """Read the device time of every copy that has finished."""
+        while self._untimed and self._untimed[0].end.query():
+            c = self._untimed.pop(0)  # one stream: copies end in order
+            self._copy_ms.append(c.start.elapsed_time(c.end))
+            self._copy_bytes.append(c.nbytes)
+
+    def restore_timings(self) -> list[tuple[int, float]]:
+        """(nbytes, seconds) of the copies finished since the last call."""
+        self._poll()
+        new = list(zip(self._copy_bytes[self._n_reported:],
+                       (ms / 1e3 for ms in self._copy_ms[self._n_reported:])))
+        self._n_reported = len(self._copy_ms)
+        return new
+
+    @property
+    def pinned_bytes(self) -> int:
+        """Host bytes held by the groups' offload buffers."""
+        return sum(t.numel() * t.element_size()
+                   for g in self._groups.values() if g.host is not None
+                   for _, t in _tensor_fields(g.host))
+
+    def summary(self) -> dict:
+        """Offloads, the finished restore copies' bytes and device times
+        (ms, in restore order), and the pinned host bytes."""
+        self._poll()
+        return dict(n_offloads=self.n_offloads,
+                    copy_bytes=list(self._copy_bytes),
+                    copy_ms=list(self._copy_ms),
+                    pinned_bytes=self.pinned_bytes)

@@ -1,4 +1,4 @@
-"""Retrieval-service launcher, synchronous path: plan -> build -> serve.
+"""Retrieval-service launcher: plan -> build -> serve -> report.
 
 End-to-end driver on synthetic data (paper Sec. 5.1 generators), on the
 card by default:
@@ -10,13 +10,33 @@ Steps:
   1. plan   — WLSHIndex partitions the weight set into table groups
               (Algorithm 1) and exports a serializable ServingPlan
   2. build  — RetrievalService materializes every group's state on the
-              device; groups whose padded shapes coincide share one step
-  3. serve  — the mixed (query, weight_id) stream arrives in one call and
-              is routed, coalesced, padded and answered in submission
-              order (Algorithm 2)
+              device; groups whose padded shapes coincide share one step.
+              ``--max-resident-groups`` / ``--device-budget`` page the
+              states through a budgeted LRU cache (host offload/restore)
+              instead of keeping every group resident
+  3. serve  — sync (default): the mixed (query, weight_id) stream arrives
+              in one call and is routed, coalesced, padded and answered in
+              submission order (Algorithm 2).
+              ``--async``: the same stream is replayed open-loop — each
+              request submitted alone at a Poisson arrival time
+              (``--arrival-rate`` q/s of virtual traffic) into the
+              deadline-aware AsyncRetrievalService, which launches a batch
+              when it fills or when the oldest request has waited
+              ``--max-delay-ms``.  ``--driver`` steps the replay through
+              the real-time ServiceDriver (deadline-miss accounting,
+              cost-aware eviction); ``--prefetch`` additionally issues
+              predictive state prefetches from the pending-deadline
+              schedule, so restores overlap launches.  ``--qos`` tags each
+              request with a ``--tenants`` class (admission control,
+              weighted-fair dequeue under ``--qos-capacity``, and the
+              ``--degrade-ladder`` for degradable tenants under overload).
+              Answers are bit-exact across all of these, except a
+              degraded tenant's, which are served at the relaxed (c, k)
   4. report — per-group occupancy / stop-level / n_checked stats and
-              throughput; ``--check`` cross-validates every answer against
-              the host oracle WLSHIndex.search_dense
+              throughput (plus queue-wait percentiles, launch causes and
+              the driver, QoS and state-cache reports where they apply);
+              ``--check`` cross-validates every answer against the host
+              oracle WLSHIndex.search_dense
 
 ``--device cpu`` runs the plain torch versions of the kernels on the host.
 ``--use-kernels off`` runs the unfused stages (on the card: the
@@ -36,6 +56,7 @@ themselves as ``n_self_misses`` (None otherwise).
 from __future__ import annotations
 
 import argparse
+import re
 import time
 
 import numpy as np
@@ -45,9 +66,183 @@ from ..core.datagen import make_dataset, make_weight_set
 from ..core.params import PlanConfig
 from ..core.wlsh import WLSHIndex
 from ..kernels import platform as kernel_platform
+from ..serving.async_service import (
+    AsyncRetrievalService,
+    ManualClock,
+    replay_open_loop,
+)
+from ..serving.qos import DegradeStep, QosClass, QosScheduler
 from ..serving.retrieval import RetrievalService, ServiceConfig
+from ..serving.scheduler import (
+    DeadlinePrefetch,
+    ServiceDriver,
+    replay_with_driver,
+)
 
-__all__ = ["main", "parse_args", "run"]
+__all__ = ["main", "parse_args", "parse_bytes", "parse_ladder",
+           "parse_tenants", "run"]
+
+_UNITS = {"": 1, "B": 1, "KB": 1 << 10, "MB": 1 << 20, "GB": 1 << 30,
+          "TB": 1 << 40,
+          # IEC suffixes are the same binary multiples this parser always
+          # meant ("512MiB" == "512MB" == 512 * 2**20)
+          "KIB": 1 << 10, "MIB": 1 << 20, "GIB": 1 << 30, "TIB": 1 << 40}
+
+
+def parse_bytes(text: str) -> int:
+    """Parse a byte budget like ``"512MB"``, ``"2GiB"`` or a plain int.
+
+    Suffixes are case-insensitive (``512mb``, ``2gb``) and both the
+    conventional (KB/MB/GB/TB) and IEC (KiB/MiB/GiB/TiB) spellings name
+    the binary multiples.  Zero or negative budgets are rejected with an
+    explicit message (a budget under one byte cannot hold any state).
+    """
+    m = re.fullmatch(r"\s*(-?\d+(?:\.\d+)?)\s*([A-Za-z]*)\s*", text)
+    if m is None:
+        raise argparse.ArgumentTypeError(
+            f"can't parse byte size {text!r} (use e.g. 1073741824, 512MB, "
+            f"512MiB, 2gb)"
+        )
+    unit = m.group(2).upper()
+    if unit not in _UNITS:
+        raise argparse.ArgumentTypeError(
+            f"unknown byte-size unit {m.group(2)!r} in {text!r} (use "
+            f"B, KB/MB/GB/TB or KiB/MiB/GiB/TiB, any case)"
+        )
+    value = float(m.group(1))
+    if value <= 0:
+        raise argparse.ArgumentTypeError(
+            f"byte budget must be positive, got {text!r}"
+        )
+    if unit == "" and "." in m.group(1):  # "1.5" meaning 1.5GB, probably
+        raise argparse.ArgumentTypeError(
+            f"fractional byte size {text!r} has no unit — missing a "
+            f"KB/MB/GB suffix?"
+        )
+    nbytes = int(value * _UNITS[unit])
+    if nbytes < 1:  # "0.0001KB", ...
+        raise argparse.ArgumentTypeError(
+            f"byte size {text!r} is under 1 byte"
+        )
+    return nbytes
+
+
+def parse_tenants(text: str) -> list[QosClass]:
+    """Parse a ``--tenants`` spec into ``QosClass``es.
+
+    Spec: ``;``-separated tenants, each ``name:key=val,key=val,...``
+    with keys ``weight``, ``rate``, ``burst``, ``slo_ms`` (floats) and
+    ``degradable`` (bare flag or ``=true``/``=false``), e.g.::
+
+        gold:weight=4,slo_ms=20;bronze:slo_ms=100,degradable
+    """
+    classes: list[QosClass] = []
+    for part in filter(None, (s.strip() for s in text.split(";"))):
+        name, _, body = part.partition(":")
+        kwargs: dict = {}
+        for item in filter(None, (s.strip() for s in body.split(","))):
+            key, eq, val = item.partition("=")
+            key = key.strip()
+            if key == "degradable":
+                kwargs[key] = (not eq) or val.strip().lower() in (
+                    "1", "true", "yes"
+                )
+            elif key in ("weight", "rate", "burst", "slo_ms"):
+                kwargs[key] = float(val)
+            else:
+                raise argparse.ArgumentTypeError(
+                    f"unknown tenant key {key!r} in {part!r} (use weight, "
+                    f"rate, burst, slo_ms, degradable)"
+                )
+        classes.append(QosClass(name.strip(), **kwargs))
+    if not classes:
+        raise argparse.ArgumentTypeError(f"empty --tenants spec {text!r}")
+    return classes
+
+
+def parse_ladder(text: str) -> tuple[DegradeStep, ...]:
+    """Parse a ``--degrade-ladder`` spec into ``DegradeStep``s.
+
+    Spec: ``,``-separated rungs, each ``c:k`` or ``c:k:cost``, strictest
+    first, e.g. ``4:3:0.5,5:2:0.25``.
+    """
+    steps = []
+    for part in filter(None, (s.strip() for s in text.split(","))):
+        bits = part.split(":")
+        if len(bits) not in (2, 3):
+            raise argparse.ArgumentTypeError(
+                f"can't parse ladder rung {part!r} (use c:k or c:k:cost)"
+            )
+        steps.append(DegradeStep(
+            c=int(bits[0]), k=int(bits[1]),
+            cost=float(bits[2]) if len(bits) == 3 else 1.0,
+        ))
+    if not steps:
+        raise argparse.ArgumentTypeError(f"empty --degrade-ladder {text!r}")
+    return tuple(steps)
+
+
+def _make_qos(args, ladder) -> QosScheduler:
+    """A QosScheduler over the CLI tenant classes and ladder."""
+    return QosScheduler(
+        classes=args.tenants,
+        ladder=ladder,
+        capacity_per_tick=args.qos_capacity,
+    )
+
+
+def _print_qos_report(qos: QosScheduler) -> None:
+    """Per-tenant QoS report: admission, SLO misses, degradation."""
+    s = qos.summary()
+    print(f"qos: {s['n_degrade_steps']} degrade / "
+          f"{s['n_restore_steps']} restore ladder steps")
+    for name, t in sorted(s["tenants"].items()):
+        miss = (f"{t['slo_miss_rate']:.2f}" if t["n_resolved"] else "n/a")
+        print(f"  tenant {name}: {t['n_admitted']} admitted "
+              f"({t['n_rate_limited']} rate-limited), slo-miss {miss}, "
+              f"mean wait {1e3 * t['mean_wait_s']:.2f} ms, "
+              f"{t['n_degraded']} degraded answers (rung {t['rung']})")
+
+
+def _make_driver(args, asvc) -> ServiceDriver | None:
+    """A ServiceDriver over ``asvc`` per the CLI flags (None = undriven)."""
+    if not args.driver:
+        return None
+    return ServiceDriver(
+        asvc,
+        prefetch=DeadlinePrefetch() if args.prefetch else None,
+    )
+
+
+def _print_driver_report(driver: ServiceDriver) -> None:
+    """One-line scheduler report: ticks, launches, misses, prefetches."""
+    d = driver.stats
+    miss = (f"{d.deadline_miss_rate:.2f}"
+            if d.n_deadlines_due else "n/a")
+    print(f"driver: {d.n_ticks} ticks -> {d.n_launches} launches, "
+          f"deadline-miss rate {miss} "
+          f"({d.n_deadline_misses}/{d.n_deadlines_due}), "
+          f"{d.n_prefetches_issued} prefetches issued, "
+          f"{d.n_idle_compactions} idle compactions")
+    # the registry-diff heartbeat a live deployment would log per tick
+    print(driver.tick_summary())
+
+
+def _print_cache_report(cache: dict) -> None:
+    """State-cache report: residency, utilization, paging + prefetch work."""
+    util = (f", budget {cache['budget_utilization']:.0%} used"
+            if cache["device_budget_bytes"] else "")
+    print(f"state cache: {cache['n_resident']}/{cache['n_groups']} "
+          f"resident ({cache['resident_bytes'] / 2**20:.1f} MiB{util}), "
+          f"hit rate {cache['hit_rate']:.2f}, "
+          f"{cache['n_evictions']} evictions, "
+          f"{cache['n_restores']} restores, "
+          f"{cache['n_builds']} rebuilds, "
+          f"{cache['n_prefetches']} prefetches "
+          f"({cache['n_restore_overlapped']} overlapped restores, "
+          f"{cache['n_prefetch_wasted']} wasted)")
+
+
 
 
 def _sync(device) -> None:
@@ -86,32 +281,85 @@ def run(args, *, include_codes: bool = True) -> dict:
 
     # ---- build --------------------------------------------------------------
     t0 = time.time()
+    ladder = args.degrade_ladder if args.qos else ()
     scfg = ServiceConfig(k=args.k, q_batch=args.q_batch,
-                         use_kernels=args.use_kernels, device=str(device))
+                         max_delay_ms=args.max_delay_ms,
+                         max_resident_groups=args.max_resident_groups,
+                         device_budget_bytes=args.device_budget,
+                         use_kernels=args.use_kernels,
+                         degrade_ladder=ladder, device=str(device))
     svc = RetrievalService(plan, data, cfg=scfg)
     svc.warmup()
     _sync(device)
     t_build = time.time() - t0
+    cache0 = svc.cache_summary()
     print(f"build: {plan.n_groups} group states "
-          f"({svc.resident_bytes / 2**20:.1f} MiB on {device}), "
+          f"({cache0['n_resident']} resident, "
+          f"{cache0['resident_bytes'] / 2**20:.1f} MiB on {device}), "
           f"{svc.step_cache.n_compiled} query steps "
           f"(shape sharing {plan.n_groups}/{svc.step_cache.n_compiled}) "
           f"in {t_build:.1f}s")
     print(f"kernels: {kernel_platform.describe(scfg.use_kernels, device)} "
           f"(--use-kernels {args.use_kernels})")
+    svc.reset_stats()  # serve-phase cache counters exclude warmup churn
 
     # ---- serve --------------------------------------------------------------
     wids = rng.integers(0, args.n_weights, size=args.n_queries)
     src = rng.choice(args.n, args.n_queries, replace=False)
     qpts = data[src].astype(np.float32)
     qpts = qpts + rng.normal(0, args.q_noise, qpts.shape).astype(np.float32)
-    t0 = time.time()
-    res = svc.query(qpts, wids)
-    _sync(device)
-    t_serve = time.time() - t0
-    print(f"serve: {args.n_queries} queries over "
-          f"{len(np.unique(res.group_ids))} active groups in "
-          f"{t_serve:.2f}s ({args.n_queries / t_serve:.1f} q/s)")
+    async_report = None
+    if args.use_async:
+        arrivals = np.cumsum(
+            rng.exponential(1.0 / args.arrival_rate, args.n_queries)
+        )
+        qos = _make_qos(args, ladder) if args.qos else None
+        tenants = None
+        if qos is not None:
+            names = [c.name for c in args.tenants]
+            tenants = [str(t) for t in rng.choice(names, args.n_queries)]
+        asvc = AsyncRetrievalService(svc, clock=ManualClock(), qos=qos)
+        driver = _make_driver(args, asvc)
+        t0 = time.time()
+        if driver is not None:
+            res, waits = replay_with_driver(driver, qpts, wids, arrivals,
+                                            tenants=tenants)
+        else:
+            res, waits = replay_open_loop(asvc, qpts, wids, arrivals,
+                                          tenants=tenants)
+        _sync(device)
+        t_serve = time.time() - t0
+        wait_ms = 1e3 * waits if len(waits) else np.array([np.nan])
+        async_report = {
+            "arrival_rate": args.arrival_rate,
+            "max_delay_ms": args.max_delay_ms,
+            "mean_wait_ms": float(wait_ms.mean()),
+            "p95_wait_ms": float(np.percentile(wait_ms, 95)),
+            "n_launched_full": asvc.n_launched_full,
+            "n_launched_deadline": asvc.n_launched_deadline,
+            "driver": driver.stats.summary() if driver is not None else None,
+            "qos": qos.summary() if qos is not None else None,
+        }
+        print(f"serve[async]: {args.n_queries} queries at "
+              f"{args.arrival_rate:.0f} q/s open-loop, deadline "
+              f"{args.max_delay_ms} ms -> {len(np.unique(res.group_ids))} "
+              f"active groups, {asvc.n_launched_full} full / "
+              f"{asvc.n_launched_deadline} deadline launches, wait "
+              f"mean {wait_ms.mean():.2f} ms / p95 "
+              f"{np.percentile(wait_ms, 95):.2f} ms "
+              f"({args.n_queries / t_serve:.1f} q/s compute)")
+        if driver is not None:
+            _print_driver_report(driver)
+        if qos is not None:
+            _print_qos_report(qos)
+    else:
+        t0 = time.time()
+        res = svc.query(qpts, wids)
+        _sync(device)
+        t_serve = time.time() - t0
+        print(f"serve: {args.n_queries} queries over "
+              f"{len(np.unique(res.group_ids))} active groups in "
+              f"{t_serve:.2f}s ({args.n_queries / t_serve:.1f} q/s)")
 
     # ---- report -------------------------------------------------------------
     print("per-group serving stats:")
@@ -120,6 +368,10 @@ def run(args, *, include_codes: bool = True) -> dict:
               f"batches, occupancy {s['occupancy']:.2f}, "
               f"mean stop level {s['mean_stop_level']:.1f}, "
               f"mean checked {s['mean_n_checked']:.0f}")
+    cache = svc.cache_summary()
+    if (args.max_resident_groups is not None
+            or args.device_budget is not None or args.driver):
+        _print_cache_report(cache)
     n_bad, n_self_miss = 0, None
     if args.check:
         for qi in range(args.n_queries):
@@ -149,7 +401,9 @@ def run(args, *, include_codes: bool = True) -> dict:
         "t_serve": t_serve,
         "qps": args.n_queries / t_serve,
         "stats": svc.stats_summary(),
+        "cache": cache,
         "n_check_failures": n_bad,
+        "async": async_report,
         "n_self_misses": n_self_miss,
     }
 
@@ -183,12 +437,68 @@ def parse_args(argv=None):
                     help="save the ServingPlan npz here")
     ap.add_argument("--check", action="store_true",
                     help="cross-validate every answer against search_dense")
-    return ap.parse_args(argv)
+    ap.add_argument("--async", dest="use_async", action="store_true",
+                    help="serve through the deadline-aware async frontend: "
+                         "requests are replayed open-loop at --arrival-rate "
+                         "and a batch launches when it fills or its oldest "
+                         "request has waited --max-delay-ms")
+    ap.add_argument("--driver", action="store_true",
+                    help="step the --async replay through the real-time "
+                         "ServiceDriver (deadline-miss accounting, "
+                         "cost-aware eviction)")
+    ap.add_argument("--prefetch", action="store_true",
+                    help="with --driver: predictively prefetch group "
+                         "states from the pending-deadline schedule so "
+                         "restores overlap launches")
+    ap.add_argument("--qos", action="store_true",
+                    help="multi-tenant QoS for the --async replay: each "
+                         "request is tagged with a --tenants class, "
+                         "admission-controlled, dequeued weighted-fair, "
+                         "and degradable tenants step down the "
+                         "--degrade-ladder under sustained overload")
+    ap.add_argument("--tenants", type=parse_tenants,
+                    default="gold:weight=4,slo_ms=20;"
+                            "bronze:slo_ms=100,degradable",
+                    help="tenant classes for --qos: ';'-separated "
+                         "name:key=val,... specs (keys: weight, rate, "
+                         "burst, slo_ms, degradable)")
+    ap.add_argument("--degrade-ladder", type=parse_ladder,
+                    default="4:3:0.5",
+                    help="with --qos: pre-planned (c, k) relaxation "
+                         "rungs, strictest first, as c:k[:cost] entries "
+                         "joined by ','")
+    ap.add_argument("--qos-capacity", type=float, default=1.0,
+                    help="with --qos: launch-cost budget per scheduler "
+                         "tick for the weighted-fair dequeue")
+    ap.add_argument("--max-delay-ms", type=float, default=2.0,
+                    help="async deadline budget: a partial batch launches "
+                         "once its oldest request has waited this long")
+    ap.add_argument("--arrival-rate", type=float, default=2_000.0,
+                    help="open-loop Poisson arrival rate (queries/s of "
+                         "virtual traffic) for --async replay")
+    ap.add_argument("--max-resident-groups", type=int, default=None,
+                    help="page group states: keep at most this many device-"
+                         "resident (LRU eviction + host offload/restore)")
+    ap.add_argument("--device-budget", type=parse_bytes, default=None,
+                    metavar="BYTES",
+                    help="page group states under this device byte budget "
+                         "(accepts 512MB / 2GB / plain bytes)")
+    args = ap.parse_args(argv)
+    if args.driver and not args.use_async:
+        ap.error("--driver drives the async frontend; add --async")
+    if args.prefetch and not args.driver:
+        ap.error("--prefetch is a ServiceDriver feature; add --driver")
+    if args.qos and not args.use_async:
+        ap.error("--qos shapes the async frontend's traffic; add --async")
+    if args.qos and args.check:
+        ap.error("--check validates strict answers; a degraded QoS tenant "
+                 "may legitimately differ — drop one of the two")
+    return args
 
 
 def main(argv=None):
     """Entry point: ``python -m repro_torch.launch.retrieval``."""
-    run(parse_args(argv))
+    return run(parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -1,12 +1,97 @@
-"""Synchronous weight-routed retrieval service over the device engine."""
+"""Serving substrate of the port: the multi-group retrieval stack.
 
-from .batching import Batcher, ServiceConfig, merge_topk
-from .retrieval import RetrievalResult, RetrievalService
+Sync and async weight-routed frontends over a shared batching core,
+group states paged through a budgeted ``StateCache``, a real-time
+``ServiceDriver`` with predictive prefetch and cost-aware eviction, and
+multi-tenant QoS (admission control, weighted-fair dequeue, SLO-aware
+(c, k) degradation).  Streaming inserts and the LM decode loop are not
+ported yet.
+"""
+
+from .async_service import (
+    AsyncRetrievalService,
+    ManualClock,
+    Overloaded,
+    QueryAnswer,
+    QueryFuture,
+    replay_open_loop,
+)
+from .batching import (
+    Batcher,
+    BatchPlan,
+    coalesce,
+    merge_topk,
+    pad_take,
+    run_plans,
+)
+from .qos import (
+    DEFAULT_TENANT,
+    DeficitRoundRobin,
+    DegradeStep,
+    QosClass,
+    QosScheduler,
+    RateLimited,
+    TenantStats,
+    TokenBucket,
+)
+from .scheduler import (
+    CostAwareEviction,
+    DeadlinePrefetch,
+    DriverStats,
+    EvictionPolicy,
+    LRUEviction,
+    PrefetchPolicy,
+    ServiceDriver,
+    replay_with_driver,
+)
+from .state_cache import (
+    CacheStats,
+    EvictionCandidate,
+    RestoreCostModel,
+    StateCache,
+)
+from .retrieval import (
+    GroupServeStats,
+    RetrievalResult,
+    RetrievalService,
+    ServiceConfig,
+)
 
 __all__ = [
+    "AsyncRetrievalService",
+    "BatchPlan",
     "Batcher",
+    "CacheStats",
+    "CostAwareEviction",
+    "DEFAULT_TENANT",
+    "DeadlinePrefetch",
+    "DeficitRoundRobin",
+    "DegradeStep",
+    "DriverStats",
+    "EvictionCandidate",
+    "EvictionPolicy",
+    "GroupServeStats",
+    "LRUEviction",
+    "ManualClock",
+    "Overloaded",
+    "PrefetchPolicy",
+    "QosClass",
+    "QosScheduler",
+    "QueryAnswer",
+    "QueryFuture",
+    "RateLimited",
+    "RestoreCostModel",
     "RetrievalResult",
     "RetrievalService",
     "ServiceConfig",
+    "ServiceDriver",
+    "StateCache",
+    "TenantStats",
+    "TokenBucket",
+    "coalesce",
     "merge_topk",
+    "pad_take",
+    "replay_open_loop",
+    "replay_with_driver",
+    "run_plans",
 ]

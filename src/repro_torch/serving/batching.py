@@ -1,8 +1,11 @@
-"""Batching core of the synchronous retrieval frontend.
+"""Shared batching core for the retrieval frontends.
 
 The paper's query procedure (Algorithm 2) answers each query inside its
-weight's table group; everything the frontend does around that is
-frontend-independent:
+weight's table group; everything a serving frontend does around that is
+frontend-independent.  This module is that shared core, consumed by the
+synchronous ``RetrievalService`` (all queries present up front) and the
+asynchronous ``AsyncRetrievalService`` (queries trickle in and batches
+launch on fill or deadline):
 
   route     (query, weight_id) -> plan.group_of[weight_id]     Batcher.route
   coalesce  same-group submission indices -> q_batch chunks    coalesce()
@@ -13,26 +16,33 @@ frontend-independent:
   merge     real rows scattered back to submission order       run_plans()
 
 ``coalesce``/``pad_take``/``run_plans``/``merge_topk`` are pure numpy.
-``Batcher`` owns the stateful side: every group's state resident on the
-service's device (built on first use or by ``warmup``), the step cache,
-query encoding and per-group serving counters.  Query codes come from the
-same encoding as the group's data codes: host float64 when the plan ships
-host codes, the device encode (``hash_encode``) when the state was built
-on the device.
+``Batcher`` owns the stateful side: per-group device states paged through
+a budgeted ``StateCache`` (lazy build, LRU eviction, host offload and
+restore through ``index.builder.StatePager``), the step cache, query
+encoding, and the serving counters in one ``obs.MetricsRegistry``.  Every
+launch leases its group's state from the cache and pins it only for the
+launch, so deadline-driven partial launches cannot thrash each other's
+states.  Query codes come from the same encoding as the group's data
+codes: host float64 when the plan ships host codes, the device encode
+(``hash_encode``) when the state was built on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
 from ..core.serving_plan import ServingPlan
-from ..index.builder import build_group_state, pad_cols
+from ..index.builder import StatePager, build_group_state, pad_cols
 from ..index.config import IndexConfig, pad_beta, pad_levels
-from ..index.engine import QueryState, QueryStepCache, encode_queries
+from ..index.engine import QueryStepCache, encode_queries
 from ..kernels import platform as kplatform
+from ..obs import MetricsRegistry
+from .qos import DegradeStep
+from .state_cache import StateCache
 
 __all__ = [
     "BatchPlan",
@@ -59,7 +69,23 @@ class ServiceConfig:
     beta_buckets: tuple[int, ...] | None = None  # None = config.pad_beta
     level_step: int = 4  # level-loop bound rounding (config.pad_levels)
     budget_override: int | None = None  # None = k + ceil(gamma * n)
+    max_delay_ms: float = 5.0  # async frontend: a partial batch launches
+    # once its oldest request has waited this long (0 = launch on next poll)
+    max_resident_groups: int | None = None  # StateCache: keep at most this
+    # many group states on device (None = all groups stay resident)
+    device_budget_bytes: int | None = None  # StateCache: keep resident
+    # state bytes (IndexConfig.state_nbytes accounting) under this budget
+    offload_evicted: bool = True  # evicted states keep a host copy (restore
+    # = one upload); False discards them (re-acquire rebuilds from scratch)
+    max_pending: int | None = None  # async backpressure: cap per-group
+    # pending buffers; submit raises Overloaded instead of growing unbounded
     n_shards: int = 1  # devices each group's rows are sharded across
+    degrade_ladder: tuple = ()  # pre-planned (c, k) relaxation rungs
+    # (qos.DegradeStep, mildest first).  Rung 0 is this config's strict
+    # (plan.c, k); rung r >= 1 serves at degrade_ladder[r - 1].  Every
+    # rung's step is built at warmup (c/k are shape-signature keys), and
+    # rung answers with k' < k are padded -1/inf back to k so result
+    # shapes never change
     device: str = "cuda"  # where the group states live and queries run
 
     def __post_init__(self):
@@ -84,6 +110,39 @@ class ServiceConfig:
                 f"beta_buckets must be a non-empty tuple of positive table "
                 f"counts or None, got {self.beta_buckets!r}"
             )
+        if not (self.max_delay_ms >= 0):  # also rejects NaN
+            raise ValueError(
+                f"max_delay_ms must be >= 0, got {self.max_delay_ms}"
+            )
+        if self.max_resident_groups is not None and (
+            self.max_resident_groups < 1
+        ):
+            raise ValueError(
+                f"max_resident_groups must be >= 1 or None, got "
+                f"{self.max_resident_groups}"
+            )
+        if self.device_budget_bytes is not None and (
+            self.device_budget_bytes < 1
+        ):
+            raise ValueError(
+                f"device_budget_bytes must be >= 1 or None, got "
+                f"{self.device_budget_bytes}"
+            )
+        if self.max_pending is not None and self.max_pending < 1:
+            raise ValueError(
+                f"max_pending must be >= 1 or None, got {self.max_pending}"
+            )
+        for i, step in enumerate(self.degrade_ladder):
+            if not isinstance(step, DegradeStep):
+                raise ValueError(
+                    f"degrade_ladder[{i}] must be a qos.DegradeStep, got "
+                    f"{step!r}"
+                )
+            if step.k > self.k:
+                raise ValueError(
+                    f"degrade_ladder[{i}].k={step.k} exceeds the strict "
+                    f"k={self.k} (relaxation must not widen results)"
+                )
         if self.n_shards != 1:
             raise NotImplementedError(
                 f"n_shards={self.n_shards}: sharding group states across "
@@ -210,15 +269,48 @@ def merge_topk(ids, dists, extra_ids, extra_dists, k, drop=None):
 # ---------------------------------------------------------------------- stats
 
 
-@dataclasses.dataclass
 class GroupServeStats:
-    """Per-group serving counters since the service was built."""
+    """Per-group serving counters (reset with ``Batcher.reset_stats``).
 
-    n_queries: int = 0
-    n_batches: int = 0
-    n_padded: int = 0
-    stop_level_sum: int = 0
-    n_checked_sum: int = 0
+    A read-only view over the stack's ``obs.MetricsRegistry``:
+    ``Batcher.run_batch`` and the ``StateCache`` increment the registry
+    counters directly, and each attribute here reads the value labeled
+    with this view's group.  Running sums, not samples, so a long-lived
+    service never grows state with traffic.
+    """
+
+    # attribute -> registry counter (all labeled {group=<gi>})
+    _COUNTERS = {
+        "n_queries": "wlsh_group_queries_total",
+        "n_batches": "wlsh_group_batches_total",
+        "n_padded": "wlsh_group_padded_rows_total",
+        "stop_level_sum": "wlsh_group_stop_levels_total",
+        "n_checked_sum": "wlsh_group_checked_total",
+        # state-paging counters, shared with CacheStats (same series)
+        "n_state_hits": "wlsh_state_hits_total",
+        "n_state_builds": "wlsh_state_builds_total",
+        "n_state_restores": "wlsh_state_restores_total",
+        "n_state_evictions": "wlsh_state_evictions_total",
+        "n_state_invalidations": "wlsh_state_invalidations_total",
+        "n_state_prefetches": "wlsh_state_prefetches_total",
+        "n_state_prefetch_wasted": "wlsh_state_prefetch_wasted_total",
+        "n_state_restore_overlapped":
+            "wlsh_state_restore_overlapped_total",
+    }
+
+    def __init__(self, metrics: MetricsRegistry, group_id: int):
+        """View over ``metrics`` restricted to ``group_id``'s series."""
+        self._metrics = metrics
+        self._group_id = int(group_id)
+
+    def __getattr__(self, name: str) -> int:
+        """Read the registry counter backing attribute ``name``."""
+        metric = self._COUNTERS.get(name)
+        if metric is None:
+            raise AttributeError(name)
+        return int(
+            self._metrics.counter(metric).value(group=self._group_id)
+        )
 
     @property
     def occupancy(self) -> float:
@@ -235,6 +327,14 @@ class GroupServeStats:
             occupancy=self.occupancy,
             mean_stop_level=self.stop_level_sum / nq if nq else float("nan"),
             mean_n_checked=self.n_checked_sum / nq if nq else float("nan"),
+            n_state_hits=self.n_state_hits,
+            n_state_builds=self.n_state_builds,
+            n_state_restores=self.n_state_restores,
+            n_state_evictions=self.n_state_evictions,
+            n_state_invalidations=self.n_state_invalidations,
+            n_state_prefetches=self.n_state_prefetches,
+            n_state_prefetch_wasted=self.n_state_prefetch_wasted,
+            n_state_restore_overlapped=self.n_state_restore_overlapped,
         )
 
 
@@ -242,12 +342,21 @@ class GroupServeStats:
 
 
 class Batcher:
-    """Stateful batching core: resident group states, steps, stats.
+    """Stateful batching core shared by the sync and async frontends.
 
-    Every group's state stays resident on ``cfg.device`` once built: it is
-    built on the group's first launch, or by ``warmup``.  ``step_cache``
-    counts distinct shape signatures, which stays far below the group count
-    on real plans.
+    States and steps are built lazily per group (call ``warmup`` to
+    front-load them); ``step_cache.n_compiled`` counts distinct shape
+    signatures, which stays far below the group count on real plans.
+
+    Group states live in a budgeted ``StateCache``: under
+    ``cfg.max_resident_groups`` / ``cfg.device_budget_bytes`` the
+    least-recently-used groups are evicted (offloaded to host memory by
+    default, through ``self.pager``) and restored on their next launch,
+    bit for bit.  Every operational counter lands in one
+    ``obs.MetricsRegistry`` (``self.metrics``, shared with the state
+    cache, driver and QoS layers); ``stats``/``cache_summary`` are views
+    over it.  ``self.clock`` is the injectable time source; the async
+    frontend re-binds it to its own clock.
     """
 
     def __init__(self, plan: ServingPlan, points: np.ndarray,
@@ -262,28 +371,75 @@ class Batcher:
         self.plan = plan
         self.points = points
         self.cfg = cfg
+        for i, step in enumerate(cfg.degrade_ladder):
+            if step.c < plan.c:
+                raise ValueError(
+                    f"degrade_ladder[{i}].c={step.c} is below the strict "
+                    f"plan c={plan.c} (relaxation must not tighten the "
+                    f"approximation ratio)"
+                )
         self.device = kplatform.resolve_device(cfg.device)
+        self.clock = time.monotonic  # injectable; async frontend re-binds
+        self.metrics = MetricsRegistry()
         self.step_cache = QueryStepCache()
-        self.states: dict[int, QueryState] = {}
-        self._group_cfgs: dict[int, IndexConfig] = {}
+        self._group_cfgs: dict[tuple[int, int], IndexConfig] = {}
+        self.pager = StatePager(self.device)
+        on_card = self.device.type == "cuda"
+        self.state_cache = StateCache(
+            build=self._build_state,
+            nbytes_of=lambda gi: self.group_config(gi).state_nbytes,
+            max_resident_groups=cfg.max_resident_groups,
+            device_budget_bytes=cfg.device_budget_bytes,
+            offload=self.pager.offload if cfg.offload_evicted else None,
+            restore=self.pager.restore if cfg.offload_evicted else None,
+            metrics=self.metrics,
+            # an asynchronous upload is priced by its copy's device time
+            restore_timings=self.pager.restore_timings if on_card else None,
+        )
         self.stats: dict[int, GroupServeStats] = {
-            gi: GroupServeStats() for gi in range(plan.n_groups)
+            gi: GroupServeStats(self.metrics, gi)
+            for gi in range(plan.n_groups)
         }
 
     # ------------------------------------------------------------- per group
 
-    def group_config(self, gi: int) -> IndexConfig:
-        """Padded IndexConfig for group ``gi`` (the step-cache key)."""
-        cfg = self._group_cfgs.get(gi)
+    @property
+    def n_rungs(self) -> int:
+        """Ladder depth: valid rungs are ``0`` (strict) .. ``n_rungs``."""
+        return len(self.cfg.degrade_ladder)
+
+    def rung_params(self, rung: int) -> tuple[int, int]:
+        """Effective ``(c, k)`` at ladder ``rung`` (0 = strict)."""
+        if not 0 <= rung <= self.n_rungs:
+            raise ValueError(
+                f"rung must be in [0, {self.n_rungs}], got {rung}"
+            )
+        if rung == 0:
+            return int(self.plan.c), int(self.cfg.k)
+        step = self.cfg.degrade_ladder[rung - 1]
+        return int(step.c), int(step.k)
+
+    def group_config(self, gi: int, rung: int = 0) -> IndexConfig:
+        """Padded IndexConfig for group ``gi`` (the step-cache key).
+
+        ``rung`` selects a rung of the pre-planned (c, k) relaxation
+        ladder (``ServiceConfig.degrade_ladder``); rung 0 is the strict
+        config.  Rung configs differ only in ``c``/``k`` (and the derived
+        budget): state shapes are identical, so every rung serves from the
+        same cached group state, each through its own step.
+        """
+        key = (gi, rung)
+        cfg = self._group_cfgs.get(key)
         if cfg is None:
             g = self.plan.groups[gi]
+            c_eff, k_eff = self.rung_params(rung)
             cfg = IndexConfig(
                 n=self.plan.n,
                 d=self.plan.d,
                 beta=pad_beta(g.beta_group, self.cfg.beta_buckets),
                 q_batch=self.cfg.q_batch,
-                k=self.cfg.k,
-                c=int(self.plan.c),
+                k=k_eff,
+                c=c_eff,
                 n_levels=pad_levels(g.n_levels_max, self.cfg.level_step),
                 p=self.plan.p,
                 gamma_n=self.plan.gamma_n,
@@ -292,34 +448,92 @@ class Batcher:
                 use_kernels=self.cfg.use_kernels,
                 n_shards=self.cfg.n_shards,
             )
-            self._group_cfgs[gi] = cfg
+            self._group_cfgs[key] = cfg
         return cfg
 
-    def state(self, gi: int) -> QueryState:
-        """Group ``gi``'s resident state, built on first use."""
-        st = self.states.get(gi)
-        if st is None:
-            st = build_group_state(self.group_config(gi), self.points,
-                                   self.plan.groups[gi], device=self.device)
-            self.states[gi] = st
-        return st
+    def _build_state(self, gi: int):
+        """Cold-path StateCache builder: materialize group ``gi``."""
+        return self.pager.adopt(gi, build_group_state(
+            self.group_config(gi), self.points, self.plan.groups[gi],
+            device=self.device))
 
     def warmup(self, groups=None) -> None:
-        """Build states and steps ahead of traffic."""
-        gids = groups if groups is not None else range(self.plan.n_groups)
+        """Build states and steps ahead of traffic.
+
+        Every ladder rung's step is built here too, so runtime QoS
+        degradation only switches among existing steps.  Under a
+        residency budget (default offload mode) the earliest-built states
+        are evicted to host as later ones land, leaving the tail resident
+        and the rest warm for restore: first traffic to any group then
+        pays one upload, never a rebuild.  In discard mode
+        (``offload_evicted=False``) evicted builds would be pure waste, so
+        only the budget-fitting tail is prebuilt; the rest build on first
+        traffic.
+        """
+        gids = [
+            int(gi) for gi in
+            (groups if groups is not None else range(self.plan.n_groups))
+        ]
         for gi in gids:
-            self.step_cache.get(self.device, self.group_config(int(gi)))
-            self.state(int(gi))
+            for rung in range(self.n_rungs + 1):
+                self.step_cache.get(self.device, self.group_config(gi, rung))
+        if not self.cfg.offload_evicted:
+            gids = self._budget_fitting_tail(gids)
+        for gi in gids:
+            with self.state_cache.lease(gi):
+                pass
+
+    def _budget_fitting_tail(self, gids: list[int]) -> list[int]:
+        """Longest suffix of ``gids`` that fits the residency budget."""
+        cap = self.cfg.max_resident_groups
+        budget = self.cfg.device_budget_bytes
+        keep: list[int] = []
+        nbytes = 0
+        for gi in reversed(gids):
+            nb = self.group_config(gi).state_nbytes
+            if cap is not None and len(keep) + 1 > cap:
+                break
+            if budget is not None and nbytes + nb > budget:
+                break
+            keep.append(gi)
+            nbytes += nb
+        return list(reversed(keep))
 
     @property
     def resident_bytes(self) -> int:
-        """Device bytes held by the resident group states."""
-        return sum(st.nbytes for st in self.states.values())
+        """Accounted device bytes of the resident group states."""
+        return self.state_cache.resident_bytes
+
+    def reset_stats(self) -> None:
+        """Zero every per-group counter and the aggregate cache counters.
+
+        Counters and latency histograms under the serving prefixes reset
+        in the registry (the view objects in ``stats`` are unchanged);
+        gauges (current state, like resident bytes) are preserved.
+        """
+        self.metrics.reset("wlsh_group_")
+        self.metrics.reset("wlsh_query_")
+        self.state_cache.reset_stats()
 
     def stats_summary(self) -> dict[int, dict]:
         """Per-group summaries for groups that served at least one batch."""
         return {gi: s.summary() for gi, s in self.stats.items()
                 if s.n_batches}
+
+    def cache_summary(self) -> dict:
+        """Aggregate state-paging report (counters + current residency)."""
+        return dict(
+            **self.state_cache.stats.summary(),
+            n_resident=self.state_cache.n_resident,
+            n_groups=self.plan.n_groups,
+            max_resident_groups=self.cfg.max_resident_groups,
+            device_budget_bytes=self.cfg.device_budget_bytes,
+        )
+
+    def mean_occupancy(self) -> float:
+        """Unweighted mean batch occupancy over groups that served traffic."""
+        occs = [s.occupancy for s in self.stats.values() if s.n_batches]
+        return float(np.mean(occs)) if occs else float("nan")
 
     # --------------------------------------------------------------- serving
 
@@ -332,22 +546,51 @@ class Batcher:
             raise ValueError("weight_id out of range for the serving plan")
         return self.plan.group_of[weight_ids].astype(np.int32)
 
-    def run_batch(self, gi: int, queries, weight_ids):
+    def _encode(self, gi: int, cfg: IndexConfig, state, queries,
+                take: np.ndarray) -> torch.Tensor:
+        """(q_batch, beta) int32 codes on the device for real ``queries``
+        padded via ``take``.
+
+        Query and data codes must come from the same encoding: host f64
+        only pairs with plan-shipped host codes; a device-built (f32)
+        state needs device-encoded queries, or floor-boundary jitter
+        mixes the two encodings and a query can miss its own point.
+        Encoding is row-independent, so the host path encodes each real
+        row once and gathers, while the device path encodes the padded
+        batch.
+        """
+        g = self.plan.groups[gi]
+        if g.codes is None:
+            return encode_queries(state, queries[take])
+        codes = pad_cols(g.encode_host(queries), cfg.beta)[take]
+        return torch.from_numpy(
+            np.ascontiguousarray(codes, np.int32)).to(self.device)
+
+    def run_batch(self, gi: int, queries, weight_ids, rung: int = 0):
         """One step launch for 1..q_batch same-group requests.
 
         Pads ragged input by cycling the real rows, encodes the queries
-        and returns ``(ids, dists, stop_levels, n_checked)`` sliced back to
-        the real rows.  Host f64 query codes pair only with plan-shipped
-        host codes; a device-built (f32) state needs device-encoded
-        queries, or floor-boundary jitter mixes the two encodings and a
-        query can miss its own point.  Both encodes are row-independent,
-        so padding cannot perturb real rows: the host path encodes each
-        real row once and gathers, the device path encodes the padded
-        batch.
+        (``_encode``; row-independent, so padding cannot perturb real
+        rows) and returns ``(ids, dists, stop_levels, n_checked)`` sliced
+        back to the real rows.  Both frontends answer every query through
+        this method, which is what makes them bit-exact on identical
+        traffic.
+
+        ``rung`` serves the batch at a rung of the (c, k) relaxation
+        ladder: the same group state, that rung's step, and answers padded
+        ``-1``/``inf`` back to the strict ``k``.  Rung 0 is the strict
+        path.
+
+        The state is leased from the ``StateCache`` around the launch:
+        pinned while the step runs, then released, so a budgeted cache
+        can page any group between launches but never under one.  A
+        restored state's upload is ordered before the launch on the
+        calling thread's current stream (``StatePager.ready``), and the
+        outputs reach the host before the lease ends.
         """
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         weight_ids = np.atleast_1d(np.asarray(weight_ids, np.int64))
-        cfg = self.group_config(gi)
+        cfg = self.group_config(gi, rung)
         step = self.step_cache.get(self.device, cfg)
         real = len(queries)
         take = pad_take(real, cfg.q_batch)
@@ -355,35 +598,48 @@ class Batcher:
         wtake = weight_ids[take]
         slots = self.plan.member_slot[wtake]
         dev = self.device
-        state = self.state(gi)
 
         def put(x, dtype):
             return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
 
-        q_dev = put(queries[take], np.float32)
-        if g.codes is None:
-            codes = encode_queries(state, q_dev)
-        else:
-            codes = put(pad_cols(g.encode_host(queries), cfg.beta)[take],
-                        np.int32)
-        d_b, i_b, stop_b, chk_b = step(
-            state,
-            q_dev,
-            codes,
-            put(self.plan.weights[wtake], np.float32),
-            put(g.mu_members[slots], np.int32),
-            put(g.r_min_members[slots], np.float32),
-            put(g.beta_members[slots], np.int32),
-            put(g.n_levels_members[slots], np.int32),
-        )
-        ids = i_b.cpu().numpy()[:real]
-        dists = d_b.cpu().numpy()[:real]
-        stop = stop_b.cpu().numpy()[:real]
-        chk = chk_b.cpu().numpy()[:real]
-        s = self.stats[gi]
-        s.n_batches += 1
-        s.n_queries += real
-        s.n_padded += cfg.q_batch - real
-        s.stop_level_sum += int(np.sum(stop))
-        s.n_checked_sum += int(np.sum(chk))
+        with self.state_cache.lease(gi) as state:
+            self.pager.ready(gi, state)
+            codes = self._encode(gi, cfg, state, queries, take)
+            d_b, i_b, stop_b, chk_b = step(
+                state,
+                put(queries[take], np.float32),
+                codes,
+                put(self.plan.weights[wtake], np.float32),
+                put(g.mu_members[slots], np.int32),
+                put(g.r_min_members[slots], np.float32),
+                put(g.beta_members[slots], np.int32),
+                put(g.n_levels_members[slots], np.int32),
+            )
+            # on the host before the lease ends: the state must stay
+            # resident until the device has finished reading it
+            ids = i_b.cpu().numpy()[:real]
+            dists = d_b.cpu().numpy()[:real]
+            stop = stop_b.cpu().numpy()[:real]
+            chk = chk_b.cpu().numpy()[:real]
+        if cfg.k < self.cfg.k:
+            # degraded rung: pad the short top-k back to the strict width
+            pad_ids = np.full((real, self.cfg.k), -1, ids.dtype)
+            pad_d = np.full((real, self.cfg.k), np.inf, dists.dtype)
+            pad_ids[:, : cfg.k] = ids
+            pad_d[:, : cfg.k] = dists
+            ids, dists = pad_ids, pad_d
+        m = self.metrics
+        m.counter("wlsh_group_batches_total",
+                  "compiled-step launches").inc(group=gi)
+        m.counter("wlsh_group_queries_total",
+                  "real rows served").inc(real, group=gi)
+        m.counter("wlsh_group_padded_rows_total",
+                  "padding rows across ragged batches").inc(
+            cfg.q_batch - real, group=gi)
+        m.counter("wlsh_group_stop_levels_total",
+                  "summed histogram stop levels").inc(
+            int(np.sum(stop)), group=gi)
+        m.counter("wlsh_group_checked_total",
+                  "summed candidates verified (n_checked)").inc(
+            int(np.sum(chk)), group=gi)
         return ids, dists, stop, chk

@@ -5,7 +5,10 @@ The host planner partitions the weight vector set S into table groups
 distance function, and is answered in *that* weight's group (Algorithm 2).
 All queries of a ``query`` call are present up front, so they are routed,
 coalesced into same-group batches of ``q_batch``, answered through
-``Batcher.run_batch`` and returned in submission order.  With a plan that
+``Batcher.run_batch`` and returned in submission order.  The asynchronous
+frontend (``async_service.AsyncRetrievalService``) wraps the same
+``Batcher``, so both answer every query through the same step and are
+bit-exact on identical traffic.  With a plan that
 ships host codes, query bucket codes are computed on the host in float64
 against the exported family, so the answers are bit-exact with
 ``WLSHIndex.search_dense``'s candidate sets.  A plan exported without
@@ -46,8 +49,12 @@ class RetrievalService:
 
     Group states are built on ``cfg.device`` (default ``"cuda"``; pass
     ``device="cpu"`` in the config for the plain torch path) lazily per
-    group; call ``warmup`` to front-load them.  Every state stays
-    resident.
+    group; call ``warmup`` to front-load them.  Under
+    ``ServiceConfig.max_resident_groups`` / ``device_budget_bytes`` the
+    states are paged by a ``StateCache`` (LRU eviction, host offload and
+    restore), bit for bit.  Pass the service (or its ``batcher``) to
+    ``AsyncRetrievalService`` to serve streaming traffic over the same
+    states, stats and step cache.
     """
 
     def __init__(self, plan: ServingPlan, points: np.ndarray,
@@ -58,6 +65,11 @@ class RetrievalService:
     def plan(self) -> ServingPlan:
         """The ServingPlan this service answers under."""
         return self.batcher.plan
+
+    @property
+    def points(self) -> np.ndarray:
+        """The (n, d) host corpus the group states are built from."""
+        return self.batcher.points
 
     @property
     def cfg(self) -> ServiceConfig:
@@ -75,8 +87,23 @@ class RetrievalService:
         return self.batcher.step_cache
 
     @property
+    def state_cache(self):
+        """Budgeted per-group device-state cache (see ``StateCache``)."""
+        return self.batcher.state_cache
+
+    @property
+    def metrics(self):
+        """The stack's unified ``obs.MetricsRegistry``."""
+        return self.batcher.metrics
+
+    @property
+    def stats(self) -> dict[int, GroupServeStats]:
+        """Per-group serving counters, keyed by group id."""
+        return self.batcher.stats
+
+    @property
     def resident_bytes(self) -> int:
-        """Device bytes held by the built group states."""
+        """Accounted device bytes of the resident group states."""
         return self.batcher.resident_bytes
 
     def group_config(self, gi: int):
@@ -87,9 +114,21 @@ class RetrievalService:
         """Build states and steps ahead of traffic."""
         self.batcher.warmup(groups)
 
+    def reset_stats(self) -> None:
+        """Zero the per-group serving counters and cache counters."""
+        self.batcher.reset_stats()
+
     def stats_summary(self) -> dict[int, dict]:
         """Per-group summaries for groups that served at least one batch."""
         return self.batcher.stats_summary()
+
+    def cache_summary(self) -> dict:
+        """Aggregate state-paging report (counters + current residency)."""
+        return self.batcher.cache_summary()
+
+    def mean_occupancy(self) -> float:
+        """Unweighted mean batch occupancy over groups that served traffic."""
+        return self.batcher.mean_occupancy()
 
     def query(self, queries: np.ndarray, weight_ids) -> RetrievalResult:
         """Answer a mixed batch of (query, weight_id) requests.

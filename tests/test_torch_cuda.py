@@ -9,10 +9,15 @@ held to its plain torch version on the same CUDA tensors: histograms,
 first-frequent levels and the +inf mask exactly, hash codes exactly (the
 kernel sums in the plain version's order) and within the float64 window,
 finite scores to rtol 1e-5 (or the p = 2 atol of the norms expansion).
-``chip_smoke.py`` repeats this at the main path's shapes.
+``chip_smoke.py`` repeats this at the main path's shapes.  The paging
+tests hold an evict/restore round trip bit for bit, a prefetched restore
+followed at once by a launch on another stream to the unpaged answers,
+and the thread-mode ``ServiceDriver`` under a one-group budget.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import pytest
@@ -272,3 +277,125 @@ def test_service_without_host_codes_finds_itself(dev, p, tau):
     np.testing.assert_array_equal(res.ids[:, 0], rows)
     assert np.all(res.dists[:, 0] < 1e-3)
     assert _cuda.launch_counts()["hash_encode"] > 0
+
+
+# ------------------------------------------------------- paging on the card
+
+
+def _paging_plan(n, d, seed):
+    from repro_torch.core.datagen import make_dataset, make_weight_set
+    from repro_torch.core.params import PlanConfig
+    from repro_torch.core.wlsh import WLSHIndex
+
+    data = make_dataset(n=n, d=d, seed=seed)
+    weights = make_weight_set(size=8, d=d, n_subset=4, n_subrange=10,
+                              seed=seed + 1)
+    plan = WLSHIndex(data, weights, PlanConfig(p=2.0, c=3, n=n), tau=500.0,
+                     v=4, v_prime=4, seed=seed + 2).export_serving_plan()
+    return data, plan
+
+
+def _queries(data, n_weights, nq, seed):
+    rng = np.random.default_rng(seed)
+    wids = rng.integers(0, n_weights, nq)
+    qs = data[rng.choice(len(data), nq, replace=False)]
+    return (qs + rng.normal(0, 3, qs.shape)).astype(np.float32), wids
+
+
+def test_offload_restore_round_trip_is_bit_exact(dev):
+    """Evict -> restore through the pager twice: every QueryState field
+    equal bit for bit, host copies pinned, the group's buffers reused,
+    and each copy's device time reported once it is done."""
+    from repro_torch.index.builder import StatePager
+    from repro_torch.serving import RetrievalService, ServiceConfig
+
+    data, plan = _paging_plan(4096, 24, 11)
+    svc = RetrievalService(plan, data, cfg=ServiceConfig(k=5, q_batch=8))
+    with svc.state_cache.lease(1) as st:
+        pager = StatePager(dev)
+        pager.adopt(1, st)
+        host = pager.offload(st)
+        ptrs = [t.data_ptr() for t in (host.codes, host.points, host.proj)]
+        assert all(t.is_pinned() for t in (host.codes, host.points,
+                                           host.proj, host.b_int,
+                                           host.b_frac, host.width))
+        for _ in range(2):
+            back = pager.restore(1, host)
+            pager.ready(1, back)
+            for name in ("codes", "points", "proj", "b_int", "b_frac",
+                         "width"):
+                a, b = getattr(back, name), getattr(st, name)
+                assert a.device == b.device and a.dtype == b.dtype
+                assert torch.equal(a, b), name
+            assert back.n_valid == st.n_valid
+            host = pager.offload(back)
+            assert [t.data_ptr() for t in (host.codes, host.points,
+                                           host.proj)] == ptrs
+    torch.cuda.synchronize()
+    timings = pager.restore_timings()
+    assert len(timings) == 2
+    assert all(nb == st.nbytes and s > 0 for nb, s in timings)
+    assert pager.restore_timings() == []
+
+
+def test_prefetched_restore_then_launch_on_another_stream(dev):
+    """A prefetch restores a state on the copy stream and a launch on a
+    different stream follows at once: its answers equal the unpaged
+    service's on every repeat (the launch stream waits on the copy's
+    event, and the restored tensors are recorded on it)."""
+    from repro_torch.serving import RetrievalService, ServiceConfig
+
+    data, plan = _paging_plan(65_536, 64, 21)
+    qs, wids = _queries(data, 8, 64, 22)
+    gids = plan.group_of[wids]
+    full = RetrievalService(plan, data, cfg=ServiceConfig(k=5, q_batch=8))
+    want = full.query(qs, wids)
+    svc = RetrievalService(plan, data, cfg=ServiceConfig(
+        k=5, q_batch=8, max_resident_groups=1))
+    svc.warmup()
+    cache, side = svc.state_cache, torch.cuda.Stream(dev)
+    order = np.unique(gids)
+    for rep in range(24):
+        gi = int(order[rep % len(order)])
+        rows = np.where(gids == gi)[0][:8]
+        assert cache.prefetch(gi)  # evicts the other group, uploads gi
+        with torch.cuda.stream(side):
+            ids, dists, stop, chk = svc.batcher.run_batch(
+                gi, qs[rows], wids[rows])
+        np.testing.assert_array_equal(ids, want.ids[rows])
+        np.testing.assert_array_equal(dists, want.dists[rows])
+        np.testing.assert_array_equal(stop, want.stop_levels[rows])
+        np.testing.assert_array_equal(chk, want.n_checked[rows])
+    assert cache.stats.n_restore_overlapped == 24
+
+
+def test_driver_thread_mode_under_one_group_budget(dev):
+    """ServiceDriver in thread mode, on the real clock, over a service
+    that keeps one group state on the card: every future resolves with
+    the unpaged service's answer, and prefetches overlap restores."""
+    from repro_torch.serving import (AsyncRetrievalService, RetrievalService,
+                                     ServiceConfig, ServiceDriver)
+
+    data, plan = _paging_plan(16_384, 32, 31)
+    qs, wids = _queries(data, 8, 48, 32)
+    want = RetrievalService(plan, data, cfg=ServiceConfig(
+        k=5, q_batch=4)).query(qs, wids)
+    svc = RetrievalService(plan, data, cfg=ServiceConfig(
+        k=5, q_batch=4, max_resident_groups=1))
+    svc.warmup()
+    asvc = AsyncRetrievalService(svc, max_delay_ms=2.0)
+    driver = ServiceDriver(asvc, tick_s=0.001).start()
+    futs = []
+    for i in range(len(qs)):
+        futs.append(driver.submit(qs[i], wids[i]))
+        time.sleep(0.002)
+    t_end = time.monotonic() + 60.0
+    while not all(f.done() for f in futs) and time.monotonic() < t_end:
+        time.sleep(0.005)
+    driver.stop(drain=True)
+    assert all(f.done() for f in futs)
+    got = np.stack([f.result().ids for f in futs])
+    np.testing.assert_array_equal(got, want.ids)
+    np.testing.assert_array_equal(
+        np.array([f.result().n_checked for f in futs]), want.n_checked)
+    assert svc.state_cache.stats.n_restores > 0

@@ -223,6 +223,6 @@ def test_service_without_codes_finds_itself(plan, q_batch):
     np.testing.assert_array_equal(res.ids[:, 0], rows)
     assert np.all(res.dists[:, 0] < 1e-3)
     for gi in np.unique(res.group_ids):
-        st = svc.batcher.states[int(gi)]
-        assert torch.equal(encode_queries(st, plan["data"][rows]),
-                           st.codes[rows])
+        with svc.state_cache.lease(int(gi)) as st:
+            assert torch.equal(encode_queries(st, plan["data"][rows]),
+                               st.codes[rows])

@@ -133,5 +133,6 @@ def test_cpu_runs_only_when_asked(tiny):
     res = svc.query(data[:3], np.array([0, 1, 2]))
     assert res.ids.shape == (3, 3)
     assert svc.device.type == "cpu"
-    assert all(st.codes.device.type == "cpu"
-               for st in svc.batcher.states.values())
+    for gi in svc.state_cache.resident_group_ids():
+        with svc.state_cache.lease(gi) as st:
+            assert st.codes.device.type == "cpu"

@@ -67,7 +67,7 @@ def test_service_matches_search_dense(parity, use_kernels):
     svc = RetrievalService(parity["plan"], parity["data"], cfg=ServiceConfig(
         k=parity["k"], q_batch=4, device="cpu", use_kernels=use_kernels))
     svc.warmup()
-    assert len(svc.batcher.states) == parity["plan"].n_groups
+    assert svc.state_cache.n_resident == parity["plan"].n_groups
     got = svc.query(parity["qpts"], parity["wids"])
     for qi, wid in enumerate(parity["wids"]):
         want = parity["host"].search_dense(parity["qpts"][qi],
