@@ -58,7 +58,27 @@ non-zero:
                overlapped at least one restore; submit-to-resolve
                latency, deadline misses, wasted prefetches and the
                restore cost model's learned rate
-  9. times   — each kernel on the main path's inputs for the widest
+  9. stream  — streaming writes on the host-code plan, 3 of 7 states on
+               the card, 1,000 rows reserved per state (capacity 401,000):
+               the 256 queries interleaved with 512 inserts (uniform over
+               the 24 weight ids, past the corpus range), every insert's
+               self-query at rank 0 by the exact scan, the 256 answers
+               with rows pending equal to the slice leg's; compaction
+               into the states on the card (some restored by the lease),
+               the self-queries again through the fused kernels, every
+               compacted state torch.equal a fresh union build and the
+               256 answers equal the fresh builds'; every group evicted
+               and restored with answers unchanged and the pinned buffers
+               reused; 32 base rows and 32 inserts deleted (none served),
+               a purge, the widest purged state equal to a fresh build
+               over the survivors; then the plan without host codes: 128
+               inserts sealed by the hash_encode kernel (each seal equal
+               to the plain version on the card), compacted, the widest
+               state equal to a fresh device build.  Seals, compactions,
+               purges and rebuilds; ms per seal and compaction (CUDA
+               events), host ms of the exact scan, p50 per batch with rows
+               pending and after compaction, purge seconds and peak memory
+ 10. times   — each kernel on the main path's inputs for the widest
                group: held to its plain version there (the rules of
                phase 3), its time, its plain version's time, the time of
                one PyTorch call that computes the same function where
@@ -88,7 +108,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "kernels", "slice", "encode", "unfused",
-          "paged", "async", "times")
+          "paged", "async", "stream", "times")
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
 # float32 outside the tensor cores (F32_FLOPS counts an FMA as two flops;
@@ -131,6 +151,11 @@ PAGED_SLOTS = 3  # group states the paged and async legs keep on the card
 ASYNC_DELAY_MS = 5.0  # the async leg's deadline budget
 ASYNC_LOAD = 0.5  # the async leg's arrival rate, as a share of paged q/s
 WLP_PS = (1.0, 0.5, 1.5)  # weighted_lp's |t|, sqrt(|t|) and powf terms
+# the stream leg: rows reserved per state (capacity 401,000, 104 rows into
+# its last 128-row tile), the seal size, the inserts on the host-code and
+# the codeless plan, and the base rows and inserts deleted before a purge
+STREAM = dict(reserve=1_000, seal_rows=32, inserts=512, codeless_inserts=128,
+              deletes=32)
 
 
 def say(msg: str) -> None:
@@ -1142,6 +1167,474 @@ def phase_async(torch, dev, sl, paged):
     return dict(launches=launches)
 
 
+def _excluding(torch, fn, excluded: dict):
+    """Run ``fn`` and add the kernel launches it makes to ``excluded``:
+    a check's launches (the step on a fresh reference build) are not the
+    main path's."""
+    from repro_torch.kernels import _cuda
+
+    before = _cuda.launch_counts()
+    out = fn()
+    for name, cnt in _cuda.launch_counts().items():
+        excluded[name] = excluded.get(name, 0) + cnt - before[name]
+    return out
+
+
+def _timed_calls(torch, obj, name, times: list, keep=lambda out: True):
+    """Wrap ``obj.name`` so that each call whose result ``keep`` accepts
+    appends its milliseconds (CUDA events) to ``times``."""
+    fn = getattr(obj, name)
+
+    def timed(*a, **kw):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn(*a, **kw)
+        e.record()
+        e.synchronize()
+        if keep(out):
+            times.append(s.elapsed_time(e))
+        return out
+
+    setattr(obj, name, timed)
+
+
+def _self_found(res, pids) -> np.ndarray:
+    """Which inserts came back as their own rank-0 answer at distance 0."""
+    return (res.ids[:, 0] == np.asarray(pids)) & (res.dists[:, 0] == 0.0)
+
+
+def _fresh_answers(torch, dev, svc, plan, gi, state, id_map, qpts, wids):
+    """The group's queries answered by ``svc``'s step on ``state`` (a
+    fresh build), in batches padded as ``run_batch`` pads them, state
+    rows mapped to global ids through ``id_map``: (rows, ids, dists,
+    stop, n_checked)."""
+    rows = np.where(plan.group_of[wids] == gi)[0]
+    cfg = svc.group_config(gi)
+    step = svc.step_cache.get(dev, cfg)
+    outs = []
+    for lo in range(0, len(rows), cfg.q_batch):
+        chunk = rows[lo:lo + cfg.q_batch]
+        take = chunk[np.arange(cfg.q_batch) % len(chunk)]
+        _, _, inp = _batch_inputs(svc, plan, qpts, wids, take, torch, dev)
+        out = step(state, inp["queries"], inp["codes_q"], inp["q_weight"],
+                   inp["mu"], inp["r_min"], inp["beta_q"], inp["levels_q"])
+        outs.append([t.cpu().numpy()[:len(chunk)] for t in out])
+    d, ids, stop, chk = (np.concatenate(x) for x in zip(*outs))
+    ids = ids.astype(np.int64)
+    live = ids >= 0
+    ids[live] = id_map[ids[live]]
+    return rows, ids.astype(np.int32), d, stop, chk
+
+
+def _equal_states(torch, a, b) -> bool:
+    return (a.n_valid == b.n_valid and torch.equal(a.codes, b.codes)
+            and torch.equal(a.points, b.points))
+
+
+def _stream_inserts(data, n_weights, m, seed):
+    """``m`` fresh rows past the corpus range, as the launcher's mixed
+    replay makes them (a noisy corpus row + the value range + 7 per
+    insert), under weight ids spread uniformly over the plan's."""
+    rng = np.random.default_rng(seed)
+    src = rng.choice(len(data), m, replace=False)
+    vecs = (data[src] + rng.normal(0, 3.0, (m, data.shape[1]))
+            + 10_000.0 + 7.0 * np.arange(m)[:, None]).astype(np.float32)
+    return vecs, rng.permutation(np.arange(m) % n_weights)
+
+
+def _release(torch) -> None:
+    """Collect dropped services: their states and pinned host buffers."""
+    import gc
+
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def phase_stream(torch, dev, sl, smi):
+    """Streaming on the card: the slice's queries interleaved with inserts
+    into a paged service with reserved row capacity, sealed, compacted
+    into the states on the card, held to fresh union builds, paged,
+    deleted and purged (``_stream_host_codes``); then the plan without
+    host codes, sealed through the hash_encode kernel
+    (``_stream_codeless``)."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.serving import delta as delta_mod
+    from repro_torch.serving.retrieval import RetrievalService, ServiceConfig
+
+    cf, plan = SLICE, sl["plan"]
+    _free(torch, sl["svc"])  # the unpaged leg's states leave the card
+    scfg = dict(k=cf["k"], q_batch=cf["q_batch"],
+                max_resident_groups=PAGED_SLOTS,
+                delta_seal_rows=STREAM["seal_rows"],
+                delta_reserve_rows=STREAM["reserve"], device=str(dev))
+    svc = RetrievalService(plan, sl["data"], cfg=ServiceConfig(**scfg))
+    cap = svc.batcher.row_capacity()
+    _need(cap % 128 != 0, "the capacity is a multiple of the 128-row tile")
+    t0 = time.time()
+    svc.warmup()
+    _sync(torch, dev)
+    t_warm = time.time() - t0
+    svc.reset_stats()
+    delta, cache = svc.batcher.delta_index(), svc.state_cache
+
+    # timers: each seal and compaction (CUDA events), each exact scan
+    # (host clock) and each batch (CUDA events, by step of the leg)
+    seal_ms, compact_ms, scan_ms, lat, leg = [], [], [], {}, ["mixed"]
+    seen = [0]
+
+    def sealed(_):
+        grew, seen[0] = delta.stats.n_seals > seen[0], delta.stats.n_seals
+        return grew
+
+    _timed_calls(torch, delta, "seal", seal_ms, keep=sealed)
+    restored, compact_group = [], delta._compact_group
+
+    def counted_compaction(gi, strict=True):
+        r0 = cache.stats.n_restores
+        rows = compact_group(gi, strict)
+        if rows:
+            restored.append(cache.stats.n_restores > r0)
+        return rows
+
+    delta._compact_group = counted_compaction
+    _timed_calls(torch, delta, "_compact_group", compact_ms,
+                 keep=lambda rows: rows > 0)
+    scan = delta_mod.scan_topk
+
+    def timed_scan(*a, **kw):
+        t = time.perf_counter()
+        out = scan(*a, **kw)
+        scan_ms.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    run_batch = svc.batcher.run_batch
+
+    def timed_batch(*a, **kw):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = run_batch(*a, **kw)
+        e.record()
+        e.synchronize()
+        lat.setdefault(leg[0], []).append(s.elapsed_time(e))
+        return out
+
+    svc.batcher.run_batch = timed_batch
+    excluded: dict = {}
+    delta_mod.scan_topk = timed_scan
+    _cuda.reset_launch_counts()
+    try:
+        out = _stream_host_codes(torch, dev, svc, sl, leg, excluded, smi)
+    finally:
+        delta_mod.scan_topk = scan
+    main = {name: cnt - excluded.get(name, 0)
+            for name, cnt in _cuda.launch_counts().items()}
+    n_batches = sum(len(v) for v in lat.values())
+    _need_launches(main, {"fused_query_hist": n_batches,
+                          "fused_query_scores": n_batches, "hash_encode": 0,
+                          "freq_level": 0, "weighted_lp": 0},
+                   "stream (host codes)")
+    ds = svc.delta_summary()
+    say(f"stream counters: {ds['n_inserts']} inserts, {ds['n_deletes']} "
+        f"deletes, {ds['n_seals']} seals, {ds['n_compactions']} "
+        f"compactions ({sum(restored)} of {len(restored)} appends into a "
+        f"state the lease restored), {ds['n_rows_compacted']} rows "
+        f"compacted, {ds['n_purges']} purges ({ds['n_rows_purged']} rows "
+        f"purged), {out['rebuilds']} rebuilds after the purge, "
+        f"{ds['n_delta_scans']} delta scans, {n_batches} batches; capacity "
+        f"{cap} rows ({cap % 128} past the last 128-row tile) [{smi}]")
+    pend, post = np.array(lat["pending"]), np.array(lat["compacted"])
+    say(f"stream timing: {np.mean(seal_ms):.3f} ms per seal (p50 "
+        f"{np.percentile(seal_ms, 50):.3f}, {len(seal_ms)} seals, host "
+        f"float64 encode), {np.mean(compact_ms):.3f} ms per compaction (p50 "
+        f"{np.percentile(compact_ms, 50):.3f}, {len(compact_ms)}: lease, "
+        f"append on the card, replace; CUDA events); exact scan "
+        f"{np.mean(scan_ms):.3f} ms of host per batch (p50 "
+        f"{np.percentile(scan_ms, 50):.3f}, p95 "
+        f"{np.percentile(scan_ms, 95):.3f}, {len(scan_ms)} scans); per "
+        f"batch with rows pending p50 {np.percentile(pend, 50):.2f} / p95 "
+        f"{np.percentile(pend, 95):.2f} ms ({len(pend)} batches), after "
+        f"compaction p50 {np.percentile(post, 50):.2f} / p95 "
+        f"{np.percentile(post, 95):.2f} ms ({len(post)}); purge "
+        f"{out['purge_s']:.3f} s, then {out['rebuild_s']:.3f} s for the "
+        f"next pass with its rebuilds, peak device memory "
+        f"{out['purge_peak']} bytes; warmup {t_warm:.1f} s [{smi}]")
+    del svc, delta, cache, run_batch, compact_group
+    _release(torch)
+    nc = _stream_codeless(torch, dev, sl, scfg, smi)
+    return dict(launches={name: main[name] + nc[name] for name in main})
+
+
+def _stream_host_codes(torch, dev, svc, sl, leg, excluded, smi):
+    """The stream leg's host-code plan: the mixed stream, the insert
+    self-queries before and after compaction, states and answers held to
+    fresh union builds, an evict/restore cycle, deletes, and the purge
+    held to a fresh build over the survivors."""
+    from repro_torch.index.builder import build_group_state, seal_segment
+
+    cf, plan, data = SLICE, sl["plan"], sl["data"]
+    qpts, wids = sl["qpts"], sl["wids"]
+    n, cache, m = plan.n, svc.state_cache, STREAM["inserts"]
+    ins, ins_w = _stream_inserts(data, plan.n_weights, m, seed=19)
+    ins_g = plan.group_of[ins_w]
+
+    # 1. the mixed stream: the i-th query op asks qpts[i] and the j-th
+    # insert op inserts ins[j]; the queries between two inserts go in one
+    # call, answered with every earlier insert visible
+    order = np.random.default_rng(23).permutation(
+        np.r_[np.zeros(len(qpts), bool), np.ones(m, bool)])
+    pids, run, n_calls, qi = [], [], 0, 0
+    t0 = time.time()
+    for is_ins in order:
+        if not is_ins:
+            run.append(qi)
+            qi += 1
+            continue
+        if run:
+            svc.query(qpts[run], wids[run])
+            n_calls, run = n_calls + 1, []
+        j = len(pids)
+        pids.append(svc.insert(ins[j], int(ins_w[j])))
+    if run:
+        svc.query(qpts[run], wids[run])
+        n_calls += 1
+    _sync(torch, dev)
+    t_mixed = time.time() - t0
+    pids = np.asarray(pids, np.int64)
+    ds = svc.delta_summary()
+    say(f"stream mixed: {len(qpts)} queries in {n_calls} calls interleaved "
+        f"with {m} inserts over {plan.n_weights} weight ids (groups "
+        f"{np.bincount(ins_g, minlength=plan.n_groups).tolist()}) in "
+        f"{t_mixed:.2f} s; {ds['n_seals']} seals at "
+        f"{STREAM['seal_rows']} rows, {ds['n_pending']} rows pending; "
+        f"{PAGED_SLOTS} of {plan.n_groups} states on the card [{smi}]")
+    _need(np.array_equal(pids, n + np.arange(m)),
+          "insert ids do not continue the corpus")
+
+    # 2. every insert found by the exact scan, and the 256 queries with
+    # rows pending: the far inserts leave the slice leg's answers as they
+    # were, bit for bit
+    leg[0] = "self"
+    pre = int(_self_found(svc.query(ins, ins_w), pids).sum())
+    leg[0] = "pending"
+    runs = [svc.query(qpts, wids) for _ in range(cf["reps"])]
+    pending_same = all(_same_answers(r, sl["res"]) for r in runs)
+    say(f"stream pre-compaction: {pre}/{m} insert self-queries at rank 0, "
+        f"distance 0 (exact scan); the {len(qpts)} queries with {m} rows "
+        f"pending "
+        f"{'equal' if pending_same else 'DIFFER FROM'} the slice leg's "
+        f"answers bit for bit")
+    _need(pre == m, "an insert missed itself before compaction")
+    _need(pending_same, "pending rows changed the slice's answers")
+
+    # 3. compaction into the reserved rows on the card, then the inserts
+    # found by the fused kernels over the appended rows
+    leg[0] = "compact"
+    absorbed = svc.compact()
+    _need(absorbed == m, f"compaction absorbed {absorbed} of {m} rows")
+    leg[0] = "self"
+    post = int(_self_found(svc.query(ins, ins_w), pids).sum())
+    leg[0] = "compacted"
+    runs = [svc.query(qpts, wids) for _ in range(cf["reps"])]
+    res_post = runs[-1]
+    post_same = all(_same_answers(r, sl["res"]) for r in runs)
+    n_valid = {}
+
+    # 4. and 5. every group's state and answers against a fresh build over
+    # its union corpus, on the card
+    def union_check():
+        n_state, n_ans = 0, 0
+        for gi in range(plan.n_groups):
+            sel = np.where(ins_g == gi)[0]
+            cfg, g = svc.group_config(gi), plan.groups[gi]
+            fresh = build_group_state(
+                cfg, data, g, dev, extra_points=ins[sel],
+                extra_codes=seal_segment(cfg, g, ins[sel]))
+            with svc.batcher.lease(gi) as st:
+                n_state += _equal_states(torch, st, fresh)
+                n_valid[gi] = st.n_valid
+            rows, ids, d, stop, chk = _fresh_answers(
+                torch, dev, svc, plan, gi, fresh,
+                np.concatenate([np.arange(n), pids[sel]]), qpts, wids)
+            n_ans += int(np.sum(
+                np.all(ids == res_post.ids[rows], axis=1)
+                & np.all(d == res_post.dists[rows], axis=1)
+                & (stop == res_post.stop_levels[rows])
+                & (chk == res_post.n_checked[rows])))
+            del fresh
+        return n_state, n_ans
+
+    n_state, n_ans = _excluding(torch, union_check, excluded)
+    wide = _widest(svc, plan)
+    say(f"stream post-compaction: {post}/{m} insert self-queries at rank 0, "
+        f"distance 0 (fused kernels over the appended rows; n_valid "
+        f"{n_valid} of {svc.batcher.row_capacity()}, the widest group {wide}"
+        f" at {n_valid[wide] % 128} rows into its last 128-row tile); "
+        f"{n_state}/{plan.n_groups} compacted states torch.equal a fresh "
+        f"union build on the card (codes, points, n_valid); {n_ans}/"
+        f"{len(qpts)} answers equal the fresh builds' (ids, dists, stop, "
+        f"n_checked) and the slice leg's "
+        f"{'too' if post_same else 'NOT'} [{smi}]")
+    _need(post == m, "an insert missed itself after compaction")
+    _need(n_state == plan.n_groups, "a compacted state differs from a "
+          "fresh union build")
+    _need(n_ans == len(qpts) and post_same,
+          "answers over compacted states differ from a fresh build's")
+
+    # 6. every group evicted to its pinned buffers and restored
+    leg[0] = "paged"
+    r0, pinned0 = cache.stats.n_restores, svc.batcher.pager.pinned_bytes
+    cache.clear()
+    res_paged = svc.query(qpts, wids)
+    restores = cache.stats.n_restores - r0
+    same = _same_answers(res_paged, res_post)
+    pinned = svc.batcher.pager.pinned_bytes
+    say(f"stream paging: every compacted state evicted and {restores} "
+        f"restored, answers {'unchanged' if same else 'CHANGED'}; pinned "
+        f"host buffers {pinned} bytes ({pinned0} before the cycle)")
+    _need(same, "answers changed across an evict/restore cycle")
+    _need(restores >= plan.n_groups and pinned == pinned0,
+          "the evict/restore cycle did not reuse the groups' buffers")
+
+    # 7. delete 32 base rows the queries found and 32 inserts; purge
+    n_del = STREAM["deletes"]
+    base = [i for i in dict.fromkeys(res_post.ids[:, 0].tolist())
+            if 0 <= i < n][:n_del]
+    gone = np.asarray(base + pids[:: m // n_del][:n_del].tolist())
+    _need(len(gone) == 2 * n_del, "too few distinct base rows to delete")
+    for pid in gone:
+        svc.delete(int(pid))
+    leg[0] = "deleted"
+    seen = (np.isin(svc.query(qpts, wids).ids, gone).sum()
+            + np.isin(svc.query(ins, ins_w).ids, gone).sum())
+    leg[0] = "purged"
+    b0 = cache.stats.n_builds
+    _reset_peak(torch, dev)
+    t0 = time.perf_counter()
+    svc.compact(purge=True)
+    purge_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_purged = svc.query(qpts, wids)
+    _sync(torch, dev)
+    rebuild_s = time.perf_counter() - t0
+    peak = _peak(torch, dev)
+    rebuilds = cache.stats.n_builds - b0
+    self_p = svc.query(ins, ins_w)
+    kept = ~np.isin(pids, gone)
+    seen += (np.isin(res_purged.ids, gone).sum()
+             + np.isin(self_p.ids, gone).sum())
+    found = int(_self_found(self_p, pids)[kept].sum())
+    sel = np.where((ins_g == wide) & kept)[0]
+    surv = np.setdiff1d(np.arange(n), base)
+
+    def purge_check():
+        cfg, g = svc.group_config(wide), plan.groups[wide]
+        fresh = build_group_state(
+            cfg, data, g, dev, extra_points=ins[sel],
+            extra_codes=seal_segment(cfg, g, ins[sel]), base_rows=surv)
+        with svc.batcher.lease(wide) as st:
+            return _equal_states(torch, st, fresh), st.n_valid
+
+    same, nv = _excluding(torch, purge_check, excluded)
+    say(f"stream delete and purge: {len(gone)} ids deleted ({n_del} base "
+        f"rows the queries ranked first, {n_del} inserts), {seen} served "
+        f"after the deletes or the purge; purge {purge_s:.3f} s, "
+        f"{rebuilds} states rebuilt on the next pass in {rebuild_s:.3f} s "
+        f"(peak {peak} bytes); {found}/{int(kept.sum())} surviving inserts "
+        f"at rank 0; the widest group's purged state (n_valid {nv}) "
+        f"{'torch.equal' if same else 'DIFFERS FROM'} a fresh build over "
+        f"the survivors [{smi}]")
+    _need(seen == 0, "a deleted id was served")
+    _need(found == int(kept.sum()), "a surviving insert missed itself")
+    _need(same, "the purged state differs from a fresh survivors' build")
+    return dict(purge_s=purge_s, rebuild_s=rebuild_s, purge_peak=peak,
+                rebuilds=rebuilds)
+
+
+def _stream_codeless(torch, dev, sl, scfg, smi):
+    """The stream leg on the plan without host codes: inserts sealed
+    through the hash_encode kernel on the group's state (each seal held
+    to the plain version on the card), compacted, and the widest state
+    held to a fresh device build over the union corpus.  Evicted states
+    are discarded here (rebuilt by hash_encode), to spare host memory."""
+    from repro_torch.index.builder import build_group_state
+    from repro_torch.kernels import _cuda, ref
+    from repro_torch.serving import delta as delta_mod
+    from repro_torch.serving.retrieval import RetrievalService, ServiceConfig
+
+    data = sl["data"]
+    plan = sl["host"].export_serving_plan(include_codes=False)
+    m = STREAM["codeless_inserts"]
+    ins, ins_w = _stream_inserts(data, plan.n_weights, m, seed=29)
+    ones = torch.ones(plan.d, dtype=torch.float32, device=dev)
+    excluded: dict = {}
+    held, seal = [], delta_mod.seal_segment
+
+    def sealed_and_held(cfg, gplan, vectors, state=None):
+        codes = seal(cfg, gplan, vectors, state=state)
+        plain = ref.hash_encode_ref(torch.tensor(vectors, device=dev),
+                                    state.proj, state.b_int, state.b_frac,
+                                    ones, 1.0)
+        held.append(bool(np.array_equal(codes, plain.cpu().numpy())))
+        return codes
+
+    _cuda.reset_launch_counts()
+    svc = RetrievalService(plan, data, cfg=ServiceConfig(
+        offload_evicted=False, **scfg))
+    svc.warmup()
+    delta_mod.seal_segment = sealed_and_held
+    try:
+        pids = np.asarray([svc.insert(v, int(w))
+                           for v, w in zip(ins, ins_w)])
+        pre = int(_self_found(svc.query(ins, ins_w), pids).sum())
+        for gi in range(plan.n_groups):
+            svc.batcher.delta.seal(gi)
+    finally:
+        delta_mod.seal_segment = seal
+    absorbed = svc.compact()
+    post = int(_self_found(svc.query(ins, ins_w), pids).sum())
+    wide = _widest(svc, plan)
+    sel = np.where(plan.group_of[ins_w] == wide)[0]
+
+    def union_check():
+        fresh = build_group_state(svc.group_config(wide), data,
+                                  plan.groups[wide], dev,
+                                  extra_points=ins[sel])
+        with svc.batcher.lease(wide) as st:
+            return _equal_states(torch, st, fresh), st.n_valid
+
+    same, nv = _excluding(torch, union_check, excluded)
+    main = {name: cnt - excluded.get(name, 0)
+            for name, cnt in _cuda.launch_counts().items()}
+    builds = svc.cache_summary()["n_builds"]
+    seals = svc.delta_summary()["n_seals"]
+    n_batches = sum(s["n_batches"] for s in svc.stats_summary().values())
+    _need_launches(main, {"hash_encode": builds + seals + n_batches,
+                          "fused_query_hist": n_batches,
+                          "fused_query_scores": n_batches,
+                          "freq_level": 0, "weighted_lp": 0},
+                   "stream (no host codes)")
+    say(f"stream codeless: {m} inserts -> {seals} seals through the "
+        f"hash_encode kernel on the group's state, {sum(held)}/{len(held)} "
+        f"bit-equal to the plain version on the card; {pre}/{m} self-queries "
+        f"at rank 0 before and {post}/{m} after compacting {absorbed} rows; "
+        f"the widest group's state (group {wide}, n_valid {nv}) "
+        f"{'torch.equal' if same else 'DIFFERS FROM'} a fresh device build "
+        f"over the union corpus; hash_encode launches {main['hash_encode']} "
+        f"= {builds} builds + {seals} seals + {n_batches} query batches "
+        f"[{smi}]")
+    _need(len(held) == seals and all(held),
+          "sealed codes differ from the plain hash_encode")
+    _need(pre == m and post == m and absorbed == m,
+          "a codeless insert missed itself")
+    _need(same, "the codeless compacted state differs from a fresh build")
+    del svc
+    _release(torch)
+    return main
+
+
 def _bound(bytes_, ops_ms: float):
     """(bound ms, what bounds it) from bytes and the operations' time."""
     bytes_ms = 1e3 * bytes_ / HBM_BYTES_PER_S
@@ -1157,7 +1650,7 @@ def _row(name, launches, err, ms, plain_ms, bound, library_ms=None):
                 library_ms=library_ms)
 
 
-def _times_fused(torch, dev, sl, errs, smi, inputs):
+def _times_fused(torch, dev, sl, errs, smi, inputs, stream):
     from repro_torch.kernels import fused_query, ref
 
     gi, cfg, st, inp = inputs
@@ -1198,8 +1691,9 @@ def _times_fused(torch, dev, sl, errs, smi, inputs):
             f"{t_p[name]:.3f} ms, bound {bound[0]:.3f} ms by {bound[1]} "
             f"({tests} level tests, {flops} flops, "
             f"{in_bytes + out_bytes[name]} bytes) [{smi}]")
-        table.append(_row(name, sl["launches"][name], errs[name],
-                          t_k[name], t_p[name], bound))
+        # launches: the slice leg's and the stream leg's main paths
+        table.append(_row(name, sl["launches"][name] + stream[name],
+                          errs[name], t_k[name], t_p[name], bound))
     return table
 
 
@@ -1320,15 +1814,19 @@ def _times_weighted_lp(torch, dev, errs, smi, inputs, launches):
 
 def phase_times(torch, dev, sl, legs, errs, smi):
     inputs = _slice_pass_inputs(sl, torch, dev)
-    table = _times_fused(torch, dev, sl, errs, smi, inputs)
-    table.append(_times_hash_encode(torch, dev, errs, smi, inputs,
-                                    legs["encode"]["launches"]))
-    table.append(_times_freq_level(torch, dev, errs, smi, inputs,
-                                   legs["unfused"]["launches"]))
+    stream = legs["stream"]["launches"]
+    table = _times_fused(torch, dev, sl, errs, smi, inputs, stream)
+    table.append(_times_hash_encode(
+        torch, dev, errs, smi, inputs,
+        legs["encode"]["launches"] + stream["hash_encode"]))
+    table.append(_times_freq_level(
+        torch, dev, errs, smi, inputs,
+        legs["unfused"]["launches"] + stream["freq_level"]))
     # on no serving path, as in the JAX package: each leg counted 0
     table.append(_times_weighted_lp(
         torch, dev, errs, smi, inputs, sl["launches"]["weighted_lp"]
-        + legs["encode"]["weighted_lp"] + legs["unfused"]["weighted_lp"]))
+        + legs["encode"]["weighted_lp"] + legs["unfused"]["weighted_lp"]
+        + stream["weighted_lp"]))
     return table
 
 
@@ -1371,6 +1869,13 @@ def main(argv=None) -> int:
         if "paged" not in legs:
             raise SystemExit("the async phase needs the paged phase")
         legs["async"] = phase_async(torch, dev, sl, legs["paged"])
+    if "paged" in legs:  # its states and pinned buffers leave
+        legs["paged"].pop("svc")
+        _release(torch)
+    if "stream" in phases:
+        if sl is None:
+            raise SystemExit("the stream phase needs the slice phase")
+        legs["stream"] = phase_stream(torch, dev, sl, smi)
     if "times" in phases:
         if sl is None or errs is None or len(legs) < len(PHASES) - 5:
             raise SystemExit("the times phase needs every other phase")

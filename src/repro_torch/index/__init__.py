@@ -1,17 +1,25 @@
-"""One table group's device state, its build and its query step."""
+"""One table group's device state, its build and its query step, and
+the streaming primitives (delta memtables, sealed segments, exact scan)."""
 
-from .builder import build_group_state, pad_cols
+from .builder import append_to_state, build_group_state, pad_cols, seal_segment
 from .config import IndexConfig, pad_beta, pad_levels
 from .engine import QueryState, QueryStepCache, encode_queries, query_step
+from .streaming import DeltaSegment, SealedSegment, exact_weighted_lp, scan_topk
 
 __all__ = [
+    "DeltaSegment",
     "IndexConfig",
     "QueryState",
     "QueryStepCache",
+    "SealedSegment",
+    "append_to_state",
     "build_group_state",
     "encode_queries",
+    "exact_weighted_lp",
     "pad_beta",
     "pad_cols",
     "pad_levels",
     "query_step",
+    "scan_topk",
+    "seal_segment",
 ]

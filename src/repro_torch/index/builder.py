@@ -32,14 +32,16 @@ from ..core.serving_plan import GroupServingPlan
 from ..kernels import ops
 from ..kernels.platform import resolve_device
 from .config import IndexConfig
-from .engine import QueryState
+from .engine import QueryState, encode_queries
 
 __all__ = [
     "StatePager",
+    "append_to_state",
     "build_group_state",
     "offload_state",
     "pad_cols",
     "restore_state",
+    "seal_segment",
 ]
 
 # Row-capacity padding fill of a host-code build: a fixed sentinel code and
@@ -69,6 +71,10 @@ def build_group_state(
     points: np.ndarray,
     gplan: GroupServingPlan,
     device: str | torch.device = "cuda",
+    *,
+    extra_points: np.ndarray | None = None,
+    extra_codes: np.ndarray | None = None,
+    base_rows: np.ndarray | None = None,
 ) -> QueryState:
     """Materialize one table group's ``QueryState`` on ``device``.
 
@@ -82,6 +88,18 @@ def build_group_state(
 
     Without host codes the corpus is uploaded once, padded on the device,
     and encoded there from the state's own vectors.
+
+    Streaming:
+
+    * ``base_rows`` keeps only those base corpus rows, in that order (the
+      tombstone purge's rebuild); the plan's host codes are row-sliced to
+      match.  None keeps every row.
+    * ``extra_points`` appends already-compacted streaming rows after the
+      base rows; on the host-code path ``extra_codes`` carries their
+      sealed codes (``seal_segment``, at ``cfg.beta`` columns), and a
+      device-encoded build encodes them with the rest.  The result equals,
+      bit for bit, a state that reached the same rows through
+      ``append_to_state``.
     """
     dev = resolve_device(device)
     if cfg.vec_dtype != "float32":
@@ -96,26 +114,48 @@ def build_group_state(
     b_int = put(pad_cols(folded["b_int"], cfg.beta))
     b_frac = put(pad_cols(folded["b_frac"], cfg.beta))
 
-    points = np.ascontiguousarray(points, dtype=np.float32)
-    n_rows = len(points)
+    base = np.asarray(points, dtype=np.float32)
+    if base_rows is not None:
+        base_rows = np.asarray(base_rows, np.int64)
+        base = base[base_rows]
+    n_base = len(base)
+    extra = (np.zeros((0, cfg.d), np.float32) if extra_points is None
+             else np.asarray(extra_points, np.float32).reshape(-1, cfg.d))
+    n_rows = n_base + len(extra)
     if n_rows > cfg.n:
         raise ValueError(
             f"{n_rows} live rows exceed the config row capacity {cfg.n}"
         )
     vecs = torch.zeros((cfg.n, cfg.d), dtype=torch.float32, device=dev)
-    vecs[:n_rows] = torch.from_numpy(points).to(dev)
+    vecs[:n_base] = put(base)
+    vecs[n_base:n_rows] = put(extra)
     if gplan.codes is None:
         codes = ops.hash_encode(vecs, torch.ones(cfg.d, device=dev), proj,
                                 b_int, b_frac, 1.0)
     else:
-        codes_np = pad_cols(gplan.codes, cfg.beta).astype(np.int32)
-        if len(codes_np) != n_rows:
+        base_codes = gplan.codes
+        if base_rows is not None:
+            base_codes = base_codes[base_rows]
+        if len(base_codes) != n_base:
             raise ValueError(
-                f"host codes cover {len(codes_np)} rows, expected {n_rows}"
+                f"host codes cover {len(base_codes)} rows, expected {n_base}"
+            )
+        n_extra_codes = 0 if extra_codes is None else len(extra_codes)
+        if n_extra_codes != len(extra):
+            raise ValueError(
+                f"{n_extra_codes} extra codes for {len(extra)} extra rows "
+                f"(pass extra_codes alongside extra_points)"
             )
         codes = torch.full((cfg.n, cfg.beta), _PAD_CODE, dtype=torch.int32,
                            device=dev)
-        codes[:n_rows] = torch.from_numpy(codes_np).to(dev)
+        codes[:n_base] = put(pad_cols(base_codes, cfg.beta).astype(np.int32))
+        if len(extra):
+            if extra_codes.shape[1] != cfg.beta:
+                raise ValueError(
+                    f"extra_codes must be sealed at cfg.beta={cfg.beta} "
+                    f"columns, got {extra_codes.shape[1]}"
+                )
+            codes[n_base:n_rows] = put(np.asarray(extra_codes, np.int32))
     return QueryState(
         codes=codes,
         points=vecs,
@@ -125,6 +165,68 @@ def build_group_state(
         width=torch.tensor(1.0, dtype=torch.float32, device=dev),
         n_valid=n_rows,
     )
+
+
+def seal_segment(
+    cfg: IndexConfig,
+    gplan: GroupServingPlan,
+    vectors: np.ndarray,
+    state: QueryState | None = None,
+) -> np.ndarray:
+    """Hash a delta segment into ``(m, cfg.beta)`` int32 bucket codes.
+
+    The rows are hashed with the group's own family, through the same
+    encoding as the group's data codes: the host float64 path when the
+    plan ships host codes (equal to a fresh host build over the union
+    corpus), otherwise ``engine.encode_queries`` on the group's device
+    ``state`` (the ``hash_encode`` kernel on the card), whose encode is
+    row-independent, so the codes equal those of a fresh device build
+    over the union corpus.  ``append_to_state`` later splices the codes
+    into the state: the hashing of a compaction happens here.
+    """
+    vectors = np.array(np.atleast_2d(vectors), np.float32)  # writable copy
+    if gplan.codes is not None:
+        return pad_cols(gplan.encode_host(vectors), cfg.beta).astype(np.int32)
+    if state is None:
+        raise ValueError(
+            "sealing without plan host codes needs the group's device "
+            "state for the device encode"
+        )
+    return encode_queries(state, vectors).cpu().numpy()
+
+
+def append_to_state(state: QueryState, codes: np.ndarray,
+                    vectors: np.ndarray) -> QueryState:
+    """Write sealed rows into a group state's reserved capacity.
+
+    The ``m`` rows are copied into ``state.codes`` and ``state.points`` at
+    row ``state.n_valid`` on the state's device (on the current stream),
+    and a state over the same tensors with ``n_valid`` advanced by ``m``
+    is returned: the shapes, and so the query step, never change.  The
+    input state stays valid: the written rows lie at or past its
+    ``n_valid``, where every query of it treats them as dead rows (bin
+    L+2 in the fused pass, level L+1 in the unfused one), so its answers
+    are unchanged.  Equal, bit for bit, to ``build_group_state`` over the
+    union corpus at the same capacity.
+    """
+    m = len(codes)
+    if m != len(vectors):
+        raise ValueError(f"codes/vectors row mismatch: {m} vs {len(vectors)}")
+    off = state.n_valid
+    cap, beta = state.codes.shape
+    if off + m > cap:
+        raise ValueError(
+            f"append of {m} rows at {off} exceeds row capacity {cap} "
+            f"(raise ServiceConfig.delta_reserve_rows)"
+        )
+    if m and np.shape(codes)[1] != beta:
+        raise ValueError(f"codes must have {beta} columns, got "
+                         f"{np.shape(codes)[1]}")
+    state.codes[off:off + m].copy_(
+        torch.from_numpy(np.ascontiguousarray(codes, np.int32)))
+    state.points[off:off + m].copy_(
+        torch.from_numpy(np.ascontiguousarray(vectors, np.float32)))
+    return dataclasses.replace(state, n_valid=off + m)
 
 
 def _tensor_fields(state: QueryState):
@@ -184,10 +286,11 @@ def restore_state(host: QueryState, device: str | torch.device,
 
 @dataclasses.dataclass
 class _Copy:
-    """One in-flight or finished restore on the copy stream."""
+    """The device work that made a group's current state: a restore on
+    the copy stream, or a build or write on the stream that ran it."""
 
-    start: object  # torch.cuda.Event (timing)
-    end: object  # torch.cuda.Event (timing); launch streams wait on it
+    start: object  # torch.cuda.Event (timing; None for a build or write)
+    end: object  # torch.cuda.Event; launch streams wait on it
     nbytes: int
     streams: set = dataclasses.field(default_factory=set)  # waited on it
 
@@ -198,7 +301,7 @@ class _Group:
 
     state: object = None  # weakref to the group's current device state
     host: QueryState | None = None  # its host copy (pinned on the card)
-    copy: _Copy | None = None  # the restore that produced ``state``
+    copy: _Copy | None = None  # the device work that produced ``state``
 
 
 class StatePager:
@@ -209,13 +312,18 @@ class StatePager:
     ``restore(gi, host)`` uploads them again.  On the card a restore
     allocates its tensors on a dedicated copy stream and enqueues the
     copies there between two timing events, so a prefetch returns at once
-    and the upload overlaps the launches that run meanwhile.  Every launch
-    that reads a restored state calls ``ready(gi, state)`` first: the
-    launching stream (the current stream of the calling thread) waits on
-    the copy's end event and each tensor is recorded on that stream, so
-    neither a launch nor the caching allocator can touch the memory
-    before the copy is done.  An offload waits for the restore that
-    filled its group's buffers before it overwrites them.
+    and the upload overlaps the launches that run meanwhile.  Every use of
+    a state's tensors (a launch, a seal's encode, a compaction's write)
+    calls ``ready(gi, state)`` first: the current stream of the calling
+    thread waits on the copy's end event and each tensor is recorded on
+    that stream, so neither the use nor the caching allocator can touch
+    the memory before the copy is done.  An offload waits for the restore
+    that filled its group's buffers before it overwrites them.
+
+    A state that replaces the group's (a compaction's append writes the
+    same tensors in place) is ``adopt``ed like a fresh build: the group
+    keeps its host buffers, and the next offload copies the written rows
+    into them again.
 
     ``restore_timings`` hands the ``StateCache`` the device time of each
     finished copy; ``summary`` reports the finished copies' bytes and
@@ -237,10 +345,19 @@ class StatePager:
         return self._groups.setdefault(int(gi), _Group())
 
     def adopt(self, gi: int, state: QueryState) -> QueryState:
-        """Record a freshly built ``state`` as group ``gi``'s; returns it."""
+        """Record ``state``, just built or written on the current stream,
+        as group ``gi``'s current state; returns it.
+
+        On the card an event is recorded on the current stream after that
+        work, and ``ready`` orders a use on any other stream after it.
+        """
         g = self._group(gi)
         g.state = weakref.ref(state)
         g.copy = None
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            g.copy = _Copy(None, stream.record_event(), 0,
+                           {stream.cuda_stream})
         return state
 
     def offload(self, state: QueryState) -> QueryState:
@@ -277,8 +394,8 @@ class StatePager:
         return state
 
     def ready(self, gi: int, state: QueryState) -> None:
-        """Order the current stream's next launches after ``state``'s
-        restore copy (a no-op on the CPU and for built states)."""
+        """Order the current stream's next uses of ``state`` after the
+        restore copy, build or write that made it (a no-op on the CPU)."""
         g = self._groups.get(int(gi))
         if g is None or g.copy is None or g.state() is not state:
             return

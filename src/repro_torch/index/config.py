@@ -60,6 +60,10 @@ class IndexConfig:
     use_kernels: str = "on"  # kernel path (kernels.platform): "on" = fused
     # passes (CUDA kernels on the card, plain torch on the CPU), "off" =
     # the unfused stage-by-stage oracle
+    delta_seal_rows: int = 1024  # streaming: an open delta memtable seals
+    # into a hashed segment at this row count; absent from
+    # shape_signature, but part of equality, so a Batcher threads one
+    # value through every group config
     n_shards: int = 1  # devices the rows are sharded across (1 only, so far)
 
     @property

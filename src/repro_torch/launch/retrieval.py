@@ -31,12 +31,17 @@ Steps:
               weighted-fair dequeue under ``--qos-capacity``, and the
               ``--degrade-ladder`` for degradable tenants under overload).
               Answers are bit-exact across all of these, except a
-              degraded tenant's, which are served at the relaxed (c, k)
+              degraded tenant's, which are served at the relaxed (c, k).
+              ``--insert-rate`` turns that share of the op stream into
+              streaming inserts (fresh rows past the corpus range), sealed
+              every ``--delta-seal-rows`` rows and compacted into
+              ``--delta-reserve-rows`` of reserved state capacity
   4. report — per-group occupancy / stop-level / n_checked stats and
               throughput (plus queue-wait percentiles, launch causes and
               the driver, QoS and state-cache reports where they apply);
               ``--check`` cross-validates every answer against the host
-              oracle WLSHIndex.search_dense
+              oracle WLSHIndex.search_dense (with ``--insert-rate``: every
+              insert's self-query, before and after a full compaction)
 
 ``--device cpu`` runs the plain torch versions of the kernels on the host.
 ``--use-kernels off`` runs the unfused stages (on the card: the
@@ -281,11 +286,16 @@ def run(args, *, include_codes: bool = True) -> dict:
 
     # ---- build --------------------------------------------------------------
     t0 = time.time()
+    reserve = args.delta_reserve_rows
+    if reserve is None:  # headroom for every op turning out to be an insert
+        reserve = args.n_queries if args.insert_rate > 0 else 0
     ladder = args.degrade_ladder if args.qos else ()
     scfg = ServiceConfig(k=args.k, q_batch=args.q_batch,
                          max_delay_ms=args.max_delay_ms,
                          max_resident_groups=args.max_resident_groups,
                          device_budget_bytes=args.device_budget,
+                         delta_seal_rows=args.delta_seal_rows,
+                         delta_reserve_rows=reserve,
                          use_kernels=args.use_kernels,
                          degrade_ladder=ladder, device=str(device))
     svc = RetrievalService(plan, data, cfg=scfg)
@@ -309,6 +319,9 @@ def run(args, *, include_codes: bool = True) -> dict:
     qpts = data[src].astype(np.float32)
     qpts = qpts + rng.normal(0, args.q_noise, qpts.shape).astype(np.float32)
     async_report = None
+    if args.insert_rate > 0:
+        return _serve_mixed(args, svc, plan, rng, qpts, wids, device,
+                            t_plan=t_plan, t_build=t_build)
     if args.use_async:
         arrivals = np.cumsum(
             rng.exponential(1.0 / args.arrival_rate, args.n_queries)
@@ -408,6 +421,113 @@ def run(args, *, include_codes: bool = True) -> dict:
     }
 
 
+def _serve_mixed(args, svc, plan, rng, qpts, wids, device, t_plan, t_build):
+    """Mixed read/write replay: a share of the op stream is inserts.
+
+    Each op is an insert with probability ``--insert-rate``; inserted
+    vectors are fresh (offset past the corpus range) so recall on them is
+    checkable.  Sync mode serves op by op; ``--async`` replays the same
+    schedule open-loop at ``--arrival-rate`` with writes applied at their
+    arrival instants.  ``--check`` verifies pre-compaction recall (every
+    insert answers its own self-query through the exact delta scan),
+    then compacts and verifies that the kernels' path over the appended
+    rows returns the same ids, with the query-step count unchanged
+    across the run.
+    """
+    n_ops = args.n_queries
+    is_insert = rng.random(n_ops) < args.insert_rate
+    ins_vecs = qpts + (
+        args.value_range + 7.0 * np.arange(n_ops)[:, None]
+    ).astype(np.float32)
+    inserted = []  # (pid, vector, weight_id)
+    n_steps0 = svc.step_cache.n_compiled
+    driver = None
+    t0 = time.time()
+    if args.use_async:
+        asvc = AsyncRetrievalService(svc, clock=ManualClock())
+        driver = _make_driver(args, asvc)
+        tick = asvc.poll if driver is None else driver.step
+        arrivals = np.cumsum(
+            rng.exponential(1.0 / args.arrival_rate, n_ops)
+        )
+        for i in range(n_ops):
+            while True:  # fire deadlines expiring before this arrival
+                nd = asvc.next_deadline()
+                if nd is None or nd > arrivals[i]:
+                    break
+                asvc.clock.advance_to(nd)
+                tick()
+            asvc.clock.advance_to(arrivals[i])
+            if driver is not None:
+                # arrival tick: gives prefetch its lead time (never
+                # launches: due deadlines were fired above), exactly
+                # like replay_with_driver
+                driver.step()
+            if is_insert[i]:
+                pid = asvc.insert(ins_vecs[i], int(wids[i]))
+                inserted.append((pid, ins_vecs[i], int(wids[i])))
+            else:
+                asvc.submit(qpts[i], wids[i])
+        while asvc.pending_count:
+            asvc.clock.advance_to(asvc.next_deadline())
+            tick()
+        if driver is not None:
+            _print_driver_report(driver)
+    else:
+        for i in range(n_ops):
+            if is_insert[i]:
+                pid = svc.insert(ins_vecs[i], int(wids[i]))
+                inserted.append((pid, ins_vecs[i], int(wids[i])))
+            else:
+                svc.query(qpts[i : i + 1], wids[i : i + 1])
+    _sync(device)
+    t_serve = time.time() - t0
+    n_writes = len(inserted)
+    # a low rate can sample zero inserts: no write ever happened, so the
+    # delta index was never created and the summary is empty
+    delta = svc.delta_summary() or dict(
+        n_seals=0, n_compactions=0, n_pending=0
+    )
+    print(f"serve[mixed{'/async' if args.use_async else ''}]: "
+          f"{n_ops - n_writes} queries + {n_writes} inserts "
+          f"(write mix {args.insert_rate:.0%}) in {t_serve:.2f}s "
+          f"({n_ops / t_serve:.1f} ops/s); delta: {delta['n_seals']} seals, "
+          f"{delta['n_compactions']} compactions, {delta['n_pending']} "
+          f"rows pending")
+
+    n_bad = 0
+    if args.check and inserted:
+        for pid, v, w in inserted:  # pre-compaction: exact delta scan
+            n_bad += pid not in svc.query(v[None], [w]).ids[0]
+        absorbed = svc.compact()
+        for pid, v, w in inserted:  # post-compaction: the kernels' path
+            n_bad += pid not in svc.query(v[None], [w]).ids[0]
+        new_steps = svc.step_cache.n_compiled - n_steps0
+        n_bad += new_steps  # streaming must never need a new query step
+        print(f"check[streaming]: {2 * len(inserted) - n_bad}"
+              f"/{2 * len(inserted)} insert self-queries exact "
+              f"(pre + post compaction of {absorbed} rows), "
+              f"{new_steps} new query steps")
+        assert n_bad == 0, f"{n_bad} streaming checks failed"
+    return {
+        "n_groups": plan.n_groups,
+        "beta_total": plan.beta_total,
+        "n_steps": svc.step_cache.n_compiled,
+        "t_plan": t_plan,
+        "t_build": t_build,
+        "t_serve": t_serve,
+        "qps": n_ops / t_serve,
+        "n_inserts": n_writes,
+        "stats": svc.stats_summary(),
+        "cache": svc.cache_summary(),
+        "delta": svc.delta_summary(),
+        "n_check_failures": n_bad,
+        "async": None,
+        "driver": driver.stats.summary() if driver is not None else None,
+        "n_self_misses": None,
+    }
+
+
 def parse_args(argv=None):
     """The launcher's command line."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -476,6 +596,18 @@ def parse_args(argv=None):
     ap.add_argument("--arrival-rate", type=float, default=2_000.0,
                     help="open-loop Poisson arrival rate (queries/s of "
                          "virtual traffic) for --async replay")
+    ap.add_argument("--insert-rate", type=float, default=0.0,
+                    help="mixed read/write replay: share of the op stream "
+                         "that are streaming inserts (0..1); with --check, "
+                         "verifies insert recall before and after "
+                         "compaction")
+    ap.add_argument("--delta-seal-rows", type=int, default=32,
+                    help="streaming: seal a group's open delta memtable "
+                         "into a hashed segment at this row count")
+    ap.add_argument("--delta-reserve-rows", type=int, default=None,
+                    help="row capacity reserved per group state for "
+                         "compacted inserts (default: --n-queries when "
+                         "--insert-rate > 0, else 0)")
     ap.add_argument("--max-resident-groups", type=int, default=None,
                     help="page group states: keep at most this many device-"
                          "resident (LRU eviction + host offload/restore)")
@@ -484,12 +616,17 @@ def parse_args(argv=None):
                     help="page group states under this device byte budget "
                          "(accepts 512MB / 2GB / plain bytes)")
     args = ap.parse_args(argv)
+    if not 0.0 <= args.insert_rate <= 1.0:
+        ap.error(f"--insert-rate must be in [0, 1], got {args.insert_rate}")
     if args.driver and not args.use_async:
         ap.error("--driver drives the async frontend; add --async")
     if args.prefetch and not args.driver:
         ap.error("--prefetch is a ServiceDriver feature; add --driver")
     if args.qos and not args.use_async:
         ap.error("--qos shapes the async frontend's traffic; add --async")
+    if args.qos and args.insert_rate > 0:
+        ap.error("--qos is not wired into the mixed read/write replay; "
+                 "drop --insert-rate")
     if args.qos and args.check:
         ap.error("--check validates strict answers; a degraded QoS tenant "
                  "may legitimately differ — drop one of the two")

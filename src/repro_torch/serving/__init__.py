@@ -4,8 +4,8 @@ Sync and async weight-routed frontends over a shared batching core,
 group states paged through a budgeted ``StateCache``, a real-time
 ``ServiceDriver`` with predictive prefetch and cost-aware eviction, and
 multi-tenant QoS (admission control, weighted-fair dequeue, SLO-aware
-(c, k) degradation).  Streaming inserts and the LM decode loop are not
-ported yet.
+(c, k) degradation), and streaming inserts, deletes and compaction
+(``DeltaIndex``).  The LM decode loop is not ported yet.
 """
 
 from .async_service import (
@@ -24,6 +24,7 @@ from .batching import (
     pad_take,
     run_plans,
 )
+from .delta import DeltaIndex, DeltaStats
 from .qos import (
     DEFAULT_TENANT,
     DeficitRoundRobin,
@@ -67,6 +68,8 @@ __all__ = [
     "DeadlinePrefetch",
     "DeficitRoundRobin",
     "DegradeStep",
+    "DeltaIndex",
+    "DeltaStats",
     "DriverStats",
     "EvictionCandidate",
     "EvictionPolicy",

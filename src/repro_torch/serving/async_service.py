@@ -26,10 +26,10 @@ default), while tests and open-loop trace replay (``replay_open_loop``)
 drive a deterministic ``ManualClock`` so deadline behaviour is exact and
 repeatable.
 
-Not ported yet: the streaming writes (``insert``/``delete``/``compact``
-and idle-tick compaction) and the per-query trace spans; the frontend
-behaves as the JAX package's does with neither a delta index nor a
-tracer attached.
+Streaming writes (``insert``/``delete``/``compact``) apply at once, and
+an idle poll compacts the sealed delta backlog (``compact_on_idle``).
+Not ported yet: the per-query trace spans; the frontend behaves as the
+JAX package's does with no tracer attached.
 """
 
 from __future__ import annotations
@@ -175,6 +175,7 @@ class AsyncRetrievalService:
         service: RetrievalService | Batcher,
         max_delay_ms: float | None = None,
         clock=time.monotonic,
+        compact_on_idle: bool = True,
         qos: QosScheduler | None = None,
     ):
         self.batcher = (
@@ -199,9 +200,13 @@ class AsyncRetrievalService:
             # fold the scheduler's standalone counters into the serving
             # stack's unified registry: one source of truth per stack
             qos.bind_metrics(self.batcher.metrics)
+        # background compaction: an idle poll (nothing expired to launch)
+        # absorbs the streaming delta's *sealed* backlog into the group
+        # states, capacity permitting
+        self.compact_on_idle = bool(compact_on_idle)
         # a scheduler.ServiceDriver that has taken ownership of idle-time
-        # work and wants submit wake-ups; None = undriven (poll() runs
-        # idle_work on idle ticks itself)
+        # work (background compaction) and wants submit wake-ups; None =
+        # undriven (poll() runs idle_work on idle ticks itself)
         self.driver = None
         # pending buffers keyed (group_id, tenant): one tenant's queries
         # never share a launch with another's, so a degraded tenant's
@@ -387,14 +392,38 @@ class AsyncRetrievalService:
     def idle_work(self) -> int:
         """One slice of idle-time background work, returning rows compacted.
 
-        Called by an undriven idle ``poll()``, or by the
-        ``ServiceDriver``'s idle ticks once one owns the service.  The
-        port has no idle work yet (streaming compaction and shadow recall
-        are not ported), so this compacts nothing and returns 0, as the
-        JAX frontend does with neither a delta index nor a recall
-        estimator attached.
+        Compacts the streaming delta's *sealed* backlog when
+        ``compact_on_idle`` is set, returning the rows absorbed.  Called
+        by an undriven idle ``poll()``, or by the ``ServiceDriver``'s idle
+        ticks once one owns the service.  (The JAX frontend also runs a
+        slice of its shadow recall queue here; the port has no recall
+        estimator yet.)
         """
+        if self.compact_on_idle and self.batcher.delta is not None:
+            return self.batcher.delta.compact_sealed()
         return 0
+
+    # ------------------------------------------------------------- streaming
+
+    def insert(self, vector, weight_id) -> int:
+        """Insert one vector into ``weight_id``'s group (applied at once).
+
+        Writes are synchronous even on the async frontend: the row is in
+        its group's delta memtable, and visible to queries, when this
+        returns.  Returns the assigned global point id.
+        """
+        return self.batcher.insert(vector, weight_id)
+
+    def delete(self, point_id: int) -> None:
+        """Tombstone a global point id; it never appears in results again."""
+        self.batcher.delete(point_id)
+
+    def compact(self, group: int | None = None, purge: bool = False) -> int:
+        """Flush and compact delta segments (see ``Batcher.compact``).
+
+        ``purge=True`` runs the tombstone-purging rebuild.
+        """
+        return self.batcher.compact(group, purge=purge)
 
     def drain(self) -> int:
         """Flush all pending buffers regardless of deadline."""

@@ -24,11 +24,15 @@ launch leases its group's state from the cache and pins it only for the
 launch, so deadline-driven partial launches cannot thrash each other's
 states.  Query codes come from the same encoding as the group's data
 codes: host float64 when the plan ships host codes, the device encode
-(``hash_encode``) when the state was built on the device.
+(``hash_encode``) when the state was built on the device.  Streaming
+writes go to a lazily created ``delta.DeltaIndex``; every state holds
+``ServiceConfig.delta_reserve_rows`` rows of capacity past the corpus
+for its compactions (``row_capacity``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -77,6 +81,14 @@ class ServiceConfig:
     # state bytes (IndexConfig.state_nbytes accounting) under this budget
     offload_evicted: bool = True  # evicted states keep a host copy (restore
     # = one upload); False discards them (re-acquire rebuilds from scratch)
+    delta_seal_rows: int = 1024  # streaming: a group's open delta memtable
+    # seals into a hashed segment at this row count
+    delta_reserve_rows: int = 0  # row capacity reserved per group state for
+    # compacted inserts; 0 = static index (inserts still serve from the
+    # delta scan, but compaction has nowhere to append)
+    auto_compact_segments: int | None = None  # compact a group once it
+    # holds this many sealed segments (None = compaction only on explicit
+    # compact() calls / the async frontend's idle poll)
     max_pending: int | None = None  # async backpressure: cap per-group
     # pending buffers; submit raises Overloaded instead of growing unbounded
     n_shards: int = 1  # devices each group's rows are sharded across
@@ -127,6 +139,22 @@ class ServiceConfig:
             raise ValueError(
                 f"device_budget_bytes must be >= 1 or None, got "
                 f"{self.device_budget_bytes}"
+            )
+        if self.delta_seal_rows < 1:
+            raise ValueError(
+                f"delta_seal_rows must be >= 1, got {self.delta_seal_rows}"
+            )
+        if self.delta_reserve_rows < 0:
+            raise ValueError(
+                f"delta_reserve_rows must be >= 0, got "
+                f"{self.delta_reserve_rows}"
+            )
+        if self.auto_compact_segments is not None and (
+            self.auto_compact_segments < 1
+        ):
+            raise ValueError(
+                f"auto_compact_segments must be >= 1 or None, got "
+                f"{self.auto_compact_segments}"
             )
         if self.max_pending is not None and self.max_pending < 1:
             raise ValueError(
@@ -383,6 +411,7 @@ class Batcher:
         self.metrics = MetricsRegistry()
         self.step_cache = QueryStepCache()
         self._group_cfgs: dict[tuple[int, int], IndexConfig] = {}
+        self._delta = None  # streaming DeltaIndex, created on first write
         self.pager = StatePager(self.device)
         on_card = self.device.type == "cuda"
         self.state_cache = StateCache(
@@ -402,6 +431,16 @@ class Batcher:
         }
 
     # ------------------------------------------------------------- per group
+
+    def row_capacity(self) -> int:
+        """Row capacity of every group state (base corpus + delta reserve).
+
+        ``ServiceConfig.delta_reserve_rows`` preallocates the rows that
+        streaming compaction appends into without changing any shape.
+        All groups share one capacity, which keeps the shape-bucket step
+        sharing.
+        """
+        return self.plan.n + self.cfg.delta_reserve_rows
 
     @property
     def n_rungs(self) -> int:
@@ -434,7 +473,7 @@ class Batcher:
             g = self.plan.groups[gi]
             c_eff, k_eff = self.rung_params(rung)
             cfg = IndexConfig(
-                n=self.plan.n,
+                n=self.row_capacity(),
                 d=self.plan.d,
                 beta=pad_beta(g.beta_group, self.cfg.beta_buckets),
                 q_batch=self.cfg.q_batch,
@@ -446,16 +485,51 @@ class Batcher:
                 budget_override=self.cfg.budget_override,
                 vec_dtype=self.cfg.vec_dtype,
                 use_kernels=self.cfg.use_kernels,
+                delta_seal_rows=self.cfg.delta_seal_rows,
                 n_shards=self.cfg.n_shards,
             )
             self._group_cfgs[key] = cfg
         return cfg
 
     def _build_state(self, gi: int):
-        """Cold-path StateCache builder: materialize group ``gi``."""
+        """Cold-path StateCache builder: materialize group ``gi``.
+
+        A group that has absorbed delta compactions rebuilds over its
+        union corpus (base points + compacted rows, sealed codes reused),
+        so discard-mode paging can never drop streamed rows; after a
+        tombstone purge only the surviving base rows enter, so a rebuild
+        can never resurrect purged rows.
+        """
+        extra_points = extra_codes = base_rows = None
+        if self._delta is not None:
+            extra_points, extra_codes = self._delta.compacted_rows(gi)
+            base_rows = self._delta.base_rows()
         return self.pager.adopt(gi, build_group_state(
             self.group_config(gi), self.points, self.plan.groups[gi],
-            device=self.device))
+            device=self.device, extra_points=extra_points,
+            extra_codes=extra_codes, base_rows=base_rows))
+
+    @contextlib.contextmanager
+    def lease(self, gi: int):
+        """Lease group ``gi``'s state from the ``StateCache``, ordered on
+        the current stream after the copy, build or write that made it.
+
+        Every use of a state's tensors goes through here: a launch
+        (``run_batch``), a seal's device encode and a compaction's write.
+        """
+        with self.state_cache.lease(gi) as state:
+            self.pager.ready(gi, state)
+            yield state
+
+    def replace_state(self, gi: int, state) -> None:
+        """Install ``state`` (a compaction's result, written on the current
+        stream) as group ``gi``'s new version.
+
+        The pager adopts it first, so its next offload reuses the group's
+        pinned buffers, and uses on other streams wait for the write.
+        """
+        self.pager.adopt(gi, state)
+        self.state_cache.replace(gi, state)
 
     def warmup(self, groups=None) -> None:
         """Build states and steps ahead of traffic.
@@ -535,6 +609,46 @@ class Batcher:
         occs = [s.occupancy for s in self.stats.values() if s.n_batches]
         return float(np.mean(occs)) if occs else float("nan")
 
+    # ------------------------------------------------------------- streaming
+
+    @property
+    def delta(self):
+        """The streaming ``DeltaIndex``, or None before the first write."""
+        return self._delta
+
+    def delta_index(self):
+        """Create on first use (and return) the streaming ``DeltaIndex``."""
+        if self._delta is None:
+            from .delta import DeltaIndex  # deferred: delta imports batching
+
+            self._delta = DeltaIndex(self)
+        return self._delta
+
+    def insert(self, vector, weight_id) -> int:
+        """Insert one vector into ``weight_id``'s group; returns its id."""
+        return self.delta_index().insert(vector, weight_id)
+
+    def delete(self, point_id: int) -> None:
+        """Tombstone ``point_id``: it never appears in results again."""
+        self.delta_index().delete(point_id)
+
+    def compact(self, group: int | None = None, purge: bool = False) -> int:
+        """Compact sealed delta segments into the main group state(s).
+
+        Returns the number of rows absorbed (0 with nothing sealed or no
+        streaming writes yet).  ``purge=True`` upgrades the sweep to a
+        tombstone purge (see ``DeltaIndex.compact``): states rebuild over
+        their surviving corpus, ``n_valid`` capacity is reclaimed, and
+        the tombstone set is cleared.
+        """
+        if self._delta is None:
+            return 0
+        return self._delta.compact(group, purge=purge)
+
+    def delta_summary(self) -> dict:
+        """Aggregate streaming counters (empty dict before any write)."""
+        return self._delta.summary() if self._delta is not None else {}
+
     # --------------------------------------------------------------- serving
 
     def route(self, weight_ids) -> np.ndarray:
@@ -585,8 +699,11 @@ class Batcher:
         pinned while the step runs, then released, so a budgeted cache
         can page any group between launches but never under one.  A
         restored state's upload is ordered before the launch on the
-        calling thread's current stream (``StatePager.ready``), and the
-        outputs reach the host before the lease ends.
+        calling thread's current stream (``Batcher.lease``), and the
+        outputs reach the host before the lease ends.  With streaming
+        writes, ``DeltaIndex.augment`` then translates appended rows to
+        global ids and merges the exact scan of the group's pending
+        rows, dropping tombstoned ids.
         """
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         weight_ids = np.atleast_1d(np.asarray(weight_ids, np.int64))
@@ -602,8 +719,7 @@ class Batcher:
         def put(x, dtype):
             return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
 
-        with self.state_cache.lease(gi) as state:
-            self.pager.ready(gi, state)
+        with self.lease(gi) as state:
             codes = self._encode(gi, cfg, state, queries, take)
             d_b, i_b, stop_b, chk_b = step(
                 state,
@@ -628,6 +744,13 @@ class Batcher:
             pad_ids[:, : cfg.k] = ids
             pad_d[:, : cfg.k] = dists
             ids, dists = pad_ids, pad_d
+        if self._delta is not None:
+            # translate appended state rows to global ids, merge the exact
+            # delta-scan hits, filter tombstones (a group with nothing
+            # pending passes through bit for bit)
+            ids, dists = self._delta.augment(
+                gi, queries, weight_ids, ids, dists
+            )
         m = self.metrics
         m.counter("wlsh_group_batches_total",
                   "compiled-step launches").inc(group=gi)

@@ -13,7 +13,8 @@ ships host codes, query bucket codes are computed on the host in float64
 against the exported family, so the answers are bit-exact with
 ``WLSHIndex.search_dense``'s candidate sets.  A plan exported without
 codes (``include_codes=False``) is encoded on the device, data and
-queries alike, through the ``hash_encode`` kernel.
+queries alike, through the ``hash_encode`` kernel.  ``insert``/``delete``/
+``compact`` are the streaming writes (``serving.delta.DeltaIndex``).
 """
 
 from __future__ import annotations
@@ -129,6 +130,39 @@ class RetrievalService:
     def mean_occupancy(self) -> float:
         """Unweighted mean batch occupancy over groups that served traffic."""
         return self.batcher.mean_occupancy()
+
+    # ------------------------------------------------------------- streaming
+
+    def insert(self, vector, weight_id) -> int:
+        """Insert one vector into ``weight_id``'s table group.
+
+        Returns the assigned global point id.  The row is queryable at
+        once (exact delta scan) and is written into the group's state on
+        the device by a later compaction, which needs
+        ``ServiceConfig.delta_reserve_rows`` capacity to append into.
+        """
+        return self.batcher.insert(vector, weight_id)
+
+    def delete(self, point_id: int) -> None:
+        """Tombstone a global point id; it never appears in results again."""
+        self.batcher.delete(point_id)
+
+    def compact(self, group: int | None = None, purge: bool = False) -> int:
+        """Flush and compact delta segments into the main group state(s).
+
+        Returns the number of rows absorbed.  Only the compacted groups'
+        cached states change (at a bumped version); query steps are
+        untouched.  ``purge=True`` also drops every tombstoned row from
+        the rebuilt states, reclaims their ``n_valid`` capacity and clears
+        the tombstone set.
+        """
+        return self.batcher.compact(group, purge=purge)
+
+    def delta_summary(self) -> dict:
+        """Streaming counters (inserts/seals/compactions/tombstones)."""
+        return self.batcher.delta_summary()
+
+    # --------------------------------------------------------------- serving
 
     def query(self, queries: np.ndarray, weight_ids) -> RetrievalResult:
         """Answer a mixed batch of (query, weight_id) requests.

@@ -42,10 +42,11 @@ undriven ``poll()`` loop, prefetch on or off, paged or not.
 On the card a prefetch's restore is enqueued on the ``StatePager``'s copy
 stream, so it overlaps the launches of the same tick; the launch that
 reads the state waits on the copy's event on its own stream, which in
-thread mode is the driver thread's current stream.  Not ported yet: the
-streaming passthroughs (``insert``/``delete``/``compact``) and SLO
-alerting (``health``); the driver behaves as the JAX package's does with
-neither attached.
+thread mode is the driver thread's current stream.  The streaming
+writes (``insert``/``delete``/``compact``) pass through under the
+driver's lock, and idle ticks compact the sealed delta backlog.  Not
+ported yet: SLO alerting (``health``); the driver behaves as the JAX
+package's does with none attached.
 """
 
 from __future__ import annotations
@@ -468,6 +469,26 @@ class ServiceDriver:
         """Thread-safe ``AsyncRetrievalService.drain`` passthrough."""
         with self._lock:
             return self.svc.drain()
+
+    def insert(self, vector, weight_id) -> int:
+        """Thread-safe ``AsyncRetrievalService.insert`` passthrough.
+
+        Streaming writes mutate the same per-group delta structures the
+        driver thread's idle-tick compaction rewrites, so in thread mode
+        they go through the driver's lock like ``submit``.
+        """
+        with self._lock:
+            return self.svc.insert(vector, weight_id)
+
+    def delete(self, point_id: int) -> None:
+        """Thread-safe ``AsyncRetrievalService.delete`` passthrough."""
+        with self._lock:
+            self.svc.delete(point_id)
+
+    def compact(self, group: int | None = None, purge: bool = False) -> int:
+        """Thread-safe ``AsyncRetrievalService.compact`` passthrough."""
+        with self._lock:
+            return self.svc.compact(group, purge=purge)
 
     def notify_submit(self) -> None:
         """Wake the driver thread early (called by the service's submit)."""

@@ -12,7 +12,12 @@ finite scores to rtol 1e-5 (or the p = 2 atol of the norms expansion).
 ``chip_smoke.py`` repeats this at the main path's shapes.  The paging
 tests hold an evict/restore round trip bit for bit, a prefetched restore
 followed at once by a launch on another stream to the unpaged answers,
-and the thread-mode ``ServiceDriver`` under a one-group budget.
+and the thread-mode ``ServiceDriver`` under a one-group budget.  The
+streaming tests hold a plan without host codes' seals to the plain
+``hash_encode`` and its compacted state to a fresh device build, a
+compaction issued right after a prefetched restore (on a second
+stream) to a fresh union build and to an unpaged service, and a
+replaced state's offload to the group's existing pinned buffers.
 """
 
 from __future__ import annotations
@@ -399,3 +404,139 @@ def test_driver_thread_mode_under_one_group_budget(dev):
     np.testing.assert_array_equal(
         np.array([f.result().n_checked for f in futs]), want.n_checked)
     assert svc.state_cache.stats.n_restores > 0
+
+
+# ------------------------------------------------------ streaming on the card
+
+
+def _far(data, rows, tag):
+    return (data[rows] + 50_000.0 + 13.0 * tag).astype(np.float32)
+
+
+def test_codeless_seal_equals_plain_encode_and_fresh_build(dev):
+    """On a plan without host codes a seal hashes its rows with the
+    ``hash_encode`` kernel on the group's state: the codes equal the
+    plain version on the card bit for bit, and the compacted state
+    equals a fresh device build over the union corpus."""
+    from repro_torch.core.datagen import make_dataset, make_weight_set
+    from repro_torch.core.params import PlanConfig
+    from repro_torch.core.wlsh import WLSHIndex
+    from repro_torch.index.builder import build_group_state
+    from repro_torch.serving import RetrievalService, ServiceConfig
+
+    data = make_dataset(n=4096, d=64, seed=41)
+    weights = make_weight_set(size=8, d=64, n_subset=4, n_subrange=10,
+                              seed=42)
+    plan = WLSHIndex(data, weights, PlanConfig(p=2.0, c=3, n=4096),
+                     tau=500.0, v=4, v_prime=4, seed=43).export_serving_plan(
+                         include_codes=False)
+    svc = RetrievalService(plan, data, cfg=ServiceConfig(
+        k=5, q_batch=8, delta_seal_rows=16, delta_reserve_rows=100))
+    svc.warmup()
+    gi = int(np.argmax([g.n_members for g in plan.groups]))
+    w_in = int(plan.groups[gi].member_ids[0])
+    vecs = _far(data, np.arange(0, 4096, 128), 1)  # 32 rows: 2 seals
+    _cuda.reset_launch_counts()
+    pids = [svc.insert(v, w_in) for v in vecs]
+    assert _cuda.launch_counts()["hash_encode"] == 2
+    ones = torch.ones(plan.d, device=dev)
+    with svc.state_cache.lease(gi) as st:
+        for seg in svc.batcher.delta._groups[gi].sealed:
+            plain = ref.hash_encode_ref(torch.tensor(seg.vectors, device=dev),
+                                        st.proj, st.b_int, st.b_frac, ones,
+                                        1.0)
+            np.testing.assert_array_equal(seg.codes, plain.cpu().numpy())
+    assert svc.compact() == 32
+    fresh = build_group_state(svc.group_config(gi), data, plan.groups[gi],
+                              extra_points=vecs)
+    with svc.state_cache.lease(gi) as st:
+        assert st.n_valid == fresh.n_valid == 4096 + 32
+        assert torch.equal(st.codes, fresh.codes)
+        assert torch.equal(st.points, fresh.points)
+    res = svc.query(vecs, [w_in] * 32)
+    np.testing.assert_array_equal(res.ids[:, 0], pids)
+
+
+def test_compaction_right_after_prefetched_restore(dev):
+    """A prefetch restores a group on the copy stream and a compaction of
+    that group follows at once on a second stream, then a launch on the
+    default stream: the compacted state equals a fresh union build and
+    the answers equal an unpaged streaming service's, 24 times over (the
+    compaction waits on the copy's event, the launch on the write's)."""
+    from repro_torch.index.builder import build_group_state, seal_segment
+    from repro_torch.serving import RetrievalService, ServiceConfig
+
+    data, plan = _paging_plan(65_536, 64, 21)
+    qs, wids = _queries(data, 8, 64, 22)
+    gids = plan.group_of[wids]
+    cfg = dict(k=5, q_batch=8, delta_seal_rows=4, delta_reserve_rows=256)
+    full = RetrievalService(plan, data, cfg=ServiceConfig(**cfg))
+    svc = RetrievalService(plan, data, cfg=ServiceConfig(
+        max_resident_groups=1, **cfg))
+    svc.warmup()
+    cache, side = svc.state_cache, torch.cuda.Stream(dev)
+    order = np.unique(gids)
+    streamed: dict = {int(g): [] for g in order}
+    for rep in range(24):
+        gi = int(order[rep % len(order)])
+        w_in = int(plan.groups[gi].member_ids[0])
+        vecs = _far(data, np.arange(4) + 4 * rep, rep)
+        streamed[gi].append(vecs)
+        for s in (full, svc):
+            for v in vecs:
+                s.insert(v, w_in)  # seals at 4 rows (host codes)
+        full.compact(gi)
+        assert cache.prefetch(gi)  # evicts the other group, uploads gi
+        with torch.cuda.stream(side):
+            assert svc.compact(gi) == 4
+        rows = np.where(gids == gi)[0][:4]
+        q = np.concatenate([qs[rows], vecs])
+        w = np.concatenate([wids[rows], [w_in] * 4])
+        got, want = svc.query(q, w), full.query(q, w)
+        for f in ("ids", "dists", "stop_levels", "n_checked"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        extra = np.concatenate(streamed[gi])
+        gcfg = svc.group_config(gi)
+        fresh = build_group_state(
+            gcfg, data, plan.groups[gi], extra_points=extra,
+            extra_codes=seal_segment(gcfg, plan.groups[gi], extra))
+        with svc.batcher.lease(gi) as st:
+            assert st.n_valid == fresh.n_valid
+            assert torch.equal(st.codes, fresh.codes)
+            assert torch.equal(st.points, fresh.points)
+    assert cache.stats.n_restores >= 24
+
+
+def test_replaced_state_reuses_pinned_buffers(dev):
+    """After a compaction replaced a group's state, an evict/restore cycle
+    writes the group's existing pinned buffers (``pinned_bytes``
+    unchanged) and the restored state serves the appended rows."""
+    from repro_torch.serving import RetrievalService, ServiceConfig
+
+    data, plan = _paging_plan(16_384, 32, 31)
+    svc = RetrievalService(plan, data, cfg=ServiceConfig(
+        k=5, q_batch=4, max_resident_groups=1, delta_seal_rows=8,
+        delta_reserve_rows=64))
+    svc.warmup()
+    gi = int(np.argmax([g.n_members for g in plan.groups]))
+    other = (gi + 1) % plan.n_groups
+    w_in = int(plan.groups[gi].member_ids[0])
+    w_other = int(plan.groups[other].member_ids[0])
+    pager = svc.batcher.pager
+    q0 = data[:1].astype(np.float32)
+    svc.query(q0, [w_other])  # gi offloaded to its pinned buffers
+    svc.query(q0, [w_in])  # and restored
+    host = pager._groups[gi].host
+    ptrs = [t.data_ptr() for t in (host.codes, host.points)]
+    pinned = pager.pinned_bytes
+    vecs = _far(data, np.arange(8), 3)
+    pids = [svc.insert(v, w_in) for v in vecs]
+    assert svc.compact() == 8
+    svc.query(q0, [w_other])  # evicts the compacted state
+    host = pager._groups[gi].host
+    assert host.codes.is_pinned()
+    assert [t.data_ptr() for t in (host.codes, host.points)] == ptrs
+    assert pager.pinned_bytes == pinned
+    res = svc.query(vecs, [w_in] * 8)  # restored, appended rows served
+    np.testing.assert_array_equal(res.ids[:, 0], pids)
+    assert np.all(res.dists[:, 0] == 0.0)

@@ -48,6 +48,8 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     assert "repro_torch.kernels.fused_query" in mods
     assert "repro_torch.launch.retrieval" in mods
+    assert "repro_torch.index.streaming" in mods
+    assert "repro_torch.serving.delta" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

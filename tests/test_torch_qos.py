@@ -2,8 +2,9 @@
 
 The reference's ``tests/test_qos.py``, run against ``repro_torch`` on
 the CPU with its faults injected through ``tests/_torch_faults.py``,
-less the two shutdown tests that interleave streaming inserts (the port
-has no streaming writes yet).  Also the same plan and overloaded
+the two shutdown tests that interleave streaming inserts included (their
+reference versions fail under the installed jax, so their assertions
+run on the port alone).  Also the same plan and overloaded
 ``ManualClock`` replay through both packages: the same QoS rung per
 tick, the same launches, and the same answers.
 
@@ -33,6 +34,8 @@ the executor faults injected through ``tests/_faults.py``:
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import pytest
@@ -680,6 +683,89 @@ def test_driven_replay_bit_exact_through_transient_restore_faults():
     np.testing.assert_array_equal(res.dists, sync.dists)
     assert cache.stats.n_restore_retries >= 1  # faults actually fired
     assert calls["n"] >= fail_every
+
+
+def test_stop_drain_resolves_everything_on_manual_clock():
+    """Step-driven shutdown: stop(drain=True) on a never-started driver
+    resolves every pending future (QoS attached, inserts interleaved)
+    and performs no tick."""
+    p, data, weights, host, plan, _ = build_parity_service(2.0)
+    qos = _two_class_qos()
+    svc, asvc = _qos_service(plan, data, qos, delta_seal_rows=2,
+                             delta_reserve_rows=16)
+    driver = ServiceDriver(asvc, prefetch=None)
+    gi = int(np.argmax([g.n_members for g in plan.groups]))
+    qpts, wids = _group_queries(data, plan, gi, 6)
+    w_in = int(plan.groups[gi].member_ids[0])
+    futs = []
+    for i in range(6):
+        futs.append(driver.submit(qpts[i], wids[i],
+                                  tenant="gold" if i % 2 else "bronze"))
+        if i % 2:
+            driver.insert((data[3] + 50_000.0 + i).astype(np.float32),
+                          w_in)
+    ticks = driver.stats.n_ticks
+    driver.stop(drain=True)  # never started: drain still runs
+    assert all(f.done() for f in futs)
+    assert asvc.pending_count == 0
+    assert driver.stats.n_ticks == ticks  # stop never ticks
+    assert not driver.running
+    assert svc.delta_summary()["n_inserts"] == 3
+
+
+def test_thread_stop_drain_races_submit_and_insert_drops_no_future():
+    """Thread-mode regression: stop(drain=True) racing a feeder thread
+    (submits + streaming inserts through the driver's locked
+    passthroughs) strands no future (everything submitted resolves), and
+    the driver never ticks after its thread joins."""
+    p, data, weights, host, plan, _ = build_parity_service(2.0)
+    qos = _two_class_qos()
+    svc = RetrievalService(
+        plan, data,
+        cfg=ServiceConfig(k=K, q_batch=4, degrade_ladder=LADDER,
+                          delta_seal_rows=2, delta_reserve_rows=16),
+    )
+    svc.warmup()
+    asvc = AsyncRetrievalService(svc.batcher, max_delay_ms=0.5, qos=qos)
+    driver = ServiceDriver(asvc, tick_s=0.001)
+    gi = int(np.argmax([g.n_members for g in plan.groups]))
+    qpts, wids = _group_queries(data, plan, gi, 16)
+    w_in = int(plan.groups[gi].member_ids[0])
+    futs: list = []
+    errs: list = []
+    started = threading.Event()
+
+    def feeder():
+        try:
+            for i in range(len(qpts)):
+                futs.append(driver.submit(
+                    qpts[i], wids[i],
+                    tenant="gold" if i % 2 else "bronze",
+                ))
+                started.set()
+                if i % 5 == 0:
+                    driver.insert(
+                        (data[3] + 50_000.0 + i).astype(np.float32), w_in
+                    )
+        except Exception as e:  # pragma: no cover - the regression itself
+            errs.append(e)
+
+    driver.start()
+    t = threading.Thread(target=feeder)
+    t.start()
+    started.wait(timeout=10.0)
+    driver.stop(drain=True)  # races the feeder mid-stream
+    t.join(timeout=30.0)
+    assert not t.is_alive() and not errs
+    assert not driver.running
+    ticks = driver.stats.n_ticks
+    driver.drain()  # catch submits that landed after stop's drain
+    assert len(futs) == len(qpts)
+    assert all(f.done() for f in futs), "shutdown dropped futures"
+    assert driver.stats.n_ticks == ticks  # no tick after join
+    for f in futs:  # answers are well-formed, strict-k shaped
+        assert f.result().ids.shape == (K,)
+    driver.stop()  # idempotent
 
 
 # ------------------------------------------------- the port against JAX

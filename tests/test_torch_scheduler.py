@@ -1,8 +1,9 @@
 """The port's real-time scheduler: driver ticks, prefetch, cost-aware evict.
 
 The reference's ``tests/test_scheduler.py``, run against ``repro_torch``
-on the CPU, less its idle-compaction test (the port has no streaming
-writes yet).  Also the same plan and driven ``ManualClock`` replay
+on the CPU (its idle-compaction test included; the reference version
+fails under the installed jax, so its assertions run on the port
+alone).  Also the same plan and driven ``ManualClock`` replay
 through both packages: the same prefetch, protection and eviction
 choices, the same metrics registry, the same launches and answers.
 
@@ -325,6 +326,31 @@ def test_no_deadline_fires_late_when_capacity_allows(parity_setup):
         submit_t = 0.0005 * (i + 1)
         assert fut.t_resolved <= submit_t + deadline_budget + 1e-9
     assert driver.stats.n_deadline_misses <= driver.stats.n_deadlines_due
+
+
+def test_driver_owns_idle_background_compaction(parity_setup):
+    """Idle-work handoff: with a driver attached, an undriven poll() no
+    longer compacts; the driver's idle ticks do."""
+    p, data, weights, host, plan, _ = parity_setup
+    asvc = _paged_async(plan, data, cap=None, delta_seal_rows=2,
+                        delta_reserve_rows=16)
+    gi = int(np.argmax([g.n_members for g in plan.groups]))
+    w_in = int(plan.groups[gi].member_ids[0])
+    v = (data[3] + 50_000.0).astype(np.float32)
+    asvc.insert(v, w_in)
+    asvc.insert(v + 1.0, w_in)  # seals at 2 rows
+    assert asvc.batcher.delta.summary()["n_sealed_segments"] == 1
+    driver = ServiceDriver(asvc)
+    asvc.poll()  # idle poll, but the driver owns idle work now
+    assert asvc.batcher.delta.summary()["n_compactions"] == 0
+    driver.step()  # idle driver tick compacts the sealed backlog
+    assert asvc.batcher.delta.summary()["n_compactions"] == 1
+    assert driver.stats.n_idle_compactions == 1
+    driver.detach()  # handoff reverses: undriven polls compact again
+    asvc.insert(v + 2.0, w_in)
+    asvc.insert(v + 3.0, w_in)
+    asvc.poll()
+    assert asvc.batcher.delta.summary()["n_compactions"] == 2
 
 
 def test_driver_attach_detach_contract(parity_setup):
