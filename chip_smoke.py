@@ -78,17 +78,43 @@ non-zero:
                purges and rebuilds; ms per seal and compaction (CUDA
                events), host ms of the exact scan, p50 per batch with rows
                pending and after compaction, purge seconds and peak memory
- 10. times   — each kernel on the main path's inputs for the widest
+ 10. obs     — the host-code plan with the observability layer on
+               (obs=True, recall_sample_rate 0.0625): the sync frontend's
+               answers equal to the slice leg's bit for bit, one monotone
+               span per query, the hash-sampled ids shadow-checked and the
+               recall estimate equal to an offline scan_topk recomputation;
+               one pass of 7 fused batches under a torch.profiler capture
+               (answers unchanged), with the device time per stage (both
+               passes, top-k, re-rank, H2D and D2H copies, the rest) and
+               the device's idle share read from its Chrome trace; then
+               the async frontend on a manual clock under a ServiceDriver
+               with the stock SLO rules: the same answers, spans with
+               their launch causes, the same sampled set and estimate as
+               the sync leg, and the span, metrics and alert exports equal
+               after a reload; obs-on p50 / p95 beside the slice leg's
+ 11. bf16    — the host-code plan with bfloat16 vector storage: every
+               state's bytes equal to state_nbytes, the stored bits equal
+               to float32 rounded to nearest even, the 256 queries served
+               (p50 / p95, q/s, recall and ratio, ids in common with the
+               float32 leg); both fused kernels on the widest bfloat16
+               state equal to their plain versions and to the float32
+               kernels on the widened rows; a pass raising peak device
+               memory by less than a float32 copy of the rows; a paged
+               round trip (3 of 7 states) equal to the unpaged bf16 leg,
+               with pinned bfloat16 host buffers and its restore times
+ 12. times   — each kernel on the main path's inputs for the widest
                group: held to its plain version there (the rules of
                phase 3), its time, its plain version's time, the time of
                one PyTorch call that computes the same function where
-               there is one, and the bound from bytes and operations
+               there is one, and the bound from bytes and operations;
+               the fused passes also on the group's rows in bfloat16
 
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, the script fails before
 printing any result.  ``--phases`` runs a subset (e.g. ``device,build,
-kernels``) for a short check; the full run needs all of them.
+kernels``) for a short check; the full run needs all of them.  ``obs``
+and ``bf16`` need only ``slice`` (``--phases device,build,slice,obs,bf16``).
 """
 
 from __future__ import annotations
@@ -97,6 +123,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -108,7 +135,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "kernels", "slice", "encode", "unfused",
-          "paged", "async", "stream", "times")
+          "paged", "async", "obs", "bf16", "stream", "times")
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
 # float32 outside the tensor cores (F32_FLOPS counts an FMA as two flops;
@@ -156,6 +183,23 @@ WLP_PS = (1.0, 0.5, 1.5)  # weighted_lp's |t|, sqrt(|t|) and powf terms
 # the codeless plan, and the base rows and inserts deleted before a purge
 STREAM = dict(reserve=1_000, seal_rows=32, inserts=512, codeless_inserts=128,
               deletes=32)
+# the obs leg: shadow recall sample rate (~16 of the 256 queries), the
+# recall floor its alert rule holds the shadow recall to, the threads that
+# run the host oracle's scans, and the async replay's arrival rate (a
+# manual clock)
+OBS_RATE = 0.0625
+OBS_FLOOR = 0.5
+OBS_THREADS = 8
+OBS_ARRIVALS = 1_000.0
+# The cancellation zone of the p = 2 hold on bfloat16 rows.  The float32
+# norms expansion errs by ~eps*(qw2+onorm) on the squared distance, i.e.
+# by ~eps*(qw2+onorm)/(2 dist) on the distance, which meets the 1e-6 *
+# sqrt(qw2+onorm) atol only above ~0.1*sqrt(qw2+onorm).  Float32 rows
+# have no cell in [1e-3, 0.1): a query's source row sits at ~4e-4 of the
+# scale, every other row above 0.3.  Rounding to bfloat16 moves the
+# source row to ~1.3e-3, so on bfloat16 rows the squared-distance rule
+# holds up to 0.1 (kernel and plain version alike miss the atol there).
+BF16_ZONE = 0.1
 
 
 def say(msg: str) -> None:
@@ -330,14 +374,17 @@ def _freq_level_occupancy(c: int, L: int) -> str:
             f"registers")
 
 
-def _hold(torch, inp, p, kernel_out, plain_out, label):
+def _hold(torch, inp, p, kernel_out, plain_out, label, zone_edge=1e-3):
     """Hold both kernels' outputs to their plain versions' on one input.
 
     ``kernel_out`` and ``plain_out`` are ``(hist_f, hist_g, scores)``.
     hist_f and the +inf mask must be equal; hist_g may move at most 1e-4
     of the (query, row) cells (a good level on a float boundary); finite
     scores must agree to rtol 1e-5, or for p = 2 to atol
-    1e-6*sqrt(qw2+onorm).  Returns the max abs error of each kernel.
+    1e-6*sqrt(qw2+onorm), except in the cancellation zone (float64
+    distance below ``zone_edge``*sqrt(qw2+onorm)), where the squared
+    distance is held to 1e-6*(qw2+onorm).  Returns the max abs error of
+    each kernel.
     """
     hf, hg, sc = kernel_out
     rf, rg, rs = plain_out
@@ -368,7 +415,7 @@ def _hold(torch, inp, p, kernel_out, plain_out, label):
         scale = s2.sqrt()[fin]
         del s2
         rule = "atol 1e-6*sqrt(qw2+onorm)"
-        zone = exact < 1e-3 * scale  # expansion lost >= 6 digits
+        zone = exact < zone_edge * scale  # expansion lost its digits
         bad_cells = diff > 1e-6 * scale
         kd = sc[fin].double()
         ek = ((kd - exact).abs() / scale)[~zone]
@@ -382,7 +429,8 @@ def _hold(torch, inp, p, kernel_out, plain_out, label):
         bad_zone = (kd * kd - exact * exact).abs() > 1e-6 * scale * scale
         ez = ((kd * kd - exact * exact).abs() / (scale * scale))[zone]
         note = (f"; {int(zone.sum())} cells in the cancellation zone "
-                f"(dist < 1e-3*sqrt(qw2+onorm)) held to |k^2-d64^2| <= "
+                f"(dist < {zone_edge:g}*sqrt(qw2+onorm)) held to "
+                f"|k^2-d64^2| <= "
                 f"1e-6*(qw2+onorm), max {_top(ez):.3g}; outside it max "
                 f"|err| / sqrt(qw2+onorm) vs float64: kernel {_top(ek):.3g}"
                 f", plain {_top(ep):.3g}")
@@ -789,7 +837,7 @@ def phase_slice(torch, dev):
         f"{ratio:.4f}")
     return dict(svc=svc, plan=plan, host=host, data=data, weights=weights,
                 qpts=qpts, wids=wids, res=res, launches=launches,
-                recall=rec, ratio=ratio, peak=peak)
+                recall=rec, ratio=ratio, peak=peak, lat=lat)
 
 
 def _widest(svc, plan) -> int:
@@ -1165,6 +1213,484 @@ def phase_async(torch, dev, sl, paged):
           "no prefetch overlapped a restore")
     _free(torch, svc)
     return dict(launches=launches)
+
+
+# ------------------------------------------------------------ obs and bf16
+
+
+def _drain_parallel(est) -> None:
+    """Run every queued shadow job, OBS_THREADS at a time (numpy releases
+    the GIL inside the scan; the estimate sums integer counts, so the
+    order of the jobs cannot change it)."""
+    with ThreadPoolExecutor(max_workers=OBS_THREADS) as pool:
+        list(pool.map(lambda _: est.run(), range(OBS_THREADS)))
+
+
+def _offline_recall(sl, qids, res) -> float:
+    """Micro-averaged recall of the answers ``res`` on the queries
+    ``qids``, recomputed from scratch with ``scan_topk`` over the whole
+    corpus (each sampled query's group holds every row)."""
+    from repro_torch.index.streaming import scan_topk
+
+    plan = sl["plan"]
+    data = np.asarray(sl["data"], np.float32)
+    ids = np.arange(len(data), dtype=np.int64)
+
+    def one(qi):
+        exact, _ = scan_topk(sl["qpts"][qi][None],
+                             plan.weights[int(sl["wids"][qi])][None]
+                             .astype(np.float32), ids, data, plan.p,
+                             SLICE["k"])
+        exact = {int(i) for i in exact[0] if i >= 0}
+        served = {int(i) for i in res.ids[qi] if i >= 0}
+        return len(served & exact), len(exact)
+
+    with ThreadPoolExecutor(max_workers=OBS_THREADS) as pool:
+        counts = list(pool.map(one, qids))
+    rel = sum(r for _, r in counts)
+    return sum(h for h, _ in counts) / rel if rel else float("nan")
+
+
+def _check_spans(tracer, res, n_q: int, leg: str) -> list:
+    """One finished, monotone span per query, ids 0..n_q-1, carrying the
+    answer's stop level and n_checked."""
+    spans = sorted(tracer.spans(), key=lambda s: s.query_id)
+    _need(tracer.n_started == tracer.n_finished == n_q == len(spans),
+          f"{leg}: {tracer.n_started} spans started, {tracer.n_finished} "
+          f"finished, {len(spans)} kept for {n_q} queries")
+    _need([s.query_id for s in spans] == list(range(n_q)),
+          f"{leg}: span query ids are not 0..{n_q - 1}")
+    _need(all(s.monotone for s in spans), f"{leg}: a span is not monotone")
+    _need(all(s.stop_level == int(res.stop_levels[i])
+              and s.n_checked == int(res.n_checked[i])
+              for i, s in enumerate(spans)),
+          f"{leg}: spans disagree with the answers' stop / n_checked")
+    return spans
+
+
+_STAGES = ("pass 1", "pass 2", "top-k", "re-rank", "H2D", "D2H", "rest")
+
+
+def _trace_stages(path: str, window: str):
+    """Device milliseconds per stage, and the device's idle share, from
+    a Chrome trace exported by ``Profiler.stop_trace``.
+
+    The window is the CPU range of the ``window`` annotation.  Device
+    events (kernels, copies, memsets) are classed by name: the fused
+    kernel's pass from its MODE template argument, copies by direction;
+    the rest by the device-side ``wlsh_topk`` / ``wlsh_rerank`` range of
+    ``engine.query_step`` they fall in, else "rest".  Idle share = 1 -
+    (union of device event intervals) / window.
+    """
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    cat = lambda e: str(e.get("cat", "")).lower()  # noqa: E731
+    win = [e for e in xs if e.get("name") == window
+           and cat(e) == "user_annotation"]
+    _need(len(win) == 1, f"trace: {len(win)} '{window}' ranges")
+    w0, w1 = win[0]["ts"], win[0]["ts"] + win[0]["dur"]
+    dev_ev = [e for e in xs if cat(e) in ("kernel", "gpu_memcpy",
+                                          "gpu_memset")
+              and w0 <= e["ts"] <= w1]
+    names = {"wlsh_topk": "top-k", "wlsh_rerank": "re-rank"}
+    gpu_ranges = [(e["ts"], e["ts"] + e["dur"], names[e["name"]])
+                  for e in xs if cat(e) == "gpu_user_annotation"
+                  and e.get("name") in names]
+    ms = dict.fromkeys(_STAGES, 0.0)
+    how = dict(name=0, device_range=0, rest=0)
+    for e in dev_ev:
+        name = e.get("name", "")
+        m = (re.search(r"fused_query_kernel<(\d)", name)
+             or re.search(r"fused_query_kernelILi(\d)E", name))
+        stage = None
+        if m:
+            stage, key = ("pass 1" if m.group(1) == "0" else "pass 2"), "name"
+        elif cat(e) == "gpu_memcpy" and "HtoD" in name:
+            stage, key = "H2D", "name"
+        elif cat(e) == "gpu_memcpy" and "DtoH" in name:
+            stage, key = "D2H", "name"
+        if stage is None:
+            mid = e["ts"] + e["dur"] / 2
+            stage = next((st for a, b, st in gpu_ranges if a <= mid <= b),
+                         None)
+            key = "device_range"
+        if stage is None:
+            stage, key = "rest", "rest"
+        ms[stage] += e["dur"] / 1e3
+        how[key] += 1
+    busy, end = 0.0, w0  # union of the device intervals in the window
+    for a, b in sorted((max(e["ts"], w0), min(e["ts"] + e["dur"], w1))
+                       for e in dev_ev):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    window_ms = (w1 - w0) / 1e3
+    return ms, 1.0 - busy / 1e3 / window_ms, window_ms, len(dev_ev), how
+
+
+def _obs_service(torch, dev, sl, **kw):
+    from repro_torch.serving.retrieval import RetrievalService, ServiceConfig
+
+    svc = RetrievalService(sl["plan"], sl["data"], cfg=ServiceConfig(
+        k=SLICE["k"], q_batch=SLICE["q_batch"], offload_evicted=False,
+        recall_sample_rate=OBS_RATE, recall_floor=OBS_FLOOR,
+        device=str(dev), **kw))
+    svc.warmup()
+    _sync(torch, dev)
+    return svc
+
+
+def phase_obs(torch, dev, sl, smi):
+    """The slice's queries with the observability layer on: trace spans,
+    shadow recall sampling, a torch.profiler capture, and the async
+    frontend under a ServiceDriver with SLO alerting."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.obs import (HealthMonitor, Tracer, default_rules,
+                                 should_sample)
+    from repro_torch.serving import (AsyncRetrievalService, ManualClock,
+                                     ServiceDriver, replay_with_driver)
+
+    qpts, wids, want = sl["qpts"], sl["wids"], sl["res"]
+    n_q = len(qpts)
+    _free(torch, sl["svc"])
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_obs")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def count(got):
+        for name, v in got.items():
+            launches[name] += v
+
+    # ---- sync frontend --------------------------------------------------
+    t0 = time.time()
+    svc = _obs_service(torch, dev, sl)
+    _need(svc.cfg.obs, "recall_sample_rate did not imply obs")
+    t_build = time.time() - t0
+    res = svc.query(qpts, wids)  # the first pass: spans 0..n_q-1
+    _sync(torch, dev)
+    _need(_same_answers(res, want), "obs-on answers differ from the slice "
+          "leg's")
+    _check_spans(svc.batcher.tracer, res, n_q, "obs sync")
+    est = svc.batcher.recall
+    n_offered = est.backlog
+    t0 = time.time()
+    _drain_parallel(est)
+    t_drain = time.time() - t0
+    sampled = [i for i in range(n_q) if should_sample(i, OBS_RATE)]
+    _need(sorted(est.executed_ids()) == sampled and n_offered == len(sampled),
+          "obs sync: the shadow-checked ids are not the hash-sampled set")
+    est_sync = est.estimate()
+    t0 = time.time()
+    offline = _offline_recall(sl, sampled, res)
+    t_off = time.time() - t0
+    _need(est_sync == offline, f"obs sync: estimate {est_sync!r} != "
+          f"offline recomputation {offline!r}")
+    sum_ = est.summary()
+    # then the slice leg's timed passes, obs on (their shadow jobs queue)
+    runs, lat, t_q, got = _serve(torch, dev, svc, qpts, wids,
+                                 SLICE["reps"])
+    count(got)
+    _need_launches(got, {"fused_query_hist": None, "fused_query_scores":
+                         None, "hash_encode": 0, "freq_level": 0,
+                         "weighted_lp": 0}, "obs sync")
+    _need(all(_same_answers(r, want) for r in runs), "obs-on answers differ "
+          "from the slice leg's")
+    tr = svc.batcher.tracer
+    n_all = n_q * (1 + SLICE["reps"])
+    _need(tr.n_started == tr.n_finished == n_all
+          and all(s.monotone for s in tr.spans()),
+          f"obs sync: {tr.n_started} spans for {n_all} queries")
+    say(f"obs sync: {n_q} queries, obs on and recall_sample_rate "
+        f"{OBS_RATE}: answers equal to the slice leg's bit for bit; one "
+        f"monotone span per query; {len(sampled)} of the first {n_q} "
+        f"sampled ({sampled[:6]}...), shadow recall {est_sync:.4f} equal "
+        f"to the offline scan_topk recomputation; shadow drain "
+        f"{t_drain:.2f}s on {OBS_THREADS} threads, offline {t_off:.2f}s; "
+        f"build {t_build:.1f}s; summary {json.dumps(sum_)}")
+    say(f"obs sync timed: {SLICE['reps']} x {n_q} queries in {len(lat)} "
+        f"batches, {t_q:.3f}s ({n_q * SLICE['reps'] / t_q:.1f} q/s), "
+        f"{n_all} spans; {_lat(lat)} (slice leg, obs off: p50 "
+        f"{np.percentile(sl['lat'], 50):.2f} / p95 "
+        f"{np.percentile(sl['lat'], 95):.2f} ms) [{smi}]")
+    prof = svc.batcher.profiler.summary()
+    say(f"obs profiler: {prof['n_compiles']} steps built; dispatch "
+        + "; ".join(f"{row['count']} x {1e3 * row['mean_s']:.2f} ms"
+                    for row in prof["dispatch"].values()))
+
+    # ---- one pass under a torch.profiler capture ------------------------
+    profiler = svc.batcher.profiler
+    profiler.profile_dir = os.path.join(out_dir, "profile")
+    _cuda.reset_launch_counts()
+    _need(profiler.start_trace(), "profiler capture did not start")
+    t0 = time.perf_counter()
+    with torch.profiler.record_function("chip_smoke_obs_capture"):
+        cap = svc.query(qpts, wids)
+        _sync(torch, dev)
+    t_cap = time.perf_counter() - t0
+    snap = os.path.join(out_dir, "memory_snapshot.pickle")
+    _need(profiler.save_memory_snapshot(snap) == (dev.type == "cuda"),
+          "no memory snapshot of the card")
+    _need(profiler.stop_trace(), "profiler capture did not stop")
+    got = _cuda.launch_counts()
+    count(got)
+    _need(_same_answers(cap, want), "answers under the profiler differ")
+    path = profiler.trace_paths[-1]
+    ms, idle, window_ms, n_ev, how = _trace_stages(path,
+                                                   "chip_smoke_obs_capture")
+    busy = sum(ms.values())
+    n_b = got["fused_query_hist"]
+    _need(n_ev > 0 and ms["pass 1"] > 0 and ms["pass 2"] > 0,
+          f"the capture holds {n_ev} device events and no fused pass")
+    say(f"obs capture: {n_b} fused batches in {1e3 * t_cap:.1f} ms of host "
+        f"time under torch.profiler ({os.path.getsize(path)} bytes of "
+        f"trace, {n_ev} device events classed by {how}; memory snapshot "
+        f"{os.path.getsize(snap) if os.path.exists(snap) else 0} bytes)")
+    say("obs stages (device ms over the pass, per batch, share of device "
+        "busy time): " + "; ".join(
+            f"{st} {ms[st]:.3f} ({ms[st] / max(n_b, 1):.3f}, "
+            f"{ms[st] / busy:.1%})" for st in _STAGES)
+        + f"; device busy {busy:.3f} ms of a {window_ms:.3f} ms window, "
+        f"idle share {idle:.1%} [{smi}]")
+    # the same device work over the wall time of a timed pass, which ran
+    # the same 7 batches without the profiler's host overhead
+    t_pass = t_q / SLICE["reps"]
+    idle_free = 1.0 - busy / (1e3 * t_pass)
+    say(f"obs idle share without the profiler (the capture's device busy "
+        f"time over a timed pass's {1e3 * t_pass:.1f} ms of wall time): "
+        f"{idle_free:.1%}")
+    stages = dict(ms=ms, idle=idle, idle_free=idle_free,
+                  window_ms=window_ms)
+    _free(torch, svc)
+    del svc, est
+    _release(torch)
+
+    # ---- async frontend under a driver with SLO alerting ----------------
+    svc = _obs_service(torch, dev, sl)
+    asvc = AsyncRetrievalService(svc, max_delay_ms=ASYNC_DELAY_MS,
+                                 clock=ManualClock())
+    health = HealthMonitor(svc.batcher.metrics, default_rules())
+    driver = ServiceDriver(asvc, health=health)
+    arrivals = np.cumsum(np.random.default_rng(19).exponential(
+        1.0 / OBS_ARRIVALS, n_q))
+    _cuda.reset_launch_counts()
+    t0 = time.time()
+    res_a, waits = replay_with_driver(driver, qpts, wids, arrivals)
+    _sync(torch, dev)
+    t_a = time.time() - t0
+    got = _cuda.launch_counts()
+    count(got)
+    n_batches = sum(s["n_batches"] for s in svc.stats_summary().values())
+    _need_launches(got, {"fused_query_hist": n_batches,
+                         "fused_query_scores": n_batches, "hash_encode": 0,
+                         "freq_level": 0, "weighted_lp": 0}, "obs async")
+    _need(_same_answers(res_a, want), "obs async answers differ from the "
+          "slice leg's")
+    tr = svc.batcher.tracer
+    spans = _check_spans(tr, res_a, n_q, "obs async")
+    _need(all(s.cause in ("full", "deadline", "drain") for s in spans),
+          "obs async: a span without a launch cause")
+    est = svc.batcher.recall
+    n_idle = len(est.executed_ids())
+    _drain_parallel(est)
+    _need(sorted(est.executed_ids()) == sampled,
+          "obs async: sampled set differs from the sync leg's")
+    _need(est.estimate() == est_sync, "obs async: estimate differs from "
+          "the sync leg's")
+    summary = driver.tick_summary()
+    hs = health.summary()
+
+    # ---- exports round-trip through their loaders -------------------------
+    p_t = os.path.join(out_dir, "spans.jsonl")
+    p_m = os.path.join(out_dir, "metrics.json")
+    p_a = os.path.join(out_dir, "alerts.jsonl")
+    n_sp = tr.export_jsonl(p_t)
+    back = Tracer.load_jsonl(p_t)
+    meta = Tracer.load_jsonl_meta(p_t)
+    _need(n_sp == n_q and [json.dumps(s.to_dict()) for s in back]
+          == [json.dumps(s.to_dict()) for s in tr.spans()]
+          and meta["n_started"] == meta["n_finished"] == n_q,
+          "trace export does not round-trip")
+    snap_m = svc.batcher.metrics.snapshot()
+    with open(p_m, "w") as fh:
+        fh.write(svc.batcher.metrics.to_json())
+    with open(p_m) as fh:
+        _need(json.dumps(json.load(fh), sort_keys=True)
+              == json.dumps(snap_m, sort_keys=True),
+              "metrics export does not round-trip")
+    n_al = health.export_jsonl(p_a)
+    with open(p_a) as fh:
+        lines = [json.loads(x) for x in fh if x.strip()]
+    _need([json.dumps(x) for x in lines]
+          == [json.dumps(a.to_dict()) for a in health.alerts()],
+          "alert export does not round-trip")
+    d = driver.stats
+    say(f"obs async: {n_q} arrivals at {OBS_ARRIVALS:.0f} q/s on a manual "
+        f"clock, deadline {ASYNC_DELAY_MS} ms, {n_batches} launches "
+        f"({asvc.n_launched_full} full / {asvc.n_launched_deadline} "
+        f"deadline / {asvc.n_launched_drain} drain) in {t_a:.2f}s of host "
+        f"time; answers equal to the slice leg's; one monotone span per "
+        f"query with its cause; {n_idle} of {len(sampled)} shadow jobs run "
+        f"on {d.n_ticks} driver ticks, the rest drained; sampled set and "
+        f"estimate equal to the sync leg's; alerts over {hs['tick']} "
+        f"ticks: firing {hs['firing']}, {n_al} events (recall_floor "
+        f"{OBS_FLOOR}); {summary}")
+    say(f"obs exports: {n_sp} spans, {os.path.getsize(p_m)} bytes of "
+        f"metrics, {n_al} alert events, each equal after a reload")
+    _free(torch, svc)
+    return dict(launches=launches, stages=stages, lat=lat)
+
+
+def _rne_bits(x: np.ndarray) -> np.ndarray:
+    """bfloat16 bits of float32 ``x`` rounded to nearest even (finite
+    values), computed on the host apart from torch."""
+    u = x.view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def phase_bf16(torch, dev, sl, smi):
+    """The host-code plan served from bfloat16 vector storage."""
+    from repro_torch.kernels import fused_query, ref
+    from repro_torch.serving.retrieval import RetrievalService, ServiceConfig
+
+    cf, plan = SLICE, sl["plan"]
+    qpts, wids, want = sl["qpts"], sl["wids"], sl["res"]
+    _free(torch, sl["svc"])
+    kw = dict(k=cf["k"], q_batch=cf["q_batch"], vec_dtype="bfloat16",
+              device=str(dev))
+    svc = RetrievalService(plan, sl["data"], cfg=ServiceConfig(
+        offload_evicted=False, **kw))
+    t0 = time.time()
+    svc.warmup()
+    _sync(torch, dev)
+    t_build = time.time() - t0
+    states = [_state(svc, g) for g in range(plan.n_groups)]
+    held = sum(st.nbytes for st in states)
+    _need(all(st.points.dtype == torch.bfloat16 for st in states),
+          "bf16 leg: a state's vectors are not bfloat16")
+    # state_nbytes also prices the n_valid scalar the JAX package keeps
+    # on the device (4 bytes a state; here a host int)
+    _need(held + 4 * len(states) == svc.resident_bytes,
+          f"bf16 leg: states hold {held} bytes, state_nbytes prices "
+          f"{svc.resident_bytes}")
+    gi = _widest(svc, plan)
+    st = states[gi]
+    data = np.asarray(sl["data"], np.float32)
+    bits = st.points[: plan.n].view(torch.int16).cpu().numpy()
+    _need(np.array_equal(bits.view(np.uint16), _rne_bits(data)),
+          "bf16 leg: stored bits are not float32 rounded to nearest even")
+    widest_bytes = st.nbytes
+    del states, st, bits
+    svc.query(qpts, wids)  # warm
+    _sync(torch, dev)
+    _reset_peak(torch, dev)
+    runs, lat, t_q, launches = _serve(torch, dev, svc, qpts, wids,
+                                      cf["reps"])
+    peak = _peak(torch, dev)
+    _need_launches(launches, {"fused_query_hist": None,
+                              "fused_query_scores": None, "hash_encode": 0,
+                              "freq_level": 0, "weighted_lp": 0}, "bf16")
+    res = runs[-1]
+    qps = len(qpts) * cf["reps"] / t_q
+    rows_equal = int(sum(np.array_equal(res.ids[i], want.ids[i])
+                         for i in range(len(qpts))))
+    stop_equal = int(np.sum(res.stop_levels == want.stop_levels))
+    common = sum(len(set(res.ids[i].tolist()) & set(want.ids[i].tolist())
+                     - {-1}) for i in range(len(qpts)))
+    data_t = torch.from_numpy(data).to(dev).double()
+    rec, ratio = _quality(torch, dev, data_t, sl["weights"], qpts, wids, res,
+                          cf["k"])
+    del data_t
+
+    # ---- both fused kernels on the bf16 state vs their plain versions ----
+    _, cfg, st, inp = _slice_pass_inputs(dict(sl, svc=svc), torch, dev)
+    n, d = st.points.shape
+    kwp = dict(boff=0, n_valid=st.n_valid, c=cfg.c, n_levels=cfg.n_levels,
+               p=cfg.p)
+    row_ok = torch.arange(n, device=dev) < st.n_valid
+    out_k = list(fused_query.fused_query_hist(*_pass_args(inp, "hist"),
+                                              **kwp))
+    out_k.append(fused_query.fused_query_scores(*_pass_args(inp, "scores"),
+                                                **kwp))
+    _sync(torch, dev)
+    out_p = list(ref.fused_query_hist_ref(*_pass_args(inp, "hist"), row_ok,
+                                          c=cfg.c, n_levels=cfg.n_levels,
+                                          p=cfg.p))
+    out_p.append(ref.fused_query_scores_ref(
+        *_pass_args(inp, "scores"), row_ok, c=cfg.c, n_levels=cfg.n_levels,
+        p=cfg.p))
+    err = _hold(torch, inp, cfg.p, out_k, out_p,
+                f"bf16 kernels (group {gi}, bfloat16 rows)", zone_edge=BF16_ZONE)
+    wide = dict(inp, points=st.points.float())
+    out_w = list(fused_query.fused_query_hist(*_pass_args(wide, "hist"),
+                                              **kwp))
+    out_w.append(fused_query.fused_query_scores(*_pass_args(wide, "scores"),
+                                                **kwp))
+    _need(all(torch.equal(a, b) for a, b in zip(out_k, out_w)),
+          "bf16 kernels differ from the float32 kernels on the widened rows")
+    del wide, out_w, out_p, out_k
+
+    # ---- no (B, d) float32 copy of the rows on a pass ---------------------
+    _sync(torch, dev)
+    _reset_peak(torch, dev)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    svc.query(qpts, wids)
+    _sync(torch, dev)
+    rise = _peak(torch, dev) - base
+    _need(rise < n * d * 4, f"bf16 leg: a pass allocated {rise} bytes, a "
+          f"float32 copy of the rows is {n * d * 4}")
+    say(f"bf16 kernels: the widest state's {n} x {d} bfloat16 rows through "
+        f"both fused kernels equal their plain versions (above) and the "
+        f"float32 kernels on the widened rows bit for bit; a pass raised "
+        f"peak device memory by {rise} bytes, under the {n * d * 4} bytes "
+        f"of a float32 copy")
+    del st, inp
+    _free(torch, svc)
+
+    # ---- paged round trip --------------------------------------------------
+    paged = RetrievalService(plan, sl["data"], cfg=ServiceConfig(
+        max_resident_groups=PAGED_SLOTS, **kw))
+    paged.warmup()
+    paged.query(qpts, wids)  # every group evicted and restored once
+    _sync(torch, dev)
+    paged.reset_stats()
+    pager = paged.batcher.pager
+    n0 = len(pager.summary()["copy_ms"])
+    p_runs, p_lat, p_t, p_launch = _serve(torch, dev, paged, qpts, wids, 1)
+    cache = paged.cache_summary()
+    ps = pager.summary()
+    copy_ms = np.array(ps["copy_ms"][n0:])
+    copy_b = np.array(ps["copy_bytes"][n0:], np.float64)
+    hosts = [g.host for g in pager._groups.values() if g.host is not None]
+    _need(_same_answers(p_runs[-1], res), "bf16 paged answers differ from "
+          "the unpaged bf16 leg's")
+    _need(cache["n_restores"] > 0 and len(copy_ms) == cache["n_restores"],
+          "bf16 paged: no timed restore")
+    _need(hosts and all(h.points.dtype == torch.bfloat16
+                        and (h.points.is_pinned() or dev.type != "cuda")
+                        for h in hosts),
+          "bf16 paged: host buffers are not pinned bfloat16")
+    say(f"bf16 serve: {cf['reps']} x {len(qpts)} queries in {len(lat)} "
+        f"batches, {t_q:.3f}s ({qps:.1f} q/s); {_lat(lat)} (float32 slice "
+        f"leg p50 {np.percentile(sl['lat'], 50):.2f} / p95 "
+        f"{np.percentile(sl['lat'], 95):.2f} ms); states {held} bytes "
+        f"resident (widest {widest_bytes}), peak device memory {peak} bytes "
+        f"(float32 slice leg {sl['peak']}); build {t_build:.1f}s; "
+        f"recall@{cf['k']} {rec:.4f}, ratio {ratio:.4f} (float32 leg "
+        f"{sl['recall']:.4f}, {sl['ratio']:.4f}); {stop_equal}/{len(qpts)} "
+        f"stop levels and {rows_equal}/{len(qpts)} id lists equal to the "
+        f"float32 leg's, {common}/"
+        f"{cf['k'] * len(qpts)} ids in common [{smi}]")
+    say(f"bf16 paged: {PAGED_SLOTS} of {plan.n_groups} states on the card, "
+        f"{len(p_lat)} batches, {_lat(p_lat)}; {cache['n_restores']} "
+        f"restores of {copy_b.mean():.0f} bytes mean, {copy_ms.mean():.3f} ms "
+        f"mean, {(copy_b / (copy_ms / 1e3)).mean() / 1e9:.2f} GB/s; pinned "
+        f"bfloat16 host buffers, {ps['pinned_bytes']} bytes; answers equal "
+        f"to the unpaged bf16 leg's bit for bit")
+    launches = {k: launches[k] + p_launch[k] for k in launches}
+    _free(torch, paged)
+    return dict(launches=launches, err=err)
 
 
 def _excluding(torch, fn, excluded: dict):
@@ -1650,7 +2176,7 @@ def _row(name, launches, err, ms, plain_ms, bound, library_ms=None):
                 library_ms=library_ms)
 
 
-def _times_fused(torch, dev, sl, errs, smi, inputs, stream):
+def _times_fused(torch, dev, sl, errs, smi, inputs, other):
     from repro_torch.kernels import fused_query, ref
 
     gi, cfg, st, inp = inputs
@@ -1691,10 +2217,53 @@ def _times_fused(torch, dev, sl, errs, smi, inputs, stream):
             f"{t_p[name]:.3f} ms, bound {bound[0]:.3f} ms by {bound[1]} "
             f"({tests} level tests, {flops} flops, "
             f"{in_bytes + out_bytes[name]} bytes) [{smi}]")
-        # launches: the slice leg's and the stream leg's main paths
-        table.append(_row(name, sl["launches"][name] + stream[name],
+        # launches: the slice leg's main path and the stream, obs and
+        # bf16 legs'
+        table.append(_row(name, sl["launches"][name] + other[name],
                           errs[name], t_k[name], t_p[name], bound))
+    _times_fused_bf16(torch, dev, smi, inputs, t_k)
     return table
+
+
+def _times_fused_bf16(torch, dev, smi, inputs, t_f32):
+    """Both fused passes at the widest group on its rows rounded to
+    bfloat16 (what a bfloat16 state stores), beside the float32 times."""
+    from repro_torch.kernels import fused_query, ref
+
+    gi, cfg, st, inp = inputs
+    n, beta = st.codes.shape
+    q, d = inp["queries"].shape
+    kw = dict(boff=0, n_valid=st.n_valid, c=cfg.c, n_levels=cfg.n_levels,
+              p=cfg.p)
+    row_ok = torch.arange(n, device=dev) < st.n_valid
+    bf = dict(inp, points=st.points.to(torch.bfloat16))
+    tests = int(inp["beta_q"].clamp_max(beta).sum()) * n
+    ops_ms = 1e3 * max(tests / INT32_OPS, 4 * q * n * d / F32_FLOPS)
+    in_bytes = 4 * (n * beta + q * beta + 2 * q * d + 4 * q) + 2 * n * d
+    out_bytes = {"fused_query_hist": 2 * 4 * q * (cfg.n_levels + 3),
+                 "fused_query_scores": 4 * q * n}
+    out_k, out_p, t_k, t_p = [], [], {}, {}
+    for name, which in (("fused_query_hist", "hist"),
+                        ("fused_query_scores", "scores")):
+        kern = getattr(fused_query, name)
+        plain = getattr(ref, name + "_ref")
+        args = _pass_args(bf, which)
+        out = kern(*args, **kw)
+        out_k += list(out) if which == "hist" else [out]
+        t_k[name] = _time_ms(lambda: kern(*args, **kw), torch, reps=5)
+        t_p[name] = _time_ms(lambda: out_p.append(plain(
+            *args, row_ok, c=cfg.c, n_levels=cfg.n_levels, p=cfg.p)),
+            torch, reps=1)
+    out_p = [*out_p[0], out_p[1]]
+    _hold(torch, bf, cfg.p, out_k, out_p,
+          f"times bf16 check (group {gi}, bfloat16 rows)", zone_edge=BF16_ZONE)
+    for name in ("fused_query_hist", "fused_query_scores"):
+        bound = _bound(in_bytes + out_bytes[name], ops_ms)
+        say(f"times {name} bfloat16 rows (group {gi}: n={n} beta_pad={beta}"
+            f" Q={q} d={d}): kernel {t_k[name]:.3f} ms (float32 rows "
+            f"{t_f32[name]:.3f} ms), plain {t_p[name]:.3f} ms, bound "
+            f"{bound[0]:.3f} ms by {bound[1]} "
+            f"({in_bytes + out_bytes[name]} bytes) [{smi}]")
 
 
 def _times_hash_encode(torch, dev, errs, smi, inputs, launches):
@@ -1815,7 +2384,10 @@ def _times_weighted_lp(torch, dev, errs, smi, inputs, launches):
 def phase_times(torch, dev, sl, legs, errs, smi):
     inputs = _slice_pass_inputs(sl, torch, dev)
     stream = legs["stream"]["launches"]
-    table = _times_fused(torch, dev, sl, errs, smi, inputs, stream)
+    other = {k: stream[k] + legs["obs"]["launches"][k]
+             + legs["bf16"]["launches"][k] for k in stream}
+    errs = _max_err(errs, legs["bf16"]["err"])
+    table = _times_fused(torch, dev, sl, errs, smi, inputs, other)
     table.append(_times_hash_encode(
         torch, dev, errs, smi, inputs,
         legs["encode"]["launches"] + stream["hash_encode"]))
@@ -1826,7 +2398,7 @@ def phase_times(torch, dev, sl, legs, errs, smi):
     table.append(_times_weighted_lp(
         torch, dev, errs, smi, inputs, sl["launches"]["weighted_lp"]
         + legs["encode"]["weighted_lp"] + legs["unfused"]["weighted_lp"]
-        + stream["weighted_lp"]))
+        + other["weighted_lp"]))
     return table
 
 
@@ -1872,12 +2444,18 @@ def main(argv=None) -> int:
     if "paged" in legs:  # its states and pinned buffers leave
         legs["paged"].pop("svc")
         _release(torch)
+    for leg, fn in (("obs", phase_obs), ("bf16", phase_bf16)):
+        if leg in phases:
+            if sl is None:
+                raise SystemExit(f"the {leg} phase needs the slice phase")
+            legs[leg] = fn(torch, dev, sl, smi)
+            _release(torch)
     if "stream" in phases:
         if sl is None:
             raise SystemExit("the stream phase needs the slice phase")
         legs["stream"] = phase_stream(torch, dev, sl, smi)
     if "times" in phases:
-        if sl is None or errs is None or len(legs) < len(PHASES) - 5:
+        if sl is None or errs is None or set(legs) != set(PHASES[4:-1]):
             raise SystemExit("the times phase needs every other phase")
         table = phase_times(torch, dev, sl, legs, errs, smi)
         say(json.dumps({"kernels": table}))

@@ -12,6 +12,11 @@ candidate sets to the host oracle.  Otherwise it encodes the group's rows
 on the device through ``ops.hash_encode`` (the CUDA kernel on the card),
 and queries must then be encoded the same way (``engine.encode_queries``).
 
+Vectors are stored in ``IndexConfig.vec_dtype``: float32, or bfloat16
+rounded to nearest even (the JAX package's ``astype(bfloat16)``, bit for
+bit).  Codes always come from the float32 vectors: the host's, or
+``hash_encode``'s before the cast.  Appended rows are cast the same way.
+
 Paging moves built states between the device and host memory, bit for
 bit (``offload_state`` / ``restore_state``); ``StatePager`` adds what the
 card needs around them: one pinned host copy per group, reused across
@@ -31,7 +36,7 @@ import torch
 from ..core.serving_plan import GroupServingPlan
 from ..kernels import ops
 from ..kernels.platform import resolve_device
-from .config import IndexConfig
+from .config import VEC_DTYPES, IndexConfig
 from .engine import QueryState, encode_queries
 
 __all__ = [
@@ -42,6 +47,7 @@ __all__ = [
     "pad_cols",
     "restore_state",
     "seal_segment",
+    "storage_dtype",
 ]
 
 # Row-capacity padding fill of a host-code build: a fixed sentinel code and
@@ -49,6 +55,14 @@ __all__ = [
 # Dead rows are masked out of the query step by ``QueryState.n_valid``, so
 # the fill only has to be deterministic.
 _PAD_CODE = np.iinfo(np.int32).max // 2
+
+
+def storage_dtype(cfg: IndexConfig) -> torch.dtype:
+    """The torch dtype a state stores its vectors in (``cfg.vec_dtype``)."""
+    if cfg.vec_dtype not in VEC_DTYPES:
+        raise NotImplementedError(f"vec_dtype {cfg.vec_dtype!r}: vectors "
+                                  f"are stored as one of {VEC_DTYPES}")
+    return getattr(torch, cfg.vec_dtype)
 
 
 def pad_cols(x: np.ndarray, beta: int) -> np.ndarray:
@@ -87,7 +101,9 @@ def build_group_state(
     ``n_valid`` masks them out of every query.
 
     Without host codes the corpus is uploaded once, padded on the device,
-    and encoded there from the state's own vectors.
+    and encoded there from its float32 vectors.  The vectors are then
+    stored in ``cfg.vec_dtype`` (bfloat16: rounded to nearest even on the
+    device).
 
     Streaming:
 
@@ -102,9 +118,7 @@ def build_group_state(
       ``append_to_state``.
     """
     dev = resolve_device(device)
-    if cfg.vec_dtype != "float32":
-        raise NotImplementedError(f"vec_dtype {cfg.vec_dtype!r}: only "
-                                  f"float32 vectors are supported so far")
+    store = storage_dtype(cfg)
     folded = gplan.folded()
 
     def put(x):
@@ -126,13 +140,17 @@ def build_group_state(
         raise ValueError(
             f"{n_rows} live rows exceed the config row capacity {cfg.n}"
         )
-    vecs = torch.zeros((cfg.n, cfg.d), dtype=torch.float32, device=dev)
-    vecs[:n_base] = put(base)
-    vecs[n_base:n_rows] = put(extra)
     if gplan.codes is None:
+        vecs = torch.zeros((cfg.n, cfg.d), dtype=torch.float32, device=dev)
+        vecs[:n_base] = put(base)
+        vecs[n_base:n_rows] = put(extra)
         codes = ops.hash_encode(vecs, torch.ones(cfg.d, device=dev), proj,
                                 b_int, b_frac, 1.0)
+        vecs = vecs.to(store)
     else:
+        vecs = torch.zeros((cfg.n, cfg.d), dtype=store, device=dev)
+        vecs[:n_base] = put(base)  # a float32 upload, cast on the device
+        vecs[n_base:n_rows] = put(extra)
         base_codes = gplan.codes
         if base_rows is not None:
             base_codes = base_codes[base_rows]
@@ -199,8 +217,9 @@ def append_to_state(state: QueryState, codes: np.ndarray,
                     vectors: np.ndarray) -> QueryState:
     """Write sealed rows into a group state's reserved capacity.
 
-    The ``m`` rows are copied into ``state.codes`` and ``state.points`` at
-    row ``state.n_valid`` on the state's device (on the current stream),
+    The ``m`` rows are copied into ``state.codes`` and ``state.points``
+    (cast to the state's vector dtype, as a build casts them) at row
+    ``state.n_valid`` on the state's device (on the current stream),
     and a state over the same tensors with ``n_valid`` advanced by ``m``
     is returned: the shapes, and so the query step, never change.  The
     input state stays valid: the written rows lie at or past its
@@ -241,7 +260,8 @@ def offload_state(state: QueryState,
                   out: QueryState | None = None) -> QueryState:
     """Copy a ``QueryState`` into host memory, bit for bit.
 
-    Every tensor keeps its dtype and shape.  From the card the copies land
+    Every tensor keeps its dtype (bfloat16 vectors stay bfloat16) and
+    shape.  From the card the copies land
     in pinned (page-locked) host memory, so a later ``restore_state`` can
     upload them asynchronously; on the CPU they are clones.  ``out``, an
     earlier host copy of the same shapes (a group's bytes keep their

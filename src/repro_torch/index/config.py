@@ -14,13 +14,16 @@ import dataclasses
 import math
 from typing import Sequence
 
-__all__ = ["IndexConfig", "pad_beta", "pad_levels"]
+__all__ = ["VEC_DTYPES", "IndexConfig", "pad_beta", "pad_levels"]
 
 # Default table-count buckets: multiples of 32 (the relaxed Eq. 11 betas
 # land in the tens-to-hundreds, Table 6) capped by powers of two above 512.
 _BETA_STEP = 32
 _LEVEL_STEP = 4
 
+# Vector storage types the query step serves (``torch`` dtype names);
+# either way every distance is computed in float32.
+VEC_DTYPES = ("float32", "bfloat16")
 _ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2}
 
 
@@ -56,7 +59,7 @@ class IndexConfig:
     gamma_n: float = 100.0  # gamma * n (paper default gamma = 100/n), so the
     # candidate budget k + ceil(gamma * n) stays aligned with the planner
     budget_override: int | None = None  # explicit budget; None = derive
-    vec_dtype: str = "float32"  # stored vectors (bfloat16 not yet supported)
+    vec_dtype: str = "float32"  # stored vectors: one of VEC_DTYPES
     use_kernels: str = "on"  # kernel path (kernels.platform): "on" = fused
     # passes (CUDA kernels on the card, plain torch on the CPU), "off" =
     # the unfused stage-by-stage oracle

@@ -25,6 +25,13 @@ Top-k order: the reference's running ``lax.top_k`` breaks distance ties
 toward the lower row.  ``torch.topk`` promises no tie order on CUDA, so
 the step selects on a unique int64 key ``(float bits of dist) << 32 | row``;
 distances are >= 0 or +inf, so their bit patterns order like the floats.
+
+Vectors are stored as ``float32`` or ``bfloat16`` (``IndexConfig.vec_dtype``).
+Every score is computed in float32: the fused kernels widen bfloat16 rows
+as they stage them, the unfused route and the re-rank with ``.float()``.
+The top-k and the re-rank run inside ``torch.profiler.record_function``
+ranges (``wlsh_topk``, ``wlsh_rerank``), so a captured trace attributes
+their device time.
 """
 
 from __future__ import annotations
@@ -34,10 +41,11 @@ import functools
 import math
 
 import torch
+from torch.profiler import record_function
 
 from ..kernels import ops, ref
 from ..kernels import platform as kplatform
-from .config import IndexConfig
+from .config import VEC_DTYPES, IndexConfig
 
 __all__ = ["QueryState", "QueryStepCache", "encode_queries", "query_step"]
 
@@ -52,7 +60,7 @@ class QueryState:
     """
 
     codes: torch.Tensor  # (n, beta) int32
-    points: torch.Tensor  # (n, d) float32
+    points: torch.Tensor  # (n, d) float32 or bfloat16 (vec_dtype)
     proj: torch.Tensor  # (d, beta) f32 folded projection
     b_int: torch.Tensor  # (beta,) int32
     b_frac: torch.Tensor  # (beta,) f32
@@ -116,8 +124,10 @@ def _topk_rows(scores, k: int):
         scores = torch.cat([scores, torch.full((q, k - n), math.inf,
                                                device=scores.device)], 1)
         n = k
-    bits = scores.contiguous().view(torch.int32).to(torch.int64)
-    key = (bits << 32) | torch.arange(n, device=scores.device)[None, :]
+    # in place: one (Q, n) int64 buffer beside the scores
+    key = scores.contiguous().view(torch.int32).to(torch.int64)
+    key.bitwise_left_shift_(32).bitwise_or_(
+        torch.arange(n, device=scores.device)[None, :])
     pos = torch.topk(key, k, dim=1, largest=False, sorted=True).indices
     vals = torch.gather(scores, 1, pos)
     ids = torch.where(torch.isinf(vals), -1, pos).to(torch.int32)
@@ -136,9 +146,9 @@ def query_step(state: QueryState, queries, codes_q, q_weight, mu, r_min,
     if cfg.n_shards != 1:
         raise NotImplementedError("row sharding across devices is not "
                                   "ported yet; n_shards must be 1")
-    if cfg.vec_dtype != "float32":
-        raise NotImplementedError(f"vec_dtype {cfg.vec_dtype!r}: only "
-                                  f"float32 vectors are supported so far")
+    if cfg.vec_dtype not in VEC_DTYPES:
+        raise NotImplementedError(f"vec_dtype {cfg.vec_dtype!r}: vectors "
+                                  f"are stored as one of {VEC_DTYPES}")
     c, L, k = cfg.c, cfg.n_levels, cfg.k
     dev = state.device
     n = state.codes.shape[0]
@@ -174,26 +184,29 @@ def query_step(state: QueryState, queries, codes_q, q_weight, mu, r_min,
     else:
         scores = _unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q,
                                cfg, stop)
-    vals, idx = _topk_rows(scores, k)
+    with record_function("wlsh_topk"):
+        vals, idx = _topk_rows(scores, k)
+    del scores
 
     # ---- exact re-rank of the k winners ------------------------------------
     # The p=2 scan scores with the norms expansion, whose f32 cancellation
     # error swamps genuinely small distances; recompute the survivors'
-    # distances from the coordinate differences and re-sort (stable, so
-    # ties keep the lower row first).
-    rows = idx.clamp(0, n - 1).long()
-    cand = state.points[rows].float()  # (Q, k, d)
-    diff = torch.abs((qf[:, None, :] - cand) * wf[:, None, :])
-    if abs(cfg.p - 2.0) < 1e-9:
-        exact = torch.sqrt(torch.sum(diff * diff, dim=-1))
-    elif abs(cfg.p - 1.0) < 1e-9:
-        exact = torch.sum(diff, dim=-1)
-    else:
-        exact = torch.sum(diff**cfg.p, dim=-1) ** (1.0 / cfg.p)
-    vals = torch.where(torch.isfinite(vals), exact, vals)
-    order = torch.sort(vals, dim=1, stable=True).indices
-    vals = torch.gather(vals, 1, order)
-    idx = torch.gather(idx, 1, order)
+    # distances from the coordinate differences of the stored rows and
+    # re-sort (stable, so ties keep the lower row first).
+    with record_function("wlsh_rerank"):
+        rows = idx.clamp(0, n - 1).long()
+        cand = state.points[rows].float()  # (Q, k, d)
+        diff = torch.abs((qf[:, None, :] - cand) * wf[:, None, :])
+        if abs(cfg.p - 2.0) < 1e-9:
+            exact = torch.sqrt(torch.sum(diff * diff, dim=-1))
+        elif abs(cfg.p - 1.0) < 1e-9:
+            exact = torch.sum(diff, dim=-1)
+        else:
+            exact = torch.sum(diff**cfg.p, dim=-1) ** (1.0 / cfg.p)
+        vals = torch.where(torch.isfinite(vals), exact, vals)
+        order = torch.sort(vals, dim=1, stable=True).indices
+        vals = torch.gather(vals, 1, order)
+        idx = torch.gather(idx, 1, order)
 
     n_checked = torch.clamp_max(
         torch.gather(nf_cum, 1, stop[:, None].long())[:, 0], cfg.budget
@@ -208,11 +221,15 @@ class QueryStepCache:
     groups whose shapes quantize to the same buckets (``pad_beta`` /
     ``pad_levels``) share one step.  ``n_compiled`` counts distinct
     (device, config) steps, as the JAX package counts its compiled steps.
+    ``on_compile`` (optional, set by the observability layer) is called
+    with the config on every cache miss, attributing step builds to shape
+    signatures.
     """
 
     def __init__(self):
         self._steps: dict = {}
         self.n_compiled = 0
+        self.on_compile = None  # hook: on_compile(cfg) per step built
 
     def get(self, device, cfg: IndexConfig):
         key = (torch.device(device), cfg)
@@ -221,6 +238,8 @@ class QueryStepCache:
             step = functools.partial(query_step, cfg=cfg)
             self._steps[key] = step
             self.n_compiled += 1
+            if self.on_compile is not None:
+                self.on_compile(cfg)
         return step
 
     def __len__(self) -> int:

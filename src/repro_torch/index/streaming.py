@@ -106,6 +106,10 @@ class SealedSegment:
         return len(self.ids)
 
 
+# (Q, rows, d) elements per chunk of the exact scan (4 MiB of float32)
+_SCAN_CHUNK_ELEMS = 1 << 20
+
+
 def exact_weighted_lp(
     queries: np.ndarray,
     vectors: np.ndarray,
@@ -118,10 +122,31 @@ def exact_weighted_lp(
     top-k survivors (not the norms expansion, whose float32 cancellation
     swamps small distances), so delta hits rank against indexed hits on
     equal footing.
+
+    The rows are taken in chunks that keep the ``(Q, rows, d)``
+    intermediates near ``_SCAN_CHUNK_ELEMS`` elements: a row's distance
+    depends on that row alone (its sum runs over its own ``d`` terms), so
+    the chunking changes no bit, and a scan of the whole corpus (the
+    shadow recall oracle) works in cache instead of streaming gigabytes
+    of intermediates through main memory.
     """
     queries = np.atleast_2d(np.asarray(queries, np.float32))
     q_weights = np.atleast_2d(np.asarray(q_weights, np.float32))
     vectors = np.atleast_2d(np.asarray(vectors, np.float32))
+    m = len(vectors)
+    rows = max(1, _SCAN_CHUNK_ELEMS // max(len(queries) * vectors.shape[1],
+                                           1))
+    if m <= rows:
+        return _weighted_lp_rows(queries, vectors, q_weights, p)
+    out = np.empty((len(queries), m), np.float32)
+    for lo in range(0, m, rows):
+        out[:, lo: lo + rows] = _weighted_lp_rows(
+            queries, vectors[lo: lo + rows], q_weights, p)
+    return out
+
+
+def _weighted_lp_rows(queries, vectors, q_weights, p: float) -> np.ndarray:
+    """``exact_weighted_lp`` on one chunk of rows."""
     diff = np.abs(
         (queries[:, None, :] - vectors[None, :, :]) * q_weights[:, None, :]
     ).astype(np.float32)

@@ -165,12 +165,14 @@ def occupancy(name: str, keys, *args) -> dict:
 
 
 def check(name, t, dtype, shape, dev) -> None:
-    """Raise unless tensor ``t`` is on ``dev``, of ``dtype`` and ``shape``,
-    and contiguous."""
+    """Raise unless tensor ``t`` is on ``dev``, of ``dtype`` (or one of a
+    tuple of dtypes) and ``shape``, and contiguous."""
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be {' or '.join(map(str, dtypes))}, "
+                        f"got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")

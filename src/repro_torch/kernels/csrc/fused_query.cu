@@ -44,6 +44,12 @@
 //     registers once the counts are read.  They share one region of
 //     shared memory, so more blocks fit on an SM (4 of 128 threads at
 //     L = 16).
+//   * Vector storage: float32 or bfloat16 rows (VT).  A bfloat16 row is
+//     widened to float32 as it is staged into shared memory, exactly (a
+//     bfloat16 is a float32 with its low 16 mantissa bits zero), so every
+//     sum after the load is the float32 one, and the state's rows are never
+//     copied to float32 in device memory.  The JAX package widens the
+//     whole block before its Pallas call; the result is the same.
 //   * Float order follows the reference: p = 2 uses the norms expansion
 //     qw2 - 2 cross + onorm clamped at 0, then sqrtf; the good-level ceil
 //     is logf(max(dist, 1e-30)) / log(c) - logf(c r_min) / log(c).  The
@@ -53,6 +59,7 @@
 // ROWS, QT and TC and the narrow c = 3 word test at L <= 16 were chosen by
 // timing variants on the card (PERF.md, the fused passes' variants table).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -68,7 +75,7 @@ constexpr int DC = 32;     // vector dims staged per chunk
 
 struct Args {
   const int* codes_p;     // (B, beta)
-  const float* points;    // (B, d)
+  const void* points;     // (B, d) float or __nv_bfloat16 (vec_bf16)
   const int* codes_q;     // (Q, beta)
   const float* queries;   // (Q, d)
   const float* q_weight;  // (Q, d)
@@ -79,11 +86,16 @@ struct Args {
   int* hist_f;            // (Q, L+3) pass 1, zeroed by the caller
   int* hist_g;            // (Q, L+3) pass 1, zeroed by the caller
   float* scores;          // (Q, B) pass 2
-  int B, beta, Q, d, boff, n_valid, c, L, pkind;
+  int B, beta, Q, d, boff, n_valid, c, L, vec_bf16, pkind;
   float p, inv_p, logc;
 };
 
 using wlsh::align16;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
 // Shared-memory carve-up, shared by the kernel and the host size check.
 // The matching's arrays and the distance's share [0, meta).
@@ -110,8 +122,9 @@ __host__ __device__ inline Layout layout(int L) {
 }
 
 // MODE 0 = pass 1 (histograms), MODE 1 = pass 2 (scores); WIDE picks the
-// c = 3 word test for L > 16 (level_match.cuh, Digits).
-template <int MODE, int C, bool WIDE>
+// c = 3 word test for L > 16 (level_match.cuh, Digits); VT is the vector
+// storage type (float or __nv_bfloat16).
+template <int MODE, int C, bool WIDE, typename VT>
 __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout lay = layout<C>(a.L);
@@ -125,6 +138,7 @@ __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
   float* s_qw2 = reinterpret_cast<float*>(s_stop + QT);
   int* s_hf = reinterpret_cast<int*>(smem + lay.hist);
   int* s_hg = s_hf + QT * (a.L + 3);
+  const VT* points = static_cast<const VT*>(a.points);
 
   const int L2 = a.L + 2, L3 = a.L + 3;
   const int tid = threadIdx.x;
@@ -196,7 +210,8 @@ __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
       const int r = e / DC, i = e % DC;
       const int gr = row0 + r;
       s_ptile[r * (DC + 1) + i] =
-          (gr < a.B && i < dc) ? a.points[(size_t)gr * a.d + i0 + i] : 0.0f;
+          (gr < a.B && i < dc) ? widen(points[(size_t)gr * a.d + i0 + i])
+                               : 0.0f;
     }
     __syncthreads();
     if (live_row) {
@@ -283,23 +298,29 @@ __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
   }
 }
 
-template <int MODE, int C, bool WIDE>
+template <int MODE, int C, bool WIDE, typename VT>
 cudaError_t set_smem(size_t* smem, int L) {
   *smem = layout<C>(L).total;
-  return cudaFuncSetAttribute(fused_query_kernel<MODE, C, WIDE>,
+  return cudaFuncSetAttribute(fused_query_kernel<MODE, C, WIDE, VT>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)*smem);
 }
 
-template <int MODE, int C, bool WIDE>
-int launch_c(const Args& a, cudaStream_t stream) {
+template <int MODE, int C, bool WIDE, typename VT>
+int launch_t(const Args& a, cudaStream_t stream) {
   if (layout<C>(a.L).total > 227 * 1024) return (int)cudaErrorInvalidValue;
   size_t smem;
-  const cudaError_t err = set_smem<MODE, C, WIDE>(&smem, a.L);
+  const cudaError_t err = set_smem<MODE, C, WIDE, VT>(&smem, a.L);
   if (err != cudaSuccess) return (int)err;
   const int nblocks = ((a.B + ROWS - 1) / ROWS) * ((a.Q + QT - 1) / QT);
-  fused_query_kernel<MODE, C, WIDE><<<nblocks, ROWS, smem, stream>>>(a);
+  fused_query_kernel<MODE, C, WIDE, VT><<<nblocks, ROWS, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <int MODE, int C, bool WIDE>
+int launch_c(const Args& a, cudaStream_t stream) {
+  return a.vec_bf16 ? launch_t<MODE, C, WIDE, __nv_bfloat16>(a, stream)
+                    : launch_t<MODE, C, WIDE, float>(a, stream);
 }
 
 template <int MODE>
@@ -321,16 +342,18 @@ int launch(Args& a, void* stream) {
   }
 }
 
+// (for float32 rows; the bfloat16 build takes the same shared memory)
 template <int MODE, int C, bool WIDE>
 int occupancy_c(int L, int* out) {
   size_t smem;
-  cudaError_t err = set_smem<MODE, C, WIDE>(&smem, L);
+  cudaError_t err = set_smem<MODE, C, WIDE, float>(&smem, L);
   cudaFuncAttributes attr{};
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr, fused_query_kernel<MODE, C, WIDE>);
+    err = cudaFuncGetAttributes(&attr,
+                                fused_query_kernel<MODE, C, WIDE, float>);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[1], fused_query_kernel<MODE, C, WIDE>, ROWS, smem);
+        &out[1], fused_query_kernel<MODE, C, WIDE, float>, ROWS, smem);
   out[0] = (int)smem;
   out[2] = attr.numRegs;
   out[3] = ROWS;
@@ -354,37 +377,39 @@ int occupancy(int c, int L, int* out) {
 extern "C" {
 
 // Pass 1: hist_f, hist_g (Q, L+3) int32, zero-filled by the caller.
+// points is float32 (vec_bf16 = 0) or bfloat16 (vec_bf16 = 1).
 // Returns cudaGetLastError() after the launch (0 = launched).
-int wlsh_fused_query_hist(const int* codes_p, const float* points,
+int wlsh_fused_query_hist(const int* codes_p, const void* points,
                           const int* codes_q, const float* queries,
                           const float* q_weight, const int* mu,
                           const int* beta_q, const float* r_min, int B,
                           int beta, int Q, int d, int boff, int n_valid,
-                          int c, int L, float p, int* hist_f, int* hist_g,
-                          void* stream) {
+                          int c, int L, int vec_bf16, float p, int* hist_f,
+                          int* hist_g, void* stream) {
   Args a{};
   a.codes_p = codes_p; a.points = points; a.codes_q = codes_q;
   a.queries = queries; a.q_weight = q_weight; a.mu = mu; a.beta_q = beta_q;
   a.r_min = r_min; a.hist_f = hist_f; a.hist_g = hist_g;
   a.B = B; a.beta = beta; a.Q = Q; a.d = d; a.boff = boff;
-  a.n_valid = n_valid; a.c = c; a.L = L; a.p = p;
+  a.n_valid = n_valid; a.c = c; a.L = L; a.vec_bf16 = vec_bf16; a.p = p;
   return launch<0>(a, stream);
 }
 
-// Pass 2: scores (Q, B) float32.  Returns cudaGetLastError().
-int wlsh_fused_query_scores(const int* codes_p, const float* points,
+// Pass 2: scores (Q, B) float32; points as in pass 1.  Returns
+// cudaGetLastError().
+int wlsh_fused_query_scores(const int* codes_p, const void* points,
                             const int* codes_q, const float* queries,
                             const float* q_weight, const int* mu,
                             const int* beta_q, const int* stop, int B,
                             int beta, int Q, int d, int boff, int n_valid,
-                            int c, int L, float p, float* scores,
-                            void* stream) {
+                            int c, int L, int vec_bf16, float p,
+                            float* scores, void* stream) {
   Args a{};
   a.codes_p = codes_p; a.points = points; a.codes_q = codes_q;
   a.queries = queries; a.q_weight = q_weight; a.mu = mu; a.beta_q = beta_q;
   a.stop = stop; a.scores = scores;
   a.B = B; a.beta = beta; a.Q = Q; a.d = d; a.boff = boff;
-  a.n_valid = n_valid; a.c = c; a.L = L; a.p = p;
+  a.n_valid = n_valid; a.c = c; a.L = L; a.vec_bf16 = vec_bf16; a.p = p;
   return launch<1>(a, stream);
 }
 

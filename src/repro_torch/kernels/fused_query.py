@@ -13,6 +13,11 @@ launch fails; there is no fallback.  ``launch_counts`` counts kernel
 launches per wrapper, so a run can show that its main path went through
 the kernels.  The kernels are built with the port's other CUDA sources
 (``_cuda.build``).
+
+The vector rows may be float32 or bfloat16: the kernel is built for both
+storage types and widens bfloat16 rows to float32 as it stages them into
+shared memory, so every sum after the load is the float32 one, and a
+bfloat16 state is scored without a float32 copy of its rows.
 """
 
 from __future__ import annotations
@@ -34,8 +39,9 @@ __all__ = [
 
 launch_counts = _cuda.counter("fused_query_hist", "fused_query_scores")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_HIST_ARGS = [_P] * 8 + [_I] * 8 + [_F, _P, _P, _P]
-_SCORES_ARGS = [_P] * 8 + [_I] * 8 + [_F, _P, _P]
+_HIST_ARGS = [_P] * 8 + [_I] * 9 + [_F, _P, _P, _P]
+_SCORES_ARGS = [_P] * 8 + [_I] * 9 + [_F, _P, _P]
+_VEC_DTYPES = (torch.float32, torch.bfloat16)
 _OCC_KEYS = ("smem_bytes", "blocks_per_sm", "registers", "rows", "qt", "tc")
 
 
@@ -45,7 +51,7 @@ def _check_inputs(codes_p, points, codes_q, queries, q_weight, mu, beta_q,
     b, beta = codes_p.shape
     q, d = queries.shape
     for args in (("codes_p", codes_p, torch.int32, (b, beta)),
-                 ("points", points, torch.float32, (b, d)),
+                 ("points", points, _VEC_DTYPES, (b, d)),
                  ("codes_q", codes_q, torch.int32, (q, beta)),
                  ("queries", queries, torch.float32, (q, d)),
                  ("q_weight", q_weight, torch.float32, (q, d)),
@@ -58,6 +64,11 @@ def _check_inputs(codes_p, points, codes_q, queries, q_weight, mu, beta_q,
     return dev, b, beta, q, d
 
 
+def _bf16(points) -> int:
+    """The kernel's storage-type flag: 1 for bfloat16 rows, 0 for float32."""
+    return int(points.dtype == torch.bfloat16)
+
+
 def _row_ok(b, boff, n_valid, dev):
     return (boff + torch.arange(b, device=dev)) < n_valid
 
@@ -65,7 +76,8 @@ def _row_ok(b, boff, n_valid, dev):
 def fused_query_hist(codes_p, points, codes_q, queries, q_weight, mu, beta_q,
                      r_min, *, boff: int, n_valid: int, c: int,
                      n_levels: int, p: float):
-    """Pass 1 over rows ``codes_p``/``points``: (hist_f, hist_g) (Q, L+3).
+    """Pass 1 over rows ``codes_p``/``points`` (float32 or bfloat16):
+    (hist_f, hist_g) (Q, L+3).
 
     Bin j counts rows whose first-frequent (resp. good) level is j; bin L+2
     holds dead rows (``boff + row >= n_valid``); good levels above L+2
@@ -87,7 +99,7 @@ def fused_query_hist(codes_p, points, codes_q, queries, q_weight, mu, beta_q,
             codes_p.data_ptr(), points.data_ptr(), codes_q.data_ptr(),
             queries.data_ptr(), q_weight.data_ptr(), mu.data_ptr(),
             beta_q.data_ptr(), r_min.data_ptr(), b, beta, q, d, int(boff),
-            int(n_valid), int(c), int(n_levels), float(p),
+            int(n_valid), int(c), int(n_levels), _bf16(points), float(p),
             hist_f.data_ptr(), hist_g.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     _cuda.launched("fused_query_hist", err, launch_counts)
@@ -97,7 +109,8 @@ def fused_query_hist(codes_p, points, codes_q, queries, q_weight, mu, beta_q,
 def fused_query_scores(codes_p, points, codes_q, queries, q_weight, mu,
                        beta_q, stop, *, boff: int, n_valid: int, c: int,
                        n_levels: int, p: float):
-    """Pass 2 over rows ``codes_p``/``points``: (Q, B) float32 scores.
+    """Pass 2 over rows ``codes_p``/``points`` (float32 or bfloat16):
+    (Q, B) float32 scores.
 
     The weighted distance where the row's first-frequent level is at most
     ``stop[q]`` and the row is live, +inf elsewhere.
@@ -117,7 +130,7 @@ def fused_query_scores(codes_p, points, codes_q, queries, q_weight, mu,
             codes_p.data_ptr(), points.data_ptr(), codes_q.data_ptr(),
             queries.data_ptr(), q_weight.data_ptr(), mu.data_ptr(),
             beta_q.data_ptr(), stop.data_ptr(), b, beta, q, d, int(boff),
-            int(n_valid), int(c), int(n_levels), float(p),
+            int(n_valid), int(c), int(n_levels), _bf16(points), float(p),
             scores.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _cuda.launched("fused_query_scores", err, launch_counts)
     return scores

@@ -38,6 +38,15 @@ def _f32(x):
     return x.to(torch.float32).contiguous()
 
 
+def _vecs(x):
+    """Stored vectors as the fused kernels read them: bfloat16 rows pass
+    through (the kernels widen them as they stage them, so no float32
+    copy of the block is made), anything else becomes float32."""
+    if x.dtype == torch.bfloat16:
+        return x.contiguous()
+    return _f32(x)
+
+
 def hash_encode(points, weight, proj, b_int, b_frac, width: float):
     """(n, beta) int32 level-1 bucket codes."""
     return _hash_encode.hash_encode(
@@ -73,7 +82,7 @@ def weighted_lp_dist(queries, points, weight, p: float):
 
 def fused_query_block(
     codes_p,  # (B, beta) int32 — one scan block of point codes
-    points,  # (B, d) — the matching vector block
+    points,  # (B, d) float32 or bfloat16 — the matching vector block
     codes_q,  # (Q, beta) int32 query bucket codes
     queries,  # (Q, d) query vectors
     q_weight,  # (Q, d) per-query weight vectors
@@ -104,7 +113,7 @@ def fused_query_block(
                         dev)
     args = (
         codes_p.to(torch.int32).contiguous(),
-        _f32(points),
+        _vecs(points),
         codes_q.to(torch.int32).contiguous(),
         _f32(queries),
         _f32(q_weight),

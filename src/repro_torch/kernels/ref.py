@@ -33,8 +33,10 @@ walk the rows in chunks that keep it near 64 M elements; results do not
 depend on the chunking (every output is per row, and histograms are integer
 sums).
 
-Precision: float32 throughout.  Matrix products run in full float32 (TF32
-off, see ``repro_torch.kernels``).  ``log_c`` divides by a tensor on the
+Precision: float32 throughout.  The fused versions take a float32 or a
+bfloat16 vector block and widen each row chunk with ``.float()``, as the
+kernels widen each row as they stage it.  Matrix products run in full
+float32 (TF32 off, see ``repro_torch.kernels``).  ``log_c`` divides by a tensor on the
 operand's device, not by a Python float: PyTorch's CUDA division by a
 host scalar multiplies by its reciprocal, which rounds differently from the
 true division the kernels and the JAX reference perform.
@@ -412,7 +414,7 @@ def fused_query_hist_ref(codes_b, points_b, codes_q, queries, q_weight, mu,
         sl = slice(lo, lo + step)
         ok = row_ok[sl]
         lf = _fused_lf(codes_b[sl], codes_q, mu, beta_q, ok, c, L)
-        dist = per_query_dist(queries, q_weight, points_b[sl], p)
+        dist = per_query_dist(queries, q_weight, points_b[sl].float(), p)
         good = torch.where(ok[None, :], good_level(lf, dist, r_min, c),
                            torch.full_like(lf, L + 2))
         hist_f += level_hist(lf, L + 3)
@@ -448,7 +450,7 @@ def fused_query_scores_ref(codes_b, points_b, codes_q, queries, q_weight, mu,
         sl = slice(lo, lo + step)
         lf = _fused_lf(codes_b[sl], codes_q, mu, beta_q, row_ok[sl], c,
                        n_levels)
-        dist = per_query_dist(queries, q_weight, points_b[sl], p)
+        dist = per_query_dist(queries, q_weight, points_b[sl].float(), p)
         out[:, sl] = torch.where(lf <= stop[:, None], dist,
                                  torch.full_like(dist, math.inf))
     return out

@@ -41,7 +41,18 @@ Steps:
               the driver, QoS and state-cache reports where they apply);
               ``--check`` cross-validates every answer against the host
               oracle WLSHIndex.search_dense (with ``--insert-rate``: every
-              insert's self-query, before and after a full compaction)
+              insert's self-query, before and after a full compaction).
+              ``--trace-out`` / ``--metrics-out`` / ``--profile-dir``
+              switch the observability layer on (bit-exact either way):
+              per-query trace spans to JSONL, the metrics registry as
+              Prometheus text or JSON, and per-signature step and
+              dispatch-time attribution plus a torch.profiler capture
+              (a Chrome trace) of the serve phase.
+              ``--recall-sample-rate`` shadow-samples live queries for
+              exact-oracle recall estimation; ``--health`` prints the
+              per-rung observed-recall and alert report and
+              ``--alerts-out`` exports the SLO burn-rate alert events
+              fired on driver ticks
 
 ``--device cpu`` runs the plain torch versions of the kernels on the host.
 ``--use-kernels off`` runs the unfused stages (on the card: the
@@ -71,6 +82,7 @@ from ..core.datagen import make_dataset, make_weight_set
 from ..core.params import PlanConfig
 from ..core.wlsh import WLSHIndex
 from ..kernels import platform as kernel_platform
+from ..obs import HealthMonitor, default_rules
 from ..serving.async_service import (
     AsyncRetrievalService,
     ManualClock,
@@ -210,12 +222,20 @@ def _print_qos_report(qos: QosScheduler) -> None:
 
 
 def _make_driver(args, asvc) -> ServiceDriver | None:
-    """A ServiceDriver over ``asvc`` per the CLI flags (None = undriven)."""
+    """A ServiceDriver over ``asvc`` per the CLI flags (None = undriven).
+
+    ``--alerts-out`` / ``--health`` attach a ``HealthMonitor`` with the
+    stock SLO rule set; the driver evaluates it once per tick.
+    """
     if not args.driver:
         return None
+    health = None
+    if args.alerts_out or args.health:
+        health = HealthMonitor(asvc.batcher.metrics, default_rules())
     return ServiceDriver(
         asvc,
         prefetch=DeadlinePrefetch() if args.prefetch else None,
+        health=health,
     )
 
 
@@ -248,6 +268,92 @@ def _print_cache_report(cache: dict) -> None:
           f"{cache['n_prefetch_wasted']} wasted)")
 
 
+
+
+def _finish_obs(args, svc) -> dict | None:
+    """Stop profiling and export the observability artifacts.
+
+    Runs after the serve phase: stops any running ``torch.profiler``
+    capture (its Chrome trace lands in ``--profile-dir``), exports trace
+    spans (``--trace-out``, JSONL), the metrics registry
+    (``--metrics-out``: ``.json`` = JSON snapshot, anything else =
+    Prometheus text exposition) and prints the per-signature step and
+    dispatch attribution.  Returns the obs report dict (None with
+    observability off).
+    """
+    if not svc.cfg.obs:
+        return None
+    b = svc.batcher
+    out: dict = {}
+    if b.profiler is not None and b.profiler.stop_trace():
+        print(f"obs: profiler trace -> {b.profiler.trace_paths[-1]}")
+    if b.tracer is not None:
+        out["n_spans_started"] = b.tracer.n_started
+        out["n_spans_finished"] = b.tracer.n_finished
+        if args.trace_out:
+            n = b.tracer.export_jsonl(args.trace_out)
+            print(f"obs: {n} trace spans -> {args.trace_out} "
+                  f"({b.tracer.n_started} started / "
+                  f"{b.tracer.n_finished} finished)")
+    if args.metrics_out:
+        text = (b.metrics.to_json()
+                if args.metrics_out.endswith(".json")
+                else b.metrics.to_text())
+        with open(args.metrics_out, "w") as fh:
+            fh.write(text)
+        print(f"obs: metrics -> {args.metrics_out}")
+    if b.profiler is not None:
+        prof = b.profiler.summary()
+        out["profile"] = prof
+        print(f"obs: {prof['n_compiles']} step compiles attributed; "
+              f"dispatch by shape signature:")
+        for sig, row in prof["dispatch"].items():
+            print(f"  {sig}: {row['count']} launches, "
+                  f"mean {1e3 * row['mean_s']:.2f} ms")
+    return out
+
+
+def _finish_health(args, svc, driver=None) -> dict | None:
+    """Drain the shadow queue and report quality telemetry + alerts.
+
+    Runs after the serve phase: finishes any queued shadow-exact recall
+    jobs (off-path work a driver drains on idle ticks; the remainder is
+    executed here), prints the ``--health`` report, exports the alert
+    event log (``--alerts-out``, JSONL) and returns the health report
+    dict (None when neither recall sampling nor alerting is on).
+    """
+    est = svc.batcher.recall
+    health = driver.health if driver is not None else None
+    if est is None and health is None:
+        return None
+    out: dict = {}
+    if est is not None:
+        est.drain()
+        s = est.summary()
+        out["recall"] = s
+        if args.health:
+            print(f"health: recall sample rate {s['sample_rate']:.2f} "
+                  f"-> {s['n_sampled']} sampled, {s['n_executed']} "
+                  f"shadow-checked, {s['n_dropped']} dropped")
+            for rung in sorted(s["observed"], key=int):
+                obs_r = s["observed"][rung]
+                bound = s["bound"][rung]
+                print(f"  rung {rung}: observed recall {obs_r:.3f} "
+                      f"(bound {bound:.3f}, "
+                      f"margin {obs_r - bound:+.3f})")
+    if health is not None:
+        hs = health.summary()
+        out["alerts"] = hs
+        if args.health:
+            n_fired = sum(r["fired"] for r in hs["rules"].values())
+            n_cleared = sum(r["cleared"] for r in hs["rules"].values())
+            firing = ",".join(hs["firing"]) or "none"
+            print(f"health: alerts over {hs['tick']} ticks: {n_fired} "
+                  f"fired / {n_cleared} cleared; firing now: {firing}")
+        if args.alerts_out:
+            n = health.export_jsonl(args.alerts_out)
+            print(f"obs: {n} alert events -> {args.alerts_out}")
+    return out
 
 
 def _sync(device) -> None:
@@ -290,6 +396,9 @@ def run(args, *, include_codes: bool = True) -> dict:
     if reserve is None:  # headroom for every op turning out to be an insert
         reserve = args.n_queries if args.insert_rate > 0 else 0
     ladder = args.degrade_ladder if args.qos else ()
+    obs = bool(args.trace_out or args.metrics_out or args.profile_dir
+               or args.recall_sample_rate > 0 or args.health
+               or args.alerts_out)
     scfg = ServiceConfig(k=args.k, q_batch=args.q_batch,
                          max_delay_ms=args.max_delay_ms,
                          max_resident_groups=args.max_resident_groups,
@@ -297,8 +406,13 @@ def run(args, *, include_codes: bool = True) -> dict:
                          delta_seal_rows=args.delta_seal_rows,
                          delta_reserve_rows=reserve,
                          use_kernels=args.use_kernels,
-                         degrade_ladder=ladder, device=str(device))
+                         degrade_ladder=ladder, obs=obs,
+                         recall_sample_rate=args.recall_sample_rate,
+                         device=str(device))
     svc = RetrievalService(plan, data, cfg=scfg)
+    if obs and args.profile_dir:
+        svc.batcher.profiler.profile_dir = args.profile_dir
+        svc.batcher.profiler.start_trace()
     svc.warmup()
     _sync(device)
     t_build = time.time() - t0
@@ -319,6 +433,7 @@ def run(args, *, include_codes: bool = True) -> dict:
     qpts = data[src].astype(np.float32)
     qpts = qpts + rng.normal(0, args.q_noise, qpts.shape).astype(np.float32)
     async_report = None
+    driver = None
     if args.insert_rate > 0:
         return _serve_mixed(args, svc, plan, rng, qpts, wids, device,
                             t_plan=t_plan, t_build=t_build)
@@ -385,6 +500,9 @@ def run(args, *, include_codes: bool = True) -> dict:
     if (args.max_resident_groups is not None
             or args.device_budget is not None or args.driver):
         _print_cache_report(cache)
+    obs_report = _finish_obs(args, svc)
+    health_report = _finish_health(args, svc, driver)
+
     n_bad, n_self_miss = 0, None
     if args.check:
         for qi in range(args.n_queries):
@@ -417,6 +535,8 @@ def run(args, *, include_codes: bool = True) -> dict:
         "cache": cache,
         "n_check_failures": n_bad,
         "async": async_report,
+        "obs": obs_report,
+        "health": health_report,
         "n_self_misses": n_self_miss,
     }
 
@@ -509,6 +629,8 @@ def _serve_mixed(args, svc, plan, rng, qpts, wids, device, t_plan, t_build):
               f"(pre + post compaction of {absorbed} rows), "
               f"{new_steps} new query steps")
         assert n_bad == 0, f"{n_bad} streaming checks failed"
+    obs_report = _finish_obs(args, svc)
+    health_report = _finish_health(args, svc, driver)
     return {
         "n_groups": plan.n_groups,
         "beta_total": plan.beta_total,
@@ -524,6 +646,8 @@ def _serve_mixed(args, svc, plan, rng, qpts, wids, device, t_plan, t_build):
         "n_check_failures": n_bad,
         "async": None,
         "driver": driver.stats.summary() if driver is not None else None,
+        "obs": obs_report,
+        "health": health_report,
         "n_self_misses": None,
     }
 
@@ -615,9 +739,49 @@ def parse_args(argv=None):
                     metavar="BYTES",
                     help="page group states under this device byte budget "
                          "(accepts 512MB / 2GB / plain bytes)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="observability: export one JSONL trace span per "
+                         "served query to PATH (stage timestamps on the "
+                         "service clock + WLSH cost counters); implies "
+                         "the obs layer on")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="observability: write the unified metrics "
+                         "registry to PATH after serving (.json = JSON "
+                         "snapshot, anything else = Prometheus text "
+                         "exposition); implies the obs layer on")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="observability: per-shape-signature step and "
+                         "dispatch-time attribution, plus a torch.profiler "
+                         "capture of warmup and serve exported to DIR as "
+                         "a Chrome trace; implies the obs layer on")
+    ap.add_argument("--recall-sample-rate", type=float, default=0.0,
+                    metavar="RATE",
+                    help="quality telemetry: shadow-sample this fraction "
+                         "of live queries (deterministic hash of the "
+                         "query id) and re-rank their served answers "
+                         "against the exact host oracle off the serving "
+                         "path; answers stay bit-exact; implies the obs "
+                         "layer on")
+    ap.add_argument("--alerts-out", default=None, metavar="PATH",
+                    help="with --driver: attach the stock SLO burn-rate "
+                         "alert rules (deadline misses, tenant SLO, "
+                         "prefetch waste, recall-below-bound) to the "
+                         "driver ticks and export the alert events to "
+                         "PATH as JSONL")
+    ap.add_argument("--health", action="store_true",
+                    help="print the quality-telemetry report after "
+                         "serving: per-rung observed recall vs its "
+                         "ladder bound, shadow-queue accounting, and "
+                         "(with --driver) the alert-rule summary")
     args = ap.parse_args(argv)
     if not 0.0 <= args.insert_rate <= 1.0:
         ap.error(f"--insert-rate must be in [0, 1], got {args.insert_rate}")
+    if not 0.0 <= args.recall_sample_rate <= 1.0:
+        ap.error(f"--recall-sample-rate must be in [0, 1], got "
+                 f"{args.recall_sample_rate}")
+    if args.alerts_out and not args.driver:
+        ap.error("--alerts-out needs the tick-driven alert evaluation; "
+                 "add --driver (and --async)")
     if args.driver and not args.use_async:
         ap.error("--driver drives the async frontend; add --async")
     if args.prefetch and not args.driver:

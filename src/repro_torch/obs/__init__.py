@@ -1,19 +1,56 @@
-"""Observability layer of the port: the unified metrics registry.
+"""Observability layer of the port: metrics, traces, profiling, quality
+telemetry.
 
-:mod:`repro_torch.obs.metrics` holds typed counters, gauges and
-fixed-bucket histograms in a thread-safe :class:`MetricsRegistry`, with
-Prometheus-style text exposition, a JSON snapshot and tick-to-tick
-diffs.  The stats surfaces of the serving stack (``Batcher.stats``,
-``CacheStats``, ``DriverStats``, ``TenantStats``) are thin views over
-one registry per stack, and every series keeps the JAX package's name.
-Traces, profiling, shadow recall and health alerting are not ported yet.
+Building blocks threaded through the serving stack, each keeping the JAX
+package's names, series and file formats:
+
+* :mod:`repro_torch.obs.metrics`: typed counters / gauges / fixed-bucket
+  histograms in a thread-safe :class:`MetricsRegistry`; Prometheus-style
+  text exposition, JSON snapshot, tick-to-tick diffs.  The stats surfaces
+  (``Batcher.stats``, ``CacheStats``, ``DriverStats``, ``TenantStats``)
+  are thin views over one registry per stack.
+* :mod:`repro_torch.obs.trace`: per-query :class:`TraceSpan` lifecycle
+  (``submit -> route -> admit -> queue -> prefetch/restore -> launch ->
+  merge -> resolve``) on the injectable clock, ring-buffered by
+  :class:`Tracer` with JSONL export and exact drop accounting.
+* :mod:`repro_torch.obs.profile`: per-step build-count and dispatch-time
+  attribution keyed by ``IndexConfig.shape_signature()``, plus
+  ``torch.profiler`` captures exported as Chrome traces.
+* :mod:`repro_torch.obs.recall`: online quality telemetry: a
+  deterministic hash sampler feeding shadow jobs that re-rank served
+  answers against the exact host oracle off the serving path
+  (:class:`RecallEstimator`).
+* :mod:`repro_torch.obs.health`: SLO burn-rate alerting: multi-window
+  :class:`AlertRule` evaluation over registry diffs per driver tick,
+  typed ring-retained :class:`Alert` events (:class:`HealthMonitor`).
+
+Tracing and profiling are gated behind ``ServiceConfig.obs`` (off by
+default, bit-exact on or off); the metrics registry always exists.
+Recall sampling (``ServiceConfig.recall_sample_rate``) implies ``obs``
+and is equally invisible to answers.
 """
 
+from .health import Alert, AlertRule, HealthMonitor, default_rules
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
+from .profile import Profiler
+from .recall import RecallEstimator, ShadowJob, sample_hash, should_sample
+from .trace import STAGES, Tracer, TraceSpan
 
 __all__ = [
+    "Alert",
+    "AlertRule",
     "Counter",
     "Gauge",
+    "HealthMonitor",
     "Histogram",
     "MetricsRegistry",
+    "Profiler",
+    "RecallEstimator",
+    "STAGES",
+    "ShadowJob",
+    "TraceSpan",
+    "Tracer",
+    "default_rules",
+    "sample_hash",
+    "should_sample",
 ]

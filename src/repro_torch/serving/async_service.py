@@ -27,9 +27,9 @@ drive a deterministic ``ManualClock`` so deadline behaviour is exact and
 repeatable.
 
 Streaming writes (``insert``/``delete``/``compact``) apply at once, and
-an idle poll compacts the sealed delta backlog (``compact_on_idle``).
-Not ported yet: the per-query trace spans; the frontend behaves as the
-JAX package's does with no tracer attached.
+an idle poll compacts the sealed delta backlog (``compact_on_idle``) or
+runs a slice of the shadow recall queue.  With ``ServiceConfig.obs``
+every accepted submit opens one trace span, resolved with its future.
 """
 
 from __future__ import annotations
@@ -148,6 +148,7 @@ class _Pending:
     t_submit: float
     future: QueryFuture
     tenant: str = DEFAULT_TENANT
+    span: object = None  # obs.TraceSpan when tracing is enabled
 
 
 class AsyncRetrievalService:
@@ -315,9 +316,23 @@ class AsyncRetrievalService:
             # a NaN/inf deadline would never compare expired in poll() and
             # would poison next_deadline() for every event-loop driver
             raise ValueError(f"deadline must be finite, got {deadline}")
+        tr = self.batcher.tracer
+        span = None
+        if tr is not None:
+            # past every reject path: an Overloaded / RateLimited /
+            # invalid submit never opens a span, so exactly one span
+            # exists per accepted query
+            span = tr.begin(weight_id=int(weight_id), group_id=gi,
+                            tenant=str(tenant))
+            t_routed = self.clock()
+            span.mark("submit", now)
+            span.mark("route", t_routed)
+            if self.qos is not None:
+                span.mark("admit", t_routed)
+            span.mark("queue", t_routed)
         fut = QueryFuture()
         pend = _Pending(query, int(weight_id), float(deadline), now, fut,
-                        str(tenant))
+                        str(tenant), span)
         q = self._pending[(gi, str(tenant))]
         q.append(pend)
         # with QoS attached, a full buffer launches at the next poll tick
@@ -395,13 +410,18 @@ class AsyncRetrievalService:
         Compacts the streaming delta's *sealed* backlog when
         ``compact_on_idle`` is set, returning the rows absorbed.  Called
         by an undriven idle ``poll()``, or by the ``ServiceDriver``'s idle
-        ticks once one owns the service.  (The JAX frontend also runs a
-        slice of its shadow recall queue here; the port has no recall
-        estimator yet.)
+        ticks once one owns the service.  A tick with nothing to compact
+        instead executes one bounded slice of the shadow recall queue
+        (``ServiceConfig.recall_shadow_slice`` oracle re-ranks): quality
+        telemetry rides the quiet ticks, never a launch.
         """
+        n = 0
         if self.compact_on_idle and self.batcher.delta is not None:
-            return self.batcher.delta.compact_sealed()
-        return 0
+            n = self.batcher.delta.compact_sealed()
+        recall = self.batcher.recall
+        if n == 0 and recall is not None and recall.backlog:
+            recall.run(max_jobs=recall.slice)
+        return n
 
     # ------------------------------------------------------------- streaming
 
@@ -443,12 +463,16 @@ class AsyncRetrievalService:
         # (c, k) step serves this launch; rung 0 (and qos=None) is the
         # strict configured parameters
         rung = self.qos.rung_of(tenant) if self.qos is not None else 0
+        tr = self.batcher.tracer
         try:
             ids, dists, stop, chk = self.batcher.run_batch(
                 gi,
                 np.stack([r.query for r in batch]),
                 np.array([r.weight_id for r in batch], np.int64),
                 rung=rung,
+                spans=(
+                    [r.span for r in batch] if tr is not None else None
+                ),
             )
         except Exception:
             # atomic launch: put the batch back (original order, ahead of
@@ -473,6 +497,10 @@ class AsyncRetrievalService:
                 stop_level=int(stop[i]), n_checked=int(chk[i]),
             ), now)
             wait_h.observe(now - r.t_submit)
+            if r.span is not None:
+                r.span.cause = cause
+                r.span.mark("resolve", now)
+                tr.finish(r.span)
             if self.qos is not None:
                 self.qos.on_resolved(
                     r.tenant, now - r.t_submit, now > r.deadline, rung

@@ -27,7 +27,11 @@ codes: host float64 when the plan ships host codes, the device encode
 (``hash_encode``) when the state was built on the device.  Streaming
 writes go to a lazily created ``delta.DeltaIndex``; every state holds
 ``ServiceConfig.delta_reserve_rows`` rows of capacity past the corpus
-for its compactions (``row_capacity``).
+for its compactions (``row_capacity``).  With ``ServiceConfig.obs`` the
+core also stamps per-query trace spans, attributes step builds and
+dispatch time per shape signature, and (``recall_sample_rate``) offers
+sampled answers to the shadow recall estimator: host bookkeeping that
+leaves every answer bit for bit as it is.
 """
 
 from __future__ import annotations
@@ -41,12 +45,14 @@ import torch
 
 from ..core.serving_plan import ServingPlan
 from ..index.builder import StatePager, build_group_state, pad_cols
-from ..index.config import IndexConfig, pad_beta, pad_levels
+from ..index.config import VEC_DTYPES, IndexConfig, pad_beta, pad_levels
 from ..index.engine import QueryStepCache, encode_queries
 from ..kernels import platform as kplatform
-from ..obs import MetricsRegistry
+from ..obs import MetricsRegistry, Profiler, RecallEstimator, Tracer
 from .qos import DegradeStep
 from .state_cache import StateCache
+
+_NULL_SCOPE = contextlib.nullcontext()  # profiler-off dispatch scope
 
 __all__ = [
     "BatchPlan",
@@ -66,7 +72,8 @@ class ServiceConfig:
 
     k: int = 10
     q_batch: int = 8  # batch shape; ragged tails are padded
-    vec_dtype: str = "float32"
+    vec_dtype: str = "float32"  # group-state vector storage: "float32" or
+    # "bfloat16" (half the bytes; every distance is still computed in f32)
     use_kernels: bool | str = "on"  # kernel path (kernels.platform): "on"
     # = fused passes (CUDA kernels on the card, plain torch on the CPU),
     # "off" = unfused oracle; True/False are normalized below
@@ -92,12 +99,32 @@ class ServiceConfig:
     max_pending: int | None = None  # async backpressure: cap per-group
     # pending buffers; submit raises Overloaded instead of growing unbounded
     n_shards: int = 1  # devices each group's rows are sharded across
+    obs: bool = False  # observability: per-query trace spans (obs.Tracer)
+    # and profiling hooks (obs.Profiler) on the serving path.  Host-side
+    # bookkeeping only: results are bit-exact on or off.  The metrics
+    # registry (Batcher.metrics) always exists regardless: the stats
+    # surfaces are views over it
+    obs_trace_capacity: int = 4096  # tracer ring: retain at most this
+    # many finished spans (older spans fall off; totals stay exact)
     degrade_ladder: tuple = ()  # pre-planned (c, k) relaxation rungs
     # (qos.DegradeStep, mildest first).  Rung 0 is this config's strict
     # (plan.c, k); rung r >= 1 serves at degrade_ladder[r - 1].  Every
     # rung's step is built at warmup (c/k are shape-signature keys), and
     # rung answers with k' < k are padded -1/inf back to k so result
     # shapes never change
+    recall_sample_rate: float = 0.0  # shadow-exact recall telemetry:
+    # sample this fraction of served queries (deterministic hash of the
+    # span's query id, no wall randomness) into shadow jobs re-ranked
+    # against the exact host oracle off the serving path.  > 0 implies
+    # obs (spans carry the query identity); answers stay bit-exact
+    recall_shadow_max: int = 1024  # shadow queue depth cap; offers
+    # beyond it are dropped and counted, never buffered unbounded
+    recall_shadow_slice: int = 8  # shadow jobs executed per idle tick
+    # (ServiceDriver idle_work), so shadow re-ranking never competes
+    # with deadline launches
+    recall_floor: float = 0.0  # observed-recall reference bound for the
+    # strict rung 0 (rungs >= 1 use degrade_ladder[r-1].recall_bound);
+    # feeds the wlsh_recall_bound_margin gauge and the below-bound alert
     device: str = "cuda"  # where the group states live and queries run
 
     def __post_init__(self):
@@ -160,6 +187,11 @@ class ServiceConfig:
             raise ValueError(
                 f"max_pending must be >= 1 or None, got {self.max_pending}"
             )
+        if self.obs_trace_capacity < 1:
+            raise ValueError(
+                f"obs_trace_capacity must be >= 1, got "
+                f"{self.obs_trace_capacity}"
+            )
         for i, step in enumerate(self.degrade_ladder):
             if not isinstance(step, DegradeStep):
                 raise ValueError(
@@ -171,15 +203,39 @@ class ServiceConfig:
                     f"degrade_ladder[{i}].k={step.k} exceeds the strict "
                     f"k={self.k} (relaxation must not widen results)"
                 )
+        if not (0.0 <= self.recall_sample_rate <= 1.0):  # also rejects NaN
+            raise ValueError(
+                f"recall_sample_rate must be in [0, 1], got "
+                f"{self.recall_sample_rate}"
+            )
+        if self.recall_shadow_max < 1:
+            raise ValueError(
+                f"recall_shadow_max must be >= 1, got "
+                f"{self.recall_shadow_max}"
+            )
+        if self.recall_shadow_slice < 1:
+            raise ValueError(
+                f"recall_shadow_slice must be >= 1, got "
+                f"{self.recall_shadow_slice}"
+            )
+        if not (0.0 <= self.recall_floor <= 1.0):
+            raise ValueError(
+                f"recall_floor must be in [0, 1], got {self.recall_floor}"
+            )
+        if self.recall_sample_rate > 0 and not self.obs:
+            # shadow sampling keys on the tracer's query ids; force the
+            # obs layer on (bit-exact either way) rather than silently
+            # sampling nothing
+            object.__setattr__(self, "obs", True)
         if self.n_shards != 1:
             raise NotImplementedError(
                 f"n_shards={self.n_shards}: sharding group states across "
                 f"devices is not ported yet"
             )
-        if self.vec_dtype != "float32":
+        if self.vec_dtype not in VEC_DTYPES:
             raise NotImplementedError(
-                f"vec_dtype {self.vec_dtype!r}: only float32 vector "
-                f"storage is supported so far"
+                f"vec_dtype {self.vec_dtype!r}: vectors are stored as one "
+                f"of {VEC_DTYPES}"
             )
 
 
@@ -225,12 +281,17 @@ def coalesce(group_ids: np.ndarray, q_batch: int) -> list[BatchPlan]:
     return plans
 
 
-def run_plans(plans, queries, weight_ids, run_batch, k):
+def run_plans(plans, queries, weight_ids, run_batch, k, spans=None):
     """Execute every BatchPlan and merge outputs back to submission order.
 
     ``run_batch(group_id, queries, weight_ids)`` must return per-row
     ``(ids, dists, stop_levels, n_checked)`` for exactly the real rows it
     was handed (padding is its private business).
+
+    ``spans`` (optional) is one ``obs.TraceSpan`` per submission row;
+    each launch is handed its rows' spans through a ``spans=`` keyword so
+    the executor can stamp launch-side stages.  Executors without the
+    keyword keep working: it is only passed when spans are present.
     """
     nq = len(queries)
     out_ids = np.full((nq, k), -1, np.int32)
@@ -238,8 +299,11 @@ def run_plans(plans, queries, weight_ids, run_batch, k):
     out_stop = np.zeros(nq, np.int32)
     out_chk = np.zeros(nq, np.int32)
     for bp in plans:
+        kw = {}
+        if spans is not None:
+            kw["spans"] = [spans[i] for i in bp.rows]
         ids, d, stop, chk = run_batch(
-            bp.group_id, queries[bp.rows], weight_ids[bp.rows]
+            bp.group_id, queries[bp.rows], weight_ids[bp.rows], **kw
         )
         out_ids[bp.rows] = ids
         out_d[bp.rows] = d
@@ -383,8 +447,14 @@ class Batcher:
     bit for bit.  Every operational counter lands in one
     ``obs.MetricsRegistry`` (``self.metrics``, shared with the state
     cache, driver and QoS layers); ``stats``/``cache_summary`` are views
-    over it.  ``self.clock`` is the injectable time source; the async
-    frontend re-binds it to its own clock.
+    over it.  With ``cfg.obs`` the batcher also opens per-query
+    ``obs.TraceSpan``s (``self.tracer``) and attributes step builds and
+    dispatch time per shape signature (``self.profiler``); with
+    ``cfg.recall_sample_rate > 0`` it offers sampled answers to the
+    shadow recall estimator (``self.recall``).  All host-side: results
+    stay bit-exact.  ``self.clock`` is the injectable time source for
+    span stamps; the async frontend re-binds it to its own clock, so
+    ``ManualClock`` replays trace deterministically.
     """
 
     def __init__(self, plan: ServingPlan, points: np.ndarray,
@@ -409,7 +479,22 @@ class Batcher:
         self.device = kplatform.resolve_device(cfg.device)
         self.clock = time.monotonic  # injectable; async frontend re-binds
         self.metrics = MetricsRegistry()
+        self.tracer = (Tracer(cfg.obs_trace_capacity, metrics=self.metrics)
+                       if cfg.obs else None)
+        self.profiler = Profiler(device=self.device) if cfg.obs else None
+        # shadow-exact recall telemetry (obs.recall): sampled served
+        # queries are re-ranked against the exact host oracle off the
+        # serving path.  None when sampling is off
+        self.recall = (RecallEstimator(self)
+                       if cfg.recall_sample_rate > 0 else None)
+        self._cache_events: list[str] | None = None  # span attribution
         self.step_cache = QueryStepCache()
+        if self.profiler is not None:
+            self.step_cache.on_compile = (
+                lambda c: self.profiler.record_compile(
+                    str(c.shape_signature())
+                )
+            )
         self._group_cfgs: dict[tuple[int, int], IndexConfig] = {}
         self._delta = None  # streaming DeltaIndex, created on first write
         self.pager = StatePager(self.device)
@@ -421,6 +506,7 @@ class Batcher:
             device_budget_bytes=cfg.device_budget_bytes,
             offload=self.pager.offload if cfg.offload_evicted else None,
             restore=self.pager.restore if cfg.offload_evicted else None,
+            on_event=self._note_cache_event,
             metrics=self.metrics,
             # an asynchronous upload is priced by its copy's device time
             restore_timings=self.pager.restore_timings if on_card else None,
@@ -457,6 +543,23 @@ class Batcher:
             return int(self.plan.c), int(self.cfg.k)
         step = self.cfg.degrade_ladder[rung - 1]
         return int(step.c), int(step.k)
+
+    def recall_bound_of(self, rung: int) -> float:
+        """The observed-recall reference bound at ladder ``rung``.
+
+        Rung 0 (strict) answers carry ``ServiceConfig.recall_floor``;
+        rung ``r >= 1`` answers carry the planned
+        ``degrade_ladder[r - 1].recall_bound``.  The shadow recall
+        estimator publishes ``wlsh_recall_bound_margin`` (observed -
+        bound) against this value.
+        """
+        if not 0 <= rung <= self.n_rungs:
+            raise ValueError(
+                f"rung must be in [0, {self.n_rungs}], got {rung}"
+            )
+        if rung == 0:
+            return float(self.cfg.recall_floor)
+        return float(self.cfg.degrade_ladder[rung - 1].recall_bound)
 
     def group_config(self, gi: int, rung: int = 0) -> IndexConfig:
         """Padded IndexConfig for group ``gi`` (the step-cache key).
@@ -508,6 +611,18 @@ class Batcher:
             self.group_config(gi), self.points, self.plan.groups[gi],
             device=self.device, extra_points=extra_points,
             extra_codes=extra_codes, base_rows=base_rows))
+
+    def _note_cache_event(self, gi: int, kind: str) -> None:
+        """Record a StateCache event for trace-span stage attribution.
+
+        Counters live in the shared metrics registry (the StateCache
+        increments them itself); this hook only captures which paging
+        events happened inside the current launch's lease, so its spans
+        can mark their prefetch/restore stage.
+        """
+        events = self._cache_events
+        if events is not None:
+            events.append(kind)
 
     @contextlib.contextmanager
     def lease(self, gi: int):
@@ -680,7 +795,8 @@ class Batcher:
         return torch.from_numpy(
             np.ascontiguousarray(codes, np.int32)).to(self.device)
 
-    def run_batch(self, gi: int, queries, weight_ids, rung: int = 0):
+    def run_batch(self, gi: int, queries, weight_ids, rung: int = 0,
+                  spans=None):
         """One step launch for 1..q_batch same-group requests.
 
         Pads ragged input by cycling the real rows, encodes the queries
@@ -704,6 +820,14 @@ class Batcher:
         writes, ``DeltaIndex.augment`` then translates appended rows to
         global ids and merges the exact scan of the group's pending
         rows, dropping tombstoned ids.
+
+        ``spans`` is the frontend's per-row ``obs.TraceSpan`` list (one
+        per real row, submission order): paging, launch and merge stages
+        are stamped on them here.  With tracing on and no spans passed (a
+        direct ``run_batch`` caller), spans are opened *and* resolved
+        here, so every query still yields exactly one span.  The
+        profiler's dispatch scope encloses the uploads, the launch and the
+        downloads, so a dispatch time covers the device work.
         """
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         weight_ids = np.atleast_1d(np.asarray(weight_ids, np.int64))
@@ -715,28 +839,61 @@ class Batcher:
         wtake = weight_ids[take]
         slots = self.plan.member_slot[wtake]
         dev = self.device
+        tr = self.tracer
+        own_spans = tr is not None and spans is None
+        if own_spans:
+            t_sub = self.clock()
+            spans = []
+            for wid in weight_ids:
+                s = tr.begin(weight_id=int(wid), group_id=int(gi))
+                s.mark("submit", t_sub)
+                s.mark("route", t_sub)
+                s.mark("queue", t_sub)
+                spans.append(s)
+        if tr is not None:
+            self._cache_events = []
 
         def put(x, dtype):
             return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
 
         with self.lease(gi) as state:
+            if tr is not None and spans:
+                # attribute this launch's paging work: a consumed
+                # prefetch marks "prefetch", a blocking restore/build
+                # marks "restore" (a plain hit marks neither)
+                t_acq = self.clock()
+                kinds = set(self._cache_events or ())
+                for s in spans:
+                    if "restore_overlapped" in kinds:
+                        s.mark("prefetch", t_acq)
+                    if kinds & {"restore", "build"}:
+                        s.mark("restore", t_acq)
             codes = self._encode(gi, cfg, state, queries, take)
-            d_b, i_b, stop_b, chk_b = step(
-                state,
-                put(queries[take], np.float32),
-                codes,
-                put(self.plan.weights[wtake], np.float32),
-                put(g.mu_members[slots], np.int32),
-                put(g.r_min_members[slots], np.float32),
-                put(g.beta_members[slots], np.int32),
-                put(g.n_levels_members[slots], np.int32),
+            if tr is not None and spans:
+                t_launch = self.clock()
+                for s in spans:
+                    s.mark("launch", t_launch)
+            dispatch_scope = (
+                self.profiler.dispatch(str(cfg.shape_signature()))
+                if self.profiler is not None else _NULL_SCOPE
             )
-            # on the host before the lease ends: the state must stay
-            # resident until the device has finished reading it
-            ids = i_b.cpu().numpy()[:real]
-            dists = d_b.cpu().numpy()[:real]
-            stop = stop_b.cpu().numpy()[:real]
-            chk = chk_b.cpu().numpy()[:real]
+            with dispatch_scope:
+                d_b, i_b, stop_b, chk_b = step(
+                    state,
+                    put(queries[take], np.float32),
+                    codes,
+                    put(self.plan.weights[wtake], np.float32),
+                    put(g.mu_members[slots], np.int32),
+                    put(g.r_min_members[slots], np.float32),
+                    put(g.beta_members[slots], np.int32),
+                    put(g.n_levels_members[slots], np.int32),
+                )
+                # on the host before the lease ends: the state must stay
+                # resident until the device has finished reading it
+                ids = i_b.cpu().numpy()[:real]
+                dists = d_b.cpu().numpy()[:real]
+                stop = stop_b.cpu().numpy()[:real]
+                chk = chk_b.cpu().numpy()[:real]
         if cfg.k < self.cfg.k:
             # degraded rung: pad the short top-k back to the strict width
             pad_ids = np.full((real, self.cfg.k), -1, ids.dtype)
@@ -765,4 +922,29 @@ class Batcher:
         m.counter("wlsh_group_checked_total",
                   "summed candidates verified (n_checked)").inc(
             int(np.sum(chk)), group=gi)
+        if tr is not None and spans:
+            self._cache_events = None
+            t_merge = self.clock()
+            budget = int(cfg.budget)
+            for i, s in enumerate(spans):
+                s.mark("merge", t_merge)
+                s.group_id = int(gi)
+                s.rung = int(rung)
+                s.n_shards = int(cfg.n_shards)
+                s.stop_level = int(stop[i])
+                s.n_checked = int(chk[i])
+                s.budget = budget
+                s.budget_capped = bool(int(chk[i]) >= budget)
+                if own_spans:
+                    s.mark("resolve", t_merge)
+                    tr.finish(s)
+            if self.recall is not None:
+                # shadow-sample by a deterministic hash of the span's
+                # query id: enqueue only (host copies); the answer arrays
+                # are returned untouched, so sampling is bit-invisible
+                for i, s in enumerate(spans):
+                    self.recall.offer(
+                        s, queries[i], int(weight_ids[i]), int(gi),
+                        int(rung), ids[i]
+                    )
         return ids, dists, stop, chk

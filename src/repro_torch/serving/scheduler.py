@@ -44,9 +44,9 @@ stream, so it overlaps the launches of the same tick; the launch that
 reads the state waits on the copy's event on its own stream, which in
 thread mode is the driver thread's current stream.  The streaming
 writes (``insert``/``delete``/``compact``) pass through under the
-driver's lock, and idle ticks compact the sealed delta backlog.  Not
-ported yet: SLO alerting (``health``); the driver behaves as the JAX
-package's does with none attached.
+driver's lock, and idle ticks compact the sealed delta backlog or run a
+slice of the shadow recall queue.  A ``HealthMonitor`` (``health=``) is
+evaluated once per tick, and its firing alerts end the tick summary.
 """
 
 from __future__ import annotations
@@ -326,6 +326,7 @@ class ServiceDriver:
         prefetch: PrefetchPolicy | None = DeadlinePrefetch(),
         eviction: EvictionPolicy | None = CostAwareEviction(),
         tick_s: float = 0.005,
+        health: "HealthMonitor | None" = None,
     ):
         if not (tick_s > 0):
             raise ValueError(f"tick_s must be > 0, got {tick_s}")
@@ -340,6 +341,10 @@ class ServiceDriver:
         self.metrics = service.batcher.metrics
         self.metrics.reset("wlsh_driver_")
         self.stats = DriverStats(self.metrics)
+        # SLO burn-rate alerting (obs.health.HealthMonitor): evaluated
+        # once per tick after poll, surfaced in tick_summary.  None =
+        # no alerting
+        self.health = health
         self._last_snap: dict | None = None  # tick_summary diff baseline
         self._prev_policy = self.cache.eviction_policy
         if eviction is not None:
@@ -407,6 +412,14 @@ class ServiceDriver:
                           "idle ticks that absorbed sealed rows").inc()
             m.counter("wlsh_driver_ticks_total",
                       "scheduler ticks").inc()
+            # close the tick for SLO alerting: publish the queue depth
+            # the gauge rules watch, then evaluate every alert rule on
+            # this tick's counter movement
+            if self.health is not None:
+                m.gauge("wlsh_pending_queue_depth",
+                        "requests queued across pending buffers").set(
+                    self.svc.pending_count)
+                self.health.observe(now)
             return n
 
     def _clamp_to_budget(self, priority: list[int]) -> set[int]:
@@ -444,14 +457,17 @@ class ServiceDriver:
         """
         diff = self.metrics.diff(self._last_snap)
         self._last_snap = self.metrics.snapshot()
+        firing = ([a.rule for a in self.health.firing()]
+                  if self.health is not None else [])
+        suffix = (" | ALERTS: " + ",".join(firing)) if firing else ""
         if not diff:
-            return "driver: idle (no counter movement)"
+            return "driver: idle (no counter movement)" + suffix
         parts = []
         for name in sorted(diff):
             total = sum(diff[name].values())
             short = name.removeprefix("wlsh_").removesuffix("_total")
             parts.append(f"{short}=+{_fmt_delta(total)}")
-        return "driver: " + " ".join(parts)
+        return "driver: " + " ".join(parts) + suffix
 
     def submit(self, query, weight_id, deadline: float | None = None,
                tenant: str | None = None) -> QueryFuture:

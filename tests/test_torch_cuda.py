@@ -9,7 +9,9 @@ held to its plain torch version on the same CUDA tensors: histograms,
 first-frequent levels and the +inf mask exactly, hash codes exactly (the
 kernel sums in the plain version's order) and within the float64 window,
 finite scores to rtol 1e-5 (or the p = 2 atol of the norms expansion).
-``chip_smoke.py`` repeats this at the main path's shapes.  The paging
+bfloat16 rows are held the same way, and to the float32 kernels on
+the widened rows bit for bit.  ``chip_smoke.py`` repeats this at the
+main path's shapes.  The paging
 tests hold an evict/restore round trip bit for bit, a prefetched restore
 followed at once by a launch on another stream to the unpaged answers,
 and the thread-mode ``ServiceDriver`` under a one-group budget.  The
@@ -88,6 +90,81 @@ def test_kernels_match_plain_versions(dev, p, shape):
                         t["pts"].cpu().numpy(), p)
 
 
+@pytest.mark.parametrize("p", [2.0, 1.0, 0.5])
+@pytest.mark.parametrize("shape", [(1000, 24, 40, 11, 3, 8),
+                                   (1000, 70, 64, 17, 2, 24),
+                                   (1000, 24, 64, 19, 3, 24, "edge")],
+                         ids=str)
+def test_bf16_kernels_match_plain_versions(dev, p, shape):
+    """Both fused kernels on bfloat16 rows: equal to their plain versions
+    on the same rows (the rules above), and bit for bit to the float32
+    kernels on the rows widened (widening is exact, and nothing after
+    the load changes)."""
+    n, _, _, _, c, L = shape[:6]
+    t = _tensors(shape, 3, dev)
+    bf = t["pts"].to(torch.bfloat16)
+    wide = bf.float()
+    kw = dict(boff=5, n_valid=n - 50, c=c, n_levels=L, p=p)
+    row_ok = (5 + torch.arange(n, device=dev)) < n - 50
+    out = {}
+    for name, pts in (("bf16", bf), ("wide", wide)):
+        args = [t["cp"], pts, t["cq"], t["qs"], t["qw"], t["mu"],
+                t["beta_q"]]
+        out[name] = (*fused_query.fused_query_hist(*args, t["r_min"], **kw),
+                     fused_query.fused_query_scores(*args, t["stop"], **kw))
+    args = [t["cp"], bf, t["cq"], t["qs"], t["qw"], t["mu"], t["beta_q"]]
+    rf, rg = ref.fused_query_hist_ref(*args, t["r_min"], row_ok, c=c,
+                                      n_levels=L, p=p)
+    rs = ref.fused_query_scores_ref(*args, t["stop"], row_ok, c=c,
+                                    n_levels=L, p=p)
+    torch.cuda.synchronize()
+    for a, b in zip(out["bf16"], out["wide"]):
+        assert torch.equal(a, b)
+    hf, hg, sc = out["bf16"]
+    assert torch.equal(hf, rf)
+    assert torch.equal(hg, rg)
+    assert_scores_close(sc.cpu().numpy(), rs.cpu().numpy(),
+                        t["qs"].cpu().numpy(), t["qw"].cpu().numpy(),
+                        wide.cpu().numpy(), p)
+
+
+def test_bf16_service_on_the_card_matches_the_cpu(dev):
+    """bfloat16 storage: the same states, stop levels, n_checked and ids
+    on the card as on the CPU, and no float32 copy of a state's rows."""
+    from repro_torch.core.datagen import make_dataset, make_weight_set
+    from repro_torch.core.params import PlanConfig
+    from repro_torch.core.wlsh import WLSHIndex
+    from repro_torch.serving import RetrievalService, ServiceConfig
+
+    data = make_dataset(n=4096, d=64, seed=13)
+    weights = make_weight_set(size=8, d=64, n_subset=4, n_subrange=10,
+                              seed=14)
+    plan = WLSHIndex(data, weights, PlanConfig(p=2.0, c=3, n=4096),
+                     tau=500.0, v=4, v_prime=4, seed=15).export_serving_plan()
+    rng = np.random.default_rng(16)
+    wids = rng.integers(0, 8, 32)
+    qs = (data[rng.choice(4096, 32)] + rng.normal(0, 3, (32, 64))).astype(
+        np.float32)
+    svcs = [RetrievalService(plan, data, cfg=ServiceConfig(
+        k=5, q_batch=8, vec_dtype="bfloat16", device=d))
+        for d in ("cuda", "cpu")]
+    out = [s.query(qs, wids) for s in svcs]
+    for f in ("ids", "stop_levels", "n_checked"):
+        np.testing.assert_array_equal(getattr(out[0], f), getattr(out[1], f))
+    np.testing.assert_allclose(out[0].dists, out[1].dists, rtol=1e-6)
+    with svcs[0].state_cache.lease(0) as st, \
+            svcs[1].state_cache.lease(0) as st_cpu:
+        assert st.points.dtype == torch.bfloat16
+        assert torch.equal(st.points.cpu(), st_cpu.points)
+        n, d = st.points.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    svcs[0].query(qs, wids)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < n * d * 4
+
+
 def test_wrappers_check_their_inputs(dev):
     t = _tensors((300, 8, 16, 2, 3, 6), 2, dev)
     args = [t[k] for k in ("cp", "pts", "cq", "qs", "qw", "mu", "beta_q")]
@@ -103,6 +180,9 @@ def test_wrappers_check_their_inputs(dev):
                                        *args[1:], t["stop"], **kw)
     with pytest.raises(ValueError):
         fused_query.fused_query_hist(*args[:-1], args[-1].cpu(),
+                                     t["r_min"], **kw)
+    with pytest.raises(TypeError):  # float32 or bfloat16 rows only
+        fused_query.fused_query_hist(args[0], args[1].half(), *args[2:],
                                      t["r_min"], **kw)
 
 

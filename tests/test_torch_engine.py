@@ -148,11 +148,46 @@ def test_topk_breaks_ties_toward_the_lower_row():
 
 
 def test_unsupported_options_raise():
+    """Sharding still raises; bfloat16 storage is served (a state built
+    and queried), and any other vector dtype still raises."""
     from repro_torch.index import query_step
 
     cfg = IndexConfig(n=8, d=2, beta=32, n_shards=2)
     with pytest.raises(NotImplementedError):
         query_step(None, *([None] * 7), cfg=cfg)
+    for bad in ("float16", "int8"):
+        with pytest.raises(NotImplementedError):
+            query_step(None, *([None] * 7),
+                       cfg=IndexConfig(n=8, d=2, beta=32, vec_dtype=bad))
+    from repro_torch.core.datagen import make_dataset, make_weight_set
+    from repro_torch.core.params import PlanConfig
+    from repro_torch.core.wlsh import WLSHIndex
+    from repro_torch.index import build_group_state, pad_beta
+
+    data = make_dataset(n=128, d=8, seed=3)
+    weights = make_weight_set(size=4, d=8, n_subset=2, n_subrange=10, seed=4)
+    plan = WLSHIndex(data, weights, PlanConfig(p=2.0, c=3, n=128),
+                     tau=500.0, v=4, v_prime=4,
+                     seed=5).export_serving_plan()
+    g = plan.groups[0]
+    bf16 = IndexConfig(n=128, d=8, beta=pad_beta(g.beta_group), q_batch=2,
+                       k=3, n_levels=16, vec_dtype="bfloat16")
+    state = build_group_state(bf16, data, g, device="cpu")
+    assert state.points.dtype == torch.bfloat16
+    q = torch.from_numpy(data[:2])
+    codes = torch.from_numpy(np.ascontiguousarray(
+        np.pad(g.encode_host(data[:2]), ((0, 0), (0, bf16.beta
+                                                  - g.beta_group))),
+        np.int32))
+    w = torch.from_numpy(plan.weights[g.member_ids[:1]].repeat(2, 0))
+    d, ids, stop, chk = query_step(
+        state, q, codes, w.float(),
+        torch.tensor([g.mu_members[0]] * 2, dtype=torch.int32),
+        torch.tensor([g.r_min_members[0]] * 2, dtype=torch.float32),
+        torch.tensor([g.beta_members[0]] * 2, dtype=torch.int32),
+        torch.tensor([g.n_levels_members[0]] * 2, dtype=torch.int32),
+        cfg=bf16)
+    assert ids[:, 0].tolist() == [0, 1]  # each row finds itself
     with pytest.raises(NotImplementedError):
-        query_step(None, *([None] * 7),
-                   cfg=IndexConfig(n=8, d=2, beta=32, vec_dtype="bfloat16"))
+        build_group_state(dataclasses.replace(bf16, vec_dtype="float16"),
+                          data, g, device="cpu")

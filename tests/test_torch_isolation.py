@@ -1,9 +1,11 @@
-"""The port stands alone: no JAX, no JAX package, and the card by default.
+"""The port stands alone: no JAX, no JAX package, no ml_dtypes, and the
+card by default.
 
 * Every ``repro_torch`` module imports in a fresh interpreter in which
-  ``jax`` and ``repro`` cannot be imported at all.
+  ``jax``, ``repro`` and ``ml_dtypes`` cannot be imported at all.
 * No source file of the port (nor ``chip_smoke.py``) mentions an import
-  of ``jax`` or of the ``repro`` package (``repro_torch`` itself is fine).
+  of ``jax``, of the ``repro`` package (``repro_torch`` itself is fine)
+  or of ``ml_dtypes`` (bfloat16 data moves as torch tensors).
 * Entry points default to ``device="cuda"`` and raise when no CUDA device
   is present, unless the caller passes ``device="cpu"``.
 """
@@ -34,7 +36,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|"
-    r"from\s+repro\b(?!_)|from\s+repro\.)", re.M)
+    r"from\s+repro\b(?!_)|from\s+repro\.|import\s+ml_dtypes\b|"
+    r"from\s+ml_dtypes\b)", re.M)
 
 
 def _modules() -> list[str]:
@@ -50,15 +53,18 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.launch.retrieval" in mods
     assert "repro_torch.index.streaming" in mods
     assert "repro_torch.serving.delta" in mods
+    for name in ("trace", "profile", "recall", "health"):
+        assert f"repro_torch.obs.{name}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
+        " or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes']\n"
         "assert all(sys.modules[m] is None for m in bad), bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -83,6 +89,8 @@ def test_sources_never_import_jax_or_repro():
     ("import repro", True),
     ("from repro.core import wlsh", True),
     ("from repro import core", True),
+    ("import ml_dtypes", True),
+    ("from ml_dtypes import bfloat16", True),
     ("import repro_torch", False),
     ("from repro_torch.core import wlsh", False),
     ("    from ..core import wlsh", False),

@@ -91,8 +91,10 @@ def test_service_config_validates():
         ServiceConfig(k=0)
     with pytest.raises(NotImplementedError):
         ServiceConfig(n_shards=2)
-    with pytest.raises(NotImplementedError):
-        ServiceConfig(vec_dtype="bfloat16")
+    assert ServiceConfig(vec_dtype="bfloat16").vec_dtype == "bfloat16"
+    for bad in ("float16", "int8"):
+        with pytest.raises(NotImplementedError):
+            ServiceConfig(vec_dtype=bad)
     assert ServiceConfig(use_kernels=False).use_kernels == "off"
     assert ServiceConfig(use_kernels=True).use_kernels == "on"
     with pytest.raises(ValueError):
