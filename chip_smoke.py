@@ -102,7 +102,26 @@ non-zero:
                memory by less than a float32 copy of the rows; a paged
                round trip (3 of 7 states) equal to the unpaged bf16 leg,
                with pinned bfloat16 host buffers and its restore times
- 12. times   — each kernel on the main path's inputs for the widest
+ 12. shard   — the host-code plan with every group's rows split into S
+               contiguous slices on the one card (devices named
+               explicitly), 1,000 rows reserved a state (capacity 401,000
+               = 4 x 100,250: the last shard holds the live rows' edge):
+               S = 2 and 4 served bit-equal to the slice leg (ids,
+               distance bits, stop, n_checked), every pass launched once
+               a shard; on S = 4 both fused kernels on the straddling
+               shard (boff 300,750) held to their plain versions, the
+               per-host build (a loader called once a shard) torch.equal
+               the materialized sharded build, the plan without host
+               codes encoded shard by shard equal to the whole-state
+               encode, and S = 3 refused by the divisibility rule; 4
+               shards paged at 3 of 7 (a copy a shard) and on the async
+               driver, bit-equal; 64 inserts, one compaction a group
+               (every compacted state torch.equal a fresh sharded union
+               build), 16 deletes and a purge (the widest state equal to a
+               fresh sharded build over the survivors).  p50 / p95 per
+               batch, q/s, peak memory a leg, bytes, ms and GB/s a shard
+               copy
+ 13. times   — each kernel on the main path's inputs for the widest
                group: held to its plain version there (the rules of
                phase 3), its time, its plain version's time, the time of
                one PyTorch call that computes the same function where
@@ -114,7 +133,8 @@ line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the rest of the repository beside it, the script fails before
 printing any result.  ``--phases`` runs a subset (e.g. ``device,build,
 kernels``) for a short check; the full run needs all of them.  ``obs``
-and ``bf16`` need only ``slice`` (``--phases device,build,slice,obs,bf16``).
+and ``bf16`` need only ``slice`` (``--phases device,build,slice,obs,bf16``),
+as does ``shard`` (``--phases device,build,slice,shard``).
 """
 
 from __future__ import annotations
@@ -135,7 +155,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "kernels", "slice", "encode", "unfused",
-          "paged", "async", "obs", "bf16", "stream", "times")
+          "paged", "async", "obs", "bf16", "stream", "shard", "times")
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
 # float32 outside the tensor cores (F32_FLOPS counts an FMA as two flops;
@@ -183,6 +203,11 @@ WLP_PS = (1.0, 0.5, 1.5)  # weighted_lp's |t|, sqrt(|t|) and powf terms
 # the codeless plan, and the base rows and inserts deleted before a purge
 STREAM = dict(reserve=1_000, seal_rows=32, inserts=512, codeless_inserts=128,
               deletes=32)
+# the shard leg: shard counts on the one card, the rows reserved a state
+# (capacity 401,000 = 4 x 100,250, so the last shard holds n_valid's
+# edge: 99,250 live rows and 1,000 dead), and the streaming sub-leg's
+# inserts and deletes (base rows and inserts each)
+SHARD = dict(counts=(2, 4), reserve=1_000, inserts=64, deletes=8)
 # the obs leg: shadow recall sample rate (~16 of the 256 queries), the
 # recall floor its alert rule holds the shadow recall to, the threads that
 # run the host oracle's scans, and the async replay's arrival rate (a
@@ -1139,9 +1164,10 @@ def phase_paged(torch, dev, sl):
     return dict(svc=svc, qps=qps, launches=launches)
 
 
-def phase_async(torch, dev, sl, paged):
+def phase_async(torch, dev, sl, paged, shards=1, leg="async"):
     """Open-loop arrivals into the async frontend over the paged leg's
-    service, driven by a ServiceDriver thread with DeadlinePrefetch."""
+    service, driven by a ServiceDriver thread with DeadlinePrefetch
+    (``shards`` launches of each pass a batch on a sharded service)."""
     from repro_torch.kernels import _cuda
     from repro_torch.serving import (AsyncRetrievalService,
                                      DeadlinePrefetch, ServiceDriver)
@@ -1167,7 +1193,7 @@ def phase_async(torch, dev, sl, paged):
             futs.append(driver.submit(qpts[i], wids[i]))
         deadline = time.monotonic() + 300.0
         while not all(f.done() for f in futs):
-            _need(time.monotonic() < deadline, "async futures unresolved")
+            _need(time.monotonic() < deadline, f"{leg} futures unresolved")
             time.sleep(0.005)
     finally:
         driver.stop(drain=True)
@@ -1175,10 +1201,10 @@ def phase_async(torch, dev, sl, paged):
     _sync(torch, dev)
     launches = _cuda.launch_counts()
     n_batches = sum(s["n_batches"] for s in svc.stats_summary().values())
-    _need_launches(launches, {"fused_query_hist": n_batches,
-                              "fused_query_scores": n_batches,
+    _need_launches(launches, {"fused_query_hist": shards * n_batches,
+                              "fused_query_scores": shards * n_batches,
                               "hash_encode": 0, "freq_level": 0,
-                              "weighted_lp": 0}, "async")
+                              "weighted_lp": 0}, leg)
     want = sl["res"]
     same = sum(
         np.array_equal(f.result().ids, want.ids[i])
@@ -1190,7 +1216,7 @@ def phase_async(torch, dev, sl, paged):
                      - np.array(t_sub))
     cache, d = svc.cache_summary(), driver.stats
     model = svc.state_cache.cost_model
-    say(f"async serve: {len(qpts)} open-loop arrivals at {rate:.1f} q/s "
+    say(f"{leg} serve: {len(qpts)} open-loop arrivals at {rate:.1f} q/s "
         f"({ASYNC_LOAD:.0%} of the paged leg's), deadline "
         f"{ASYNC_DELAY_MS} ms, {PAGED_SLOTS} of {svc.plan.n_groups} "
         f"states on the card: {asvc.n_launched_full} full / "
@@ -1199,7 +1225,7 @@ def phase_async(torch, dev, sl, paged):
         f"submit-to-resolve p50 {np.percentile(wait_ms, 50):.2f} ms, p95 "
         f"{np.percentile(wait_ms, 95):.2f} ms; {same}/{len(qpts)} answers "
         f"equal to the slice leg's")
-    say(f"async driver: {d.n_ticks} ticks, {d.n_launches} launches, "
+    say(f"{leg} driver: {d.n_ticks} ticks, {d.n_launches} launches, "
         f"deadline misses {d.n_deadline_misses}/{d.n_deadlines_due}, "
         f"{d.n_prefetches_issued} prefetches issued; cache "
         f"{cache['n_restores']} restores ({cache['n_restore_overlapped']} "
@@ -1208,7 +1234,7 @@ def phase_async(torch, dev, sl, paged):
         f"hits; cost model {model.bytes_per_s / 1e9:.2f} GB/s learned "
         f"over {model.n_observed} restores")
     _need(asvc.n_launched_drain == 0, "the driver left futures to drain")
-    _need(same == len(qpts), "async answers differ from the slice leg's")
+    _need(same == len(qpts), f"{leg} answers differ from the slice leg's")
     _need(cache["n_restore_overlapped"] > 0,
           "no prefetch overlapped a restore")
     _free(torch, svc)
@@ -2161,6 +2187,328 @@ def _stream_codeless(torch, dev, sl, scfg, smi):
     return main
 
 
+# ------------------------------------------------------------------- shard
+
+
+def _shard_service(sl, dev, shards: int, **kw):
+    """A service over the slice's plan with every group's rows split into
+    ``shards`` slices, all on the one card (devices named explicitly)."""
+    from repro_torch.serving.retrieval import RetrievalService, ServiceConfig
+
+    cf = SLICE
+    return RetrievalService(sl["plan"], sl["data"], cfg=ServiceConfig(
+        k=cf["k"], q_batch=cf["q_batch"],
+        delta_reserve_rows=SHARD["reserve"], **kw),
+        devices=(str(dev),) * shards)
+
+
+def _equal_sharded(torch, a, b) -> bool:
+    return a.n_valid == b.n_valid and len(a.shards) == len(b.shards) and all(
+        _equal_states(torch, x, y) for x, y in zip(a.shards, b.shards))
+
+
+def _need_same(runs, want, leg: str) -> None:
+    """Every run's answers equal ``want``'s bit for bit; else print the
+    first queries that differ (ids and distances of both) and fail."""
+    for res in runs:
+        bad = np.where(~(np.all(res.ids == want.ids, axis=1)
+                         & np.all(res.dists.view(np.uint32)
+                                  == want.dists.view(np.uint32), axis=1)
+                         & (res.stop_levels == want.stop_levels)
+                         & (res.n_checked == want.n_checked)))[0]
+        for qi in bad[:3]:
+            say(f"{leg}: query {qi} ids {res.ids[qi].tolist()} dists "
+                f"{res.dists[qi].tolist()} stop {res.stop_levels[qi]}, the "
+                f"slice leg's ids {want.ids[qi].tolist()} dists "
+                f"{want.dists[qi].tolist()} stop {want.stop_levels[qi]}")
+        _need(len(bad) == 0, f"{leg}: {len(bad)} answers differ from the "
+              f"slice leg's")
+
+
+def _shard_checks(torch, dev, sl, svc, smi):
+    """On the 4-shard service: both fused passes on the shard that
+    straddles n_valid held to their plain versions, the per-host builds
+    (host codes, and device-encoded shard by shard) held to the
+    materialized and the whole-state builds, and S = 3 refused."""
+    import dataclasses
+
+    from repro_torch.index.builder import build_group_state
+    from repro_torch.kernels import fused_query, ref
+
+    plan, data = sl["plan"], sl["data"]
+    gi = _widest(svc, plan)
+    cfg, g = svc.group_config(gi), plan.groups[gi]
+    st = _state(svc, gi)
+    s_last = max(i for i, off in enumerate(st.offsets) if off < st.n_valid)
+    sh, off = st.shards[s_last], st.offsets[s_last]
+    n_loc = st.rows_per_shard
+    rows = np.where(plan.group_of[sl["wids"]] == gi)[0]
+    take = rows[np.arange(cfg.q_batch) % len(rows)]
+    _, _, inp = _batch_inputs(svc, plan, sl["qpts"], sl["wids"], take,
+                              torch, dev)
+    step = svc.step_cache.get(dev, cfg)
+    _, _, stop, _ = step(st, inp["queries"], inp["codes_q"],
+                         inp["q_weight"], inp["mu"], inp["r_min"],
+                         inp["beta_q"], inp["levels_q"])
+    inp.update(codes_p=sh.codes, points=sh.points, stop=stop.contiguous())
+    kw = dict(boff=off, n_valid=st.n_valid, c=cfg.c, n_levels=cfg.n_levels,
+              p=cfg.p)
+    row_ok = (off + torch.arange(n_loc, device=dev)) < st.n_valid
+    hf, hg = fused_query.fused_query_hist(*_pass_args(inp, "hist"), **kw)
+    sc = fused_query.fused_query_scores(*_pass_args(inp, "scores"), **kw)
+    pk = dict(c=cfg.c, n_levels=cfg.n_levels, p=cfg.p)
+    rf, rg = ref.fused_query_hist_ref(*_pass_args(inp, "hist"), row_ok, **pk)
+    rs = ref.fused_query_scores_ref(*_pass_args(inp, "scores"), row_ok, **pk)
+    dead = int(hf[:, -1].sum()) // hf.shape[0]
+    _need(dead == off + n_loc - st.n_valid,
+          f"the straddling shard binned {dead} dead rows a query")
+    err = _hold(torch, inp, cfg.p, (hf, hg, sc), (rf, rg, rs),
+                f"shard hold (group {gi}, shard {s_last} of "
+                f"{st.n_shards}: boff={off}, n_valid={st.n_valid}, "
+                f"{n_loc - dead} live and {dead} dead rows, Q="
+                f"{cfg.q_batch}) [{smi}]")
+
+    calls = []
+
+    def loader(lo, hi):
+        calls.append((lo, hi))
+        return data[lo:hi]
+
+    t0 = time.time()
+    hosted = build_group_state(cfg, None, g, svc.devices,
+                               points_loader=loader, n_points=plan.n)
+    _sync(torch, dev)
+    t_host, n_calls = time.time() - t0, len(calls)
+    same_host = _equal_sharded(torch, hosted, st)
+    del hosted
+    _need(all(hi - lo <= n_loc for lo, hi in calls),
+          f"the loader was asked for more than a shard: {calls}")
+    cg = sl["host"].export_serving_plan(include_codes=False).groups[gi]
+    coded = build_group_state(cfg, None, cg, svc.devices,
+                              points_loader=loader, n_points=plan.n)
+    whole = build_group_state(dataclasses.replace(cfg, n_shards=1), data,
+                              cg, dev)
+    same_enc = all(
+        torch.equal(x.codes, whole.codes[o:o + n_loc])
+        and torch.equal(x.points, whole.points[o:o + n_loc])
+        for x, o in zip(coded.shards, coded.offsets))
+    del coded, whole
+    try:
+        build_group_state(dataclasses.replace(cfg, n_shards=3), data, g,
+                          (str(dev),) * 3)
+        refused = "nothing"
+    except ValueError as e:
+        refused = str(e)
+    say(f"shard builds (group {gi}): the per-host build from "
+        f"{n_calls} loader ranges of at most {n_loc} rows "
+        f"{'torch.equal' if same_host else 'DIFFERS FROM'} the materialized "
+        f"sharded build, shard by shard ({t_host:.2f} s); the plan without "
+        f"host codes encoded shard by shard by hash_encode "
+        f"{'equal to' if same_enc else 'DIFFERS FROM'} the whole-state "
+        f"encode (codes and vectors); S = 3 at capacity {cfg.n}: "
+        f"{refused!r}")
+    _need(same_host, "the per-host build differs from the materialized one")
+    _need(same_enc, "the per-shard device encode differs from the whole")
+    _need("does not divide 3 shards" in refused,
+          "S = 3 was not refused by the strict divisibility rule")
+    return err
+
+
+def _shard_stream(torch, dev, sl, svc, smi):
+    """Inserts, one compaction per group, deletes and a purge on the
+    4-shard paged service: compacted and purged states equal fresh
+    sharded builds.  Returns the main path's launches."""
+    from repro_torch.index.builder import build_group_state, seal_segment
+    from repro_torch.kernels import _cuda
+
+    plan, data, n = sl["plan"], sl["data"], sl["plan"].n
+    m, n_del = SHARD["inserts"], SHARD["deletes"]
+    ins, ins_w = _stream_inserts(data, plan.n_weights, m, seed=37)
+    ins_g = plan.group_of[ins_w]
+    svc.reset_stats()
+    excluded: dict = {}
+    _cuda.reset_launch_counts()
+    pids = np.asarray([svc.insert(v, int(w)) for v, w in zip(ins, ins_w)])
+    pre = int(_self_found(svc.query(ins, ins_w), pids).sum())
+    ds0 = svc.delta_summary()
+    absorbed = svc.compact()
+    ds = svc.delta_summary()
+    post = int(_self_found(svc.query(ins, ins_w), pids).sum())
+    res_post = svc.query(sl["qpts"], sl["wids"])
+
+    def union_check():
+        n_same = 0
+        for gi in range(plan.n_groups):
+            sel = np.where(ins_g == gi)[0]
+            cfg, g = svc.group_config(gi), plan.groups[gi]
+            fresh = build_group_state(
+                cfg, data, g, svc.devices, extra_points=ins[sel],
+                extra_codes=seal_segment(cfg, g, ins[sel]))
+            with svc.batcher.lease(gi) as st:
+                n_same += _equal_sharded(torch, st, fresh)
+            del fresh
+        return n_same
+
+    n_same = _excluding(torch, union_check, excluded)
+    base = [i for i in dict.fromkeys(res_post.ids[:, 0].tolist())
+            if 0 <= i < n][:n_del]
+    gone = np.asarray(base + pids[:: m // n_del][:n_del].tolist())
+    for pid in gone:
+        svc.delete(int(pid))
+    t0 = time.perf_counter()
+    svc.compact(purge=True)
+    purge_s = time.perf_counter() - t0
+    res_purged = svc.query(sl["qpts"], sl["wids"])
+    self_p = svc.query(ins, ins_w)
+    kept = ~np.isin(pids, gone)
+    seen = int(np.isin(res_purged.ids, gone).sum()
+               + np.isin(self_p.ids, gone).sum())
+    found = int(_self_found(self_p, pids)[kept].sum())
+    wide = _widest(svc, plan)
+    sel = np.where((ins_g == wide) & kept)[0]
+
+    def purge_check():
+        cfg, g = svc.group_config(wide), plan.groups[wide]
+        fresh = build_group_state(
+            cfg, data, g, svc.devices, extra_points=ins[sel],
+            extra_codes=seal_segment(cfg, g, ins[sel]),
+            base_rows=np.setdiff1d(np.arange(n), base))
+        with svc.batcher.lease(wide) as st:
+            return _equal_sharded(torch, st, fresh), st.n_valid
+
+    same_purge, nv = _excluding(torch, purge_check, excluded)
+    _sync(torch, dev)
+    main = {name: cnt - excluded.get(name, 0)
+            for name, cnt in _cuda.launch_counts().items()}
+    n_batches = sum(s["n_batches"] for s in svc.stats_summary().values())
+    shards = svc.batcher.n_shards
+    _need_launches(main, {"fused_query_hist": shards * n_batches,
+                          "fused_query_scores": shards * n_batches,
+                          "hash_encode": 0, "freq_level": 0,
+                          "weighted_lp": 0}, "shard stream")
+    say(f"shard stream ({shards} shards, {PAGED_SLOTS} of {plan.n_groups} "
+        f"states on the card): {m} inserts, {pre}/{m} self-queries at rank "
+        f"0 by the exact scan; {ds['n_compactions'] - ds0['n_compactions']} "
+        f"compactions (one a group) absorbed {absorbed} rows, {post}/{m} "
+        f"self-queries at rank 0 through the fused kernels; {n_same}/"
+        f"{plan.n_groups} compacted sharded states torch.equal a fresh "
+        f"sharded union build, shard by shard; {len(gone)} ids deleted, "
+        f"purge {purge_s:.3f} s, {seen} deleted ids served, {found}/"
+        f"{int(kept.sum())} surviving inserts at rank 0, the widest purged "
+        f"state (n_valid {nv}) "
+        f"{'torch.equal' if same_purge else 'DIFFERS FROM'} a fresh sharded "
+        f"build over the survivors [{smi}]")
+    _need(pre == m and post == m and absorbed == m,
+          "a sharded insert missed itself")
+    _need(ds["n_compactions"] - ds0["n_compactions"]
+          == len(np.unique(ins_g)), "not one compaction a group")
+    _need(n_same == plan.n_groups, "a compacted sharded state differs from "
+          "a fresh sharded union build")
+    _need(seen == 0 and found == int(kept.sum()) and same_purge,
+          "the sharded purge differs from a fresh build over the survivors")
+    return main
+
+
+def phase_shard(torch, dev, sl, smi):
+    """The slice's plan with every group's rows split into S slices on the
+    one card (S in SHARD["counts"]), capacity 401,000 so the last shard
+    straddles n_valid: answers bit-equal to the slice leg's for sync, 4
+    shards paged at PAGED_SLOTS of 7 and on the async driver; the
+    straddling shard's kernels, the per-host builds and S = 3 checked
+    (``_shard_checks``); a streaming sub-leg (``_shard_stream``)."""
+    cf, plan = SLICE, sl["plan"]
+    qpts, wids = sl["qpts"], sl["wids"]
+    _free(torch, sl["svc"])  # the unpaged leg's states leave the card
+    launches: dict = {}
+
+    def add(got):
+        for name, cnt in got.items():
+            launches[name] = launches.get(name, 0) + cnt
+
+    errs = {}
+    for shards in SHARD["counts"]:
+        svc = _shard_service(sl, dev, shards, offload_evicted=False)
+        t0 = time.time()
+        svc.warmup()
+        _sync(torch, dev)
+        t_build = time.time() - t0
+        cap = svc.batcher.row_capacity()
+        svc.query(qpts, wids)  # warm
+        _sync(torch, dev)
+        _reset_peak(torch, dev)
+        runs, lat, t_q, got = _serve(torch, dev, svc, qpts, wids, cf["reps"])
+        peak = _peak(torch, dev)
+        _need_launches(got, {"fused_query_hist": shards * len(lat),
+                             "fused_query_scores": shards * len(lat),
+                             "hash_encode": 0, "freq_level": 0,
+                             "weighted_lp": 0}, f"shard S={shards}")
+        add(got)
+        n_served = len(qpts) * cf["reps"]
+        held = 0  # every slice shares the card: all of them count there
+        for gi in range(plan.n_groups):
+            with svc.state_cache.lease(gi) as st:
+                held += st.nbytes + 4 * shards  # + the n_valid scalars
+        del st  # else the last state outlives its service on the card
+        say(f"shard S={shards} serve: {cf['reps']} x {len(qpts)} queries, "
+            f"{shards} shards of {cap // shards} rows on one card (capacity "
+            f"{cap}, last live row in shard "
+            f"{(plan.n - 1) // (cap // shards)}), {len(lat)} batches, "
+            f"{t_q:.3f}s ({n_served / t_q:.1f} q/s); {_lat(lat)} (slice "
+            f"leg p50 {np.percentile(sl['lat'], 50):.2f} ms); peak device "
+            f"memory {peak} bytes (slice leg {sl['peak']}); build "
+            f"{t_build:.1f}s; {svc.resident_bytes} bytes accounted on the "
+            f"card, {held} held by the {plan.n_groups} states' slices [{smi}]")
+        _need_same(runs, sl["res"], f"shard S={shards}")
+        _need(held == svc.resident_bytes, f"shard S={shards}: the states' "
+              f"slices hold {held} bytes, {svc.resident_bytes} accounted")
+        if shards == max(SHARD["counts"]):
+            errs = _shard_checks(torch, dev, sl, svc, smi)
+        _free(torch, svc)
+        del svc
+        _release(torch)
+
+    shards = max(SHARD["counts"])
+    svc = _shard_service(sl, dev, shards, max_resident_groups=PAGED_SLOTS)
+    svc.warmup()
+    svc.query(qpts, wids)  # warm: every group offloaded once, allocator
+    _sync(torch, dev)
+    svc.reset_stats()
+    pager = svc.batcher.pager
+    n0 = len(pager.summary()["copy_ms"])
+    _reset_peak(torch, dev)
+    runs, lat, t_q, got = _serve(torch, dev, svc, qpts, wids, cf["reps"])
+    peak = _peak(torch, dev)
+    _need_launches(got, {"fused_query_hist": shards * len(lat),
+                         "fused_query_scores": shards * len(lat),
+                         "hash_encode": 0, "freq_level": 0,
+                         "weighted_lp": 0}, "shard paged")
+    add(got)
+    cache, ps = svc.cache_summary(), pager.summary()
+    copy_ms = np.array(ps["copy_ms"][n0:])
+    copy_b = np.array(ps["copy_bytes"][n0:], np.float64)
+    qps = len(qpts) * cf["reps"] / t_q
+    say(f"shard paged serve: {shards} shards, {PAGED_SLOTS} of "
+        f"{plan.n_groups} states on the card, {len(lat)} batches, "
+        f"{t_q:.3f}s ({qps:.1f} q/s); {_lat(lat)}; {cache['n_restores']} "
+        f"restores as {len(copy_ms)} shard copies, "
+        f"{copy_b.mean():.0f} bytes and {copy_ms.mean():.3f} ms a shard "
+        f"copy mean (p50 {np.percentile(copy_ms, 50):.3f}, p95 "
+        f"{np.percentile(copy_ms, 95):.3f} ms), "
+        f"{(copy_b / (copy_ms / 1e3)).mean() / 1e9:.2f} GB/s a shard mean; "
+        f"{ps['pinned_bytes']} pinned bytes; peak device memory {peak} "
+        f"bytes [{smi}]")
+    _need_same(runs, sl["res"], "shard paged")
+    _need(cache["n_restores"] > 0, "the sharded paged leg restored nothing")
+    _need(len(copy_ms) == shards * cache["n_restores"],
+          f"{len(copy_ms)} shard copies for {cache['n_restores']} restores")
+    add(phase_async(torch, dev, sl, dict(svc=svc, qps=qps), shards=shards,
+                    leg="shard async")["launches"])
+    add(_shard_stream(torch, dev, sl, svc, smi))
+    del svc, pager
+    _release(torch)
+    return dict(launches=launches, err=errs)
+
+
 def _bound(bytes_, ops_ms: float):
     """(bound ms, what bounds it) from bytes and the operations' time."""
     bytes_ms = 1e3 * bytes_ / HBM_BYTES_PER_S
@@ -2217,8 +2565,8 @@ def _times_fused(torch, dev, sl, errs, smi, inputs, other):
             f"{t_p[name]:.3f} ms, bound {bound[0]:.3f} ms by {bound[1]} "
             f"({tests} level tests, {flops} flops, "
             f"{in_bytes + out_bytes[name]} bytes) [{smi}]")
-        # launches: the slice leg's main path and the stream, obs and
-        # bf16 legs'
+        # launches: the slice leg's main path and the stream, obs, bf16
+        # and shard legs'
         table.append(_row(name, sl["launches"][name] + other[name],
                           errs[name], t_k[name], t_p[name], bound))
     _times_fused_bf16(torch, dev, smi, inputs, t_k)
@@ -2383,17 +2731,18 @@ def _times_weighted_lp(torch, dev, errs, smi, inputs, launches):
 
 def phase_times(torch, dev, sl, legs, errs, smi):
     inputs = _slice_pass_inputs(sl, torch, dev)
-    stream = legs["stream"]["launches"]
+    stream, shard = legs["stream"]["launches"], legs["shard"]["launches"]
     other = {k: stream[k] + legs["obs"]["launches"][k]
-             + legs["bf16"]["launches"][k] for k in stream}
+             + legs["bf16"]["launches"][k] + shard.get(k, 0) for k in stream}
     errs = _max_err(errs, legs["bf16"]["err"])
+    errs = _max_err(errs, legs["shard"]["err"])
     table = _times_fused(torch, dev, sl, errs, smi, inputs, other)
     table.append(_times_hash_encode(
-        torch, dev, errs, smi, inputs,
-        legs["encode"]["launches"] + stream["hash_encode"]))
+        torch, dev, errs, smi, inputs, legs["encode"]["launches"]
+        + stream["hash_encode"] + shard.get("hash_encode", 0)))
     table.append(_times_freq_level(
-        torch, dev, errs, smi, inputs,
-        legs["unfused"]["launches"] + stream["freq_level"]))
+        torch, dev, errs, smi, inputs, legs["unfused"]["launches"]
+        + stream["freq_level"] + shard.get("freq_level", 0)))
     # on no serving path, as in the JAX package: each leg counted 0
     table.append(_times_weighted_lp(
         torch, dev, errs, smi, inputs, sl["launches"]["weighted_lp"]
@@ -2454,6 +2803,10 @@ def main(argv=None) -> int:
         if sl is None:
             raise SystemExit("the stream phase needs the slice phase")
         legs["stream"] = phase_stream(torch, dev, sl, smi)
+    if "shard" in phases:
+        if sl is None:
+            raise SystemExit("the shard phase needs the slice phase")
+        legs["shard"] = phase_shard(torch, dev, sl, smi)
     if "times" in phases:
         if sl is None or errs is None or set(legs) != set(PHASES[4:-1]):
             raise SystemExit("the times phase needs every other phase")

@@ -1,0 +1,23 @@
+"""One table group's rows sharded across devices, driven by one process."""
+
+from .group_sharding import (
+    HostShardedState,
+    ShardedQueryState,
+    build_group_state_per_host,
+    host_row_ranges,
+    merge_histograms,
+    merge_shard_topk,
+    offload_state_sharded,
+    serving_devices,
+)
+
+__all__ = [
+    "HostShardedState",
+    "ShardedQueryState",
+    "build_group_state_per_host",
+    "host_row_ranges",
+    "merge_histograms",
+    "merge_shard_topk",
+    "offload_state_sharded",
+    "serving_devices",
+]

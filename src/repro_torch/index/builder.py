@@ -23,6 +23,11 @@ card needs around them: one pinned host copy per group, reused across
 evict/restore cycles, and restores enqueued on a dedicated copy stream
 with a CUDA event that every launch stream waits on before it reads the
 restored state.
+
+A group sharded across devices (``cfg.n_shards > 1``) is built, written
+and paged shard by shard (``distributed.group_sharding``): each shard
+holds a contiguous row slice and equals that slice of the unsharded
+build, bit for bit.
 """
 
 from __future__ import annotations
@@ -34,7 +39,11 @@ import numpy as np
 import torch
 
 from ..core.serving_plan import GroupServingPlan
-from ..kernels import ops
+from ..distributed import group_sharding
+from ..distributed.group_sharding import (
+    HostShardedState,
+    ShardedQueryState,
+)
 from ..kernels.platform import resolve_device
 from .config import VEC_DTYPES, IndexConfig
 from .engine import QueryState, encode_queries
@@ -82,14 +91,16 @@ def pad_cols(x: np.ndarray, beta: int) -> np.ndarray:
 
 def build_group_state(
     cfg: IndexConfig,
-    points: np.ndarray,
+    points: np.ndarray | None,
     gplan: GroupServingPlan,
-    device: str | torch.device = "cuda",
+    device="cuda",
     *,
     extra_points: np.ndarray | None = None,
     extra_codes: np.ndarray | None = None,
     base_rows: np.ndarray | None = None,
-) -> QueryState:
+    points_loader=None,
+    n_points: int | None = None,
+):
     """Materialize one table group's ``QueryState`` on ``device``.
 
     ``cfg.beta`` may exceed the group's real table count (bucketed shape
@@ -105,6 +116,16 @@ def build_group_state(
     stored in ``cfg.vec_dtype`` (bfloat16: rounded to nearest even on the
     device).
 
+    Sharding: with ``cfg.n_shards > 1`` the result is a
+    ``ShardedQueryState`` whose shard s holds the rows ``[s * n_loc, (s +
+    1) * n_loc)`` on ``device[s]`` (a sequence of one device a shard; a
+    single device goes through ``group_sharding.serving_devices``).
+    Each shard equals the same row slice of the unsharded build.
+    ``points_loader`` + ``n_points`` replace ``points`` (pass None) with
+    per-shard row ranges (``group_sharding.build_group_state_per_host``):
+    the whole corpus never exists as one host array.  They do not combine
+    with the streaming arguments.
+
     Streaming:
 
     * ``base_rows`` keeps only those base corpus rows, in that order (the
@@ -117,17 +138,19 @@ def build_group_state(
       bit for bit, a state that reached the same rows through
       ``append_to_state``.
     """
-    dev = resolve_device(device)
-    store = storage_dtype(cfg)
-    folded = gplan.folded()
-
-    def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-    proj = put(pad_cols(folded["proj"], cfg.beta))
-    b_int = put(pad_cols(folded["b_int"], cfg.beta))
-    b_frac = put(pad_cols(folded["b_frac"], cfg.beta))
-
+    if points_loader is not None:
+        if points is not None:
+            raise ValueError("pass either points or points_loader, not both")
+        if n_points is None:
+            raise ValueError("points_loader requires n_points")
+        if (extra_points is not None or extra_codes is not None
+                or base_rows is not None):
+            raise ValueError(
+                "points_loader does not combine with the streaming "
+                "arguments (extra_points/extra_codes/base_rows)")
+        return group_sharding.build_group_state_per_host(
+            cfg, gplan, points_loader, n_points,
+            group_sharding.shard_devices_of(device, cfg.n_shards))
     base = np.asarray(points, dtype=np.float32)
     if base_rows is not None:
         base_rows = np.asarray(base_rows, np.int64)
@@ -140,17 +163,8 @@ def build_group_state(
         raise ValueError(
             f"{n_rows} live rows exceed the config row capacity {cfg.n}"
         )
-    if gplan.codes is None:
-        vecs = torch.zeros((cfg.n, cfg.d), dtype=torch.float32, device=dev)
-        vecs[:n_base] = put(base)
-        vecs[n_base:n_rows] = put(extra)
-        codes = ops.hash_encode(vecs, torch.ones(cfg.d, device=dev), proj,
-                                b_int, b_frac, 1.0)
-        vecs = vecs.to(store)
-    else:
-        vecs = torch.zeros((cfg.n, cfg.d), dtype=store, device=dev)
-        vecs[:n_base] = put(base)  # a float32 upload, cast on the device
-        vecs[n_base:n_rows] = put(extra)
+    base_codes = None
+    if gplan.codes is not None:
         base_codes = gplan.codes
         if base_rows is not None:
             base_codes = base_codes[base_rows]
@@ -164,25 +178,26 @@ def build_group_state(
                 f"{n_extra_codes} extra codes for {len(extra)} extra rows "
                 f"(pass extra_codes alongside extra_points)"
             )
-        codes = torch.full((cfg.n, cfg.beta), _PAD_CODE, dtype=torch.int32,
-                           device=dev)
-        codes[:n_base] = put(pad_cols(base_codes, cfg.beta).astype(np.int32))
-        if len(extra):
-            if extra_codes.shape[1] != cfg.beta:
-                raise ValueError(
-                    f"extra_codes must be sealed at cfg.beta={cfg.beta} "
-                    f"columns, got {extra_codes.shape[1]}"
-                )
-            codes[n_base:n_rows] = put(np.asarray(extra_codes, np.int32))
-    return QueryState(
-        codes=codes,
-        points=vecs,
-        proj=proj,
-        b_int=b_int,
-        b_frac=b_frac,
-        width=torch.tensor(1.0, dtype=torch.float32, device=dev),
-        n_valid=n_rows,
-    )
+        if len(extra) and extra_codes.shape[1] != cfg.beta:
+            raise ValueError(
+                f"extra_codes must be sealed at cfg.beta={cfg.beta} "
+                f"columns, got {extra_codes.shape[1]}"
+            )
+    host_codes = base_codes is not None
+
+    def pieces(lo, hi):  # the base and extra rows among rows [lo, hi)
+        out = []
+        for at, rows, codes in ((0, base, base_codes),
+                                (n_base, extra, extra_codes)):
+            a, b = max(lo, at), min(hi, at + len(rows))
+            if a < b:
+                out.append((a, rows[a - at:b - at], pad_cols(
+                    codes[a - at:b - at], cfg.beta) if host_codes else None))
+        return out
+
+    return group_sharding.build_shards(
+        cfg, gplan, group_sharding.shard_devices_of(device, cfg.n_shards),
+        n_rows, pieces, host_codes)
 
 
 def seal_segment(
@@ -227,10 +242,15 @@ def append_to_state(state: QueryState, codes: np.ndarray,
     L+2 in the fused pass, level L+1 in the unfused one), so its answers
     are unchanged.  Equal, bit for bit, to ``build_group_state`` over the
     union corpus at the same capacity.
+
+    On a ``ShardedQueryState`` each row goes to the shard that owns its
+    global row (several shards when the rows cross a slice boundary).
     """
     m = len(codes)
     if m != len(vectors):
         raise ValueError(f"codes/vectors row mismatch: {m} vs {len(vectors)}")
+    if isinstance(state, ShardedQueryState):
+        return _append_sharded(state, codes, vectors)
     off = state.n_valid
     cap, beta = state.codes.shape
     if off + m > cap:
@@ -246,6 +266,26 @@ def append_to_state(state: QueryState, codes: np.ndarray,
     state.points[off:off + m].copy_(
         torch.from_numpy(np.ascontiguousarray(vectors, np.float32)))
     return dataclasses.replace(state, n_valid=off + m)
+
+
+def _append_sharded(state: ShardedQueryState, codes, vectors):
+    """``append_to_state`` over the shards: global rows ``[n_valid,
+    n_valid + m)`` split at the slice boundaries."""
+    m, off, n_loc = len(codes), state.n_valid, state.rows_per_shard
+    cap = n_loc * state.n_shards
+    if off + m > cap:
+        raise ValueError(
+            f"append of {m} rows at {off} exceeds row capacity {cap} "
+            f"(raise ServiceConfig.delta_reserve_rows)"
+        )
+    shards = []
+    for sh, lo in zip(state.shards, state.offsets):
+        a, b = max(off, lo), min(off + m, lo + n_loc)
+        if a < b:  # this shard's live tail is at local row a - lo
+            sh = append_to_state(sh, codes[a - off:b - off],
+                                 vectors[a - off:b - off])
+        shards.append(sh)
+    return dataclasses.replace(state, shards=tuple(shards), n_valid=off + m)
 
 
 def _tensor_fields(state: QueryState):
@@ -267,8 +307,12 @@ def offload_state(state: QueryState,
     earlier host copy of the same shapes (a group's bytes keep their
     shapes), is written in place and returned, so a group's pinned
     buffers are allocated once and reused across evict/restore cycles.
-    The copy is synchronous: the result holds the bytes on return.
+    The copy is synchronous: the result holds the bytes on return.  A
+    ``ShardedQueryState`` is copied shard by shard into a
+    ``HostShardedState`` (``group_sharding.offload_state_sharded``).
     """
+    if isinstance(state, ShardedQueryState):
+        return group_sharding.offload_state_sharded(state, out=out)
     pin = state.device.type == "cuda"
     fields = {}
     for name, t in _tensor_fields(state):
@@ -306,8 +350,9 @@ def restore_state(host: QueryState, device: str | torch.device,
 
 @dataclasses.dataclass
 class _Copy:
-    """The device work that made a group's current state: a restore on
-    the copy stream, or a build or write on the stream that ran it."""
+    """The device work that made one shard of a group's current state: a
+    restore on its device's copy stream, or a build or write on the
+    stream that ran it."""
 
     start: object  # torch.cuda.Event (timing; None for a build or write)
     end: object  # torch.cuda.Event; launch streams wait on it
@@ -320,25 +365,40 @@ class _Group:
     """A group's paging record: its device state and its host buffers."""
 
     state: object = None  # weakref to the group's current device state
-    host: QueryState | None = None  # its host copy (pinned on the card)
-    copy: _Copy | None = None  # the device work that produced ``state``
+    host: object = None  # its host copy (pinned on the card)
+    copies: list | None = None  # per shard: the work that produced it
+
+
+def _shards(state) -> tuple:
+    """The per-device ``QueryState``s of a state (itself when unsharded)."""
+    if isinstance(state, (ShardedQueryState, HostShardedState)):
+        return state.shards
+    return (state,)
 
 
 class StatePager:
-    """Offload and restore executors for a ``StateCache`` on one device.
+    """Offload and restore executors for a ``StateCache``.
 
     ``offload(state)`` copies an evicted state into its group's host
     buffers (pinned on the card, allocated once per group) and
     ``restore(gi, host)`` uploads them again.  On the card a restore
-    allocates its tensors on a dedicated copy stream and enqueues the
-    copies there between two timing events, so a prefetch returns at once
-    and the upload overlaps the launches that run meanwhile.  Every use of
-    a state's tensors (a launch, a seal's encode, a compaction's write)
-    calls ``ready(gi, state)`` first: the current stream of the calling
-    thread waits on the copy's end event and each tensor is recorded on
-    that stream, so neither the use nor the caching allocator can touch
-    the memory before the copy is done.  An offload waits for the restore
-    that filled its group's buffers before it overwrites them.
+    allocates its tensors on a dedicated copy stream of the device and
+    enqueues the copies there between two timing events, so a prefetch
+    returns at once and the upload overlaps the launches that run
+    meanwhile.  Every use of a state's tensors (a launch, a seal's encode,
+    a compaction's write) calls ``ready(gi, state)`` first: the current
+    stream of the calling thread waits on the copy's end event and each
+    tensor is recorded on that stream, so neither the use nor the caching
+    allocator can touch the memory before the copy is done.  An offload
+    waits for the restore that filled its group's buffers before it
+    overwrites them.
+
+    A sharded state (``ShardedQueryState``; ``device`` is then a sequence
+    naming one device a shard) is paged shard by shard: one pinned host
+    chunk per shard (``HostShardedState``), each device its own copy
+    stream, each shard its own start and end events, and ``ready`` orders
+    each shard's device's current stream after that shard's copy.  An
+    offload waits for every shard's restore.
 
     A state that replaces the group's (a compaction's append writes the
     same tensors in place) is ``adopt``ed like a fresh build: the group
@@ -346,15 +406,17 @@ class StatePager:
     into them again.
 
     ``restore_timings`` hands the ``StateCache`` the device time of each
-    finished copy; ``summary`` reports the finished copies' bytes and
-    times, and the pinned host bytes.  On the CPU the same executors clone
-    and nothing waits.
+    finished copy (one a shard); ``summary`` reports the finished copies'
+    bytes and times, and the pinned host bytes.  On the CPU the same
+    executors clone and nothing waits.
     """
 
-    def __init__(self, device: str | torch.device):
-        self.device = resolve_device(device)
+    def __init__(self, device):
+        self.devices = tuple(resolve_device(d) for d in (
+            device if isinstance(device, (list, tuple)) else (device,)))
+        self.device = self.devices[0]
         self._groups: dict[int, _Group] = {}
-        self._stream = None  # the copy stream, created on first restore
+        self._streams: dict = {}  # device -> its copy stream, made lazily
         self._untimed: list[_Copy] = []  # copies whose time is not read yet
         self._copy_ms: list[float] = []  # device time of finished copies
         self._copy_bytes: list[int] = []
@@ -364,75 +426,97 @@ class StatePager:
     def _group(self, gi: int) -> _Group:
         return self._groups.setdefault(int(gi), _Group())
 
-    def adopt(self, gi: int, state: QueryState) -> QueryState:
-        """Record ``state``, just built or written on the current stream,
+    def adopt(self, gi: int, state) -> object:
+        """Record ``state``, just built or written on the current streams,
         as group ``gi``'s current state; returns it.
 
-        On the card an event is recorded on the current stream after that
-        work, and ``ready`` orders a use on any other stream after it.
+        On the card an event is recorded on each shard's device's current
+        stream after that work, and ``ready`` orders a use on any other
+        stream after it.
         """
         g = self._group(gi)
         g.state = weakref.ref(state)
-        g.copy = None
+        g.copies = None
         if self.device.type == "cuda":
-            stream = torch.cuda.current_stream(self.device)
-            g.copy = _Copy(None, stream.record_event(), 0,
-                           {stream.cuda_stream})
+            g.copies = []
+            for sh in _shards(state):
+                stream = torch.cuda.current_stream(sh.device)
+                g.copies.append(_Copy(None, stream.record_event(), 0,
+                                      {stream.cuda_stream}))
         return state
 
-    def offload(self, state: QueryState) -> QueryState:
+    def offload(self, state):
         """StateCache offload executor: ``state``'s bytes in host memory."""
         self.n_offloads += 1
         g = next((r for r in self._groups.values()
                   if r.state is not None and r.state() is state), None)
         if g is None:
             return offload_state(state)
-        if g.copy is not None:
+        for c in g.copies or ():
             # the restore read these buffers and wrote ``state``: both
             # must be done before the buffers are overwritten from it
-            g.copy.end.synchronize()
+            c.end.synchronize()
         g.host = offload_state(state, out=g.host)
         return g.host
 
-    def restore(self, gi: int, host: QueryState) -> QueryState:
-        """StateCache restore executor: upload ``host`` for group ``gi``."""
+    def _copy_stream(self, dev: torch.device):
+        if dev not in self._streams:
+            self._streams[dev] = torch.cuda.Stream(dev)
+        return self._streams[dev]
+
+    def restore(self, gi: int, host):
+        """StateCache restore executor: upload ``host`` for group ``gi``
+        (a ``HostShardedState`` shard by shard onto ``self.devices``)."""
         g = self._group(gi)
+        sharded = isinstance(host, HostShardedState)
+        devices = self.devices if sharded else (self.device,)
         if self.device.type != "cuda":
-            state = restore_state(host, self.device)
-            g.state, g.copy, g.host = weakref.ref(state), None, host
+            state = (group_sharding.restore_state_sharded(host, devices)
+                     if sharded else restore_state(host, self.device))
+            g.state, g.copies, g.host = weakref.ref(state), None, host
             return state
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(self._stream)
-        state = restore_state(host, self.device, stream=self._stream)
-        end.record(self._stream)
+        shards, g.copies = [], []
+        for h, dev in zip(_shards(host), devices):
+            stream = self._copy_stream(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            shards.append(restore_state(h, dev, stream=stream))
+            end.record(stream)
+            g.copies.append(_Copy(start, end, shards[-1].nbytes))
+        self._untimed += g.copies
+        state = (group_sharding.ShardedQueryState(
+            shards=tuple(shards), offsets=host.offsets, n_valid=host.n_valid)
+            if sharded else shards[0])
         g.state, g.host = weakref.ref(state), host
-        g.copy = _Copy(start, end, state.nbytes)
-        self._untimed.append(g.copy)
         return state
 
-    def ready(self, gi: int, state: QueryState) -> None:
-        """Order the current stream's next uses of ``state`` after the
-        restore copy, build or write that made it (a no-op on the CPU)."""
+    def ready(self, gi: int, state) -> None:
+        """Order the current streams' next uses of ``state`` after the
+        restore copies, build or write that made it, shard by shard (a
+        no-op on the CPU)."""
         g = self._groups.get(int(gi))
-        if g is None or g.copy is None or g.state() is not state:
+        if g is None or g.copies is None or g.state() is not state:
             return
-        stream = torch.cuda.current_stream(self.device)
-        if stream.cuda_stream in g.copy.streams:
-            return
-        stream.wait_event(g.copy.end)
-        for _, t in _tensor_fields(state):
-            t.record_stream(stream)
-        g.copy.streams.add(stream.cuda_stream)
+        for sh, c in zip(_shards(state), g.copies):
+            stream = torch.cuda.current_stream(sh.device)
+            if stream.cuda_stream in c.streams:
+                continue
+            stream.wait_event(c.end)
+            for _, t in _tensor_fields(sh):
+                t.record_stream(stream)
+            c.streams.add(stream.cuda_stream)
 
     def _poll(self) -> None:
         """Read the device time of every copy that has finished."""
-        while self._untimed and self._untimed[0].end.query():
-            c = self._untimed.pop(0)  # one stream: copies end in order
-            self._copy_ms.append(c.start.elapsed_time(c.end))
-            self._copy_bytes.append(c.nbytes)
+        pending = []
+        for c in self._untimed:  # in restore order; devices end apart
+            if c.end.query():
+                self._copy_ms.append(c.start.elapsed_time(c.end))
+                self._copy_bytes.append(c.nbytes)
+            else:
+                pending.append(c)
+        self._untimed = pending
 
     def restore_timings(self) -> list[tuple[int, float]]:
         """(nbytes, seconds) of the copies finished since the last call."""
@@ -447,11 +531,11 @@ class StatePager:
         """Host bytes held by the groups' offload buffers."""
         return sum(t.numel() * t.element_size()
                    for g in self._groups.values() if g.host is not None
-                   for _, t in _tensor_fields(g.host))
+                   for sh in _shards(g.host) for _, t in _tensor_fields(sh))
 
     def summary(self) -> dict:
         """Offloads, the finished restore copies' bytes and device times
-        (ms, in restore order), and the pinned host bytes."""
+        (ms, in restore order, one a shard), and the pinned host bytes."""
         self._poll()
         return dict(n_offloads=self.n_offloads,
                     copy_bytes=list(self._copy_bytes),

@@ -46,7 +46,15 @@ def pad_levels(n_levels: int, step: int = _LEVEL_STEP) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class IndexConfig:
-    """Shapes + plan parameters for one table group on one device."""
+    """Shapes + plan parameters for one table group's query step.
+
+    With ``n_shards > 1`` the group's rows are split across that many
+    devices (``distributed.group_sharding``): ``n`` is the whole row
+    capacity, ``state_nbytes`` prices one device's slice, and the shard
+    count is part of ``shape_signature``.  The JAX package's
+    ``shard_axis`` has no counterpart: the port has no mesh axes, only
+    a list of devices.
+    """
 
     n: int = 1 << 20  # row capacity; state.n_valid masks the dead tail
     d: int = 128  # dimensions
@@ -67,7 +75,8 @@ class IndexConfig:
     # into a hashed segment at this row count; absent from
     # shape_signature, but part of equality, so a Batcher threads one
     # value through every group config
-    n_shards: int = 1  # devices the rows are sharded across (1 only, so far)
+    n_shards: int = 1  # devices the rows are sharded across, one
+    # contiguous slice of n / n_shards rows each (distributed.group_sharding)
 
     @property
     def budget(self) -> int:

@@ -32,6 +32,16 @@ as they stage them, the unfused route and the re-rank with ``.float()``.
 The top-k and the re-rank run inside ``torch.profiler.record_function``
 ranges (``wlsh_topk``, ``wlsh_rerank``), so a captured trace attributes
 their device time.
+
+A ``ShardedQueryState`` (``IndexConfig.n_shards > 1``) holds the rows in
+contiguous slices on several devices, and the step follows the JAX
+package's ``_query_shard``: both passes on every shard at its row offset
+against the global ``n_valid``, the level histograms added and the stop
+rule run once on the first device, each shard's k survivors re-ranked
+exactly on its device, then ``group_sharding.merge_shard_topk``.  The
+fused passes and the re-rank score each row on its own, so the answers
+equal the unsharded step's bit for bit wherever the approximate and the
+exact order of the rank-k boundary agree.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ import math
 import torch
 from torch.profiler import record_function
 
+from ..distributed import group_sharding
+from ..distributed.group_sharding import ShardedQueryState
 from ..kernels import ops, ref
 from ..kernels import platform as kplatform
 from .config import VEC_DTYPES, IndexConfig
@@ -96,15 +108,19 @@ def encode_queries(state: QueryState, queries):
                            1.0)
 
 
-def _unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q, cfg, stop):
+def _unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q, cfg, stop,
+                  boff: int = 0, n_valid: int | None = None):
     """Stage-by-stage oracle: (hist_f, hist_g) (Q, L+2), or (Q, n) scores.
 
-    Dead rows are parked at level L+1 (the fused passes exclude them).
+    Row ``i`` of ``state`` is global row ``boff + i``; rows at or past
+    ``n_valid`` (``state.n_valid`` when None) are dead and parked at
+    level L+1 (the fused passes exclude them).
     """
     c, L = cfg.c, cfg.n_levels
+    n_valid = state.n_valid if n_valid is None else n_valid
     lf = ops.freq_level(state.codes, codes_q, mu, c=c, n_levels=L,
                         beta_q=beta_q)
-    row_ok = torch.arange(lf.shape[1], device=lf.device) < state.n_valid
+    row_ok = boff + torch.arange(lf.shape[1], device=lf.device) < n_valid
     lf = torch.where(row_ok[None, :], lf, torch.full_like(lf, L + 1))
     dist = ref.per_query_dist(qf, wf, state.points.float(), cfg.p)
     if stop is None:
@@ -134,28 +150,74 @@ def _topk_rows(scores, k: int):
     return vals, ids
 
 
-def query_step(state: QueryState, queries, codes_q, q_weight, mu, r_min,
+def _stop_levels(hist_f, hist_g, levels_q, cfg: IndexConfig):
+    """(stop (Q,) int32, nf_cum (Q, L+1)) from the level histograms."""
+    L, k = cfg.n_levels, cfg.k
+    nf_cum = torch.cumsum(hist_f[:, : L + 1], dim=1)
+    ng_cum = torch.cumsum(hist_g[:, : L + 1], dim=1)
+    # Stop conditions evaluated only up to each query's own level cap: the
+    # bound L may be padded above the member's n_levels (bucketed shape
+    # sharing), and a query that exhausts its levels stops *at* them.
+    levels = torch.arange(L + 1, device=hist_f.device)
+    cond = ((ng_cum >= k) | (nf_cum >= cfg.budget)) & (
+        levels[None, :] <= levels_q[:, None])
+    first = torch.where(cond, levels[None, :], L + 1).amin(dim=1)
+    stop = torch.where(first <= L, first, levels_q.long()).to(torch.int32)
+    return stop, nf_cum
+
+
+def _rerank(points, rows, qf, wf, vals, idx, p: float):
+    """Exact float32 distances of the k survivors, re-sorted (stable).
+
+    The p=2 scan scores with the norms expansion, whose f32 cancellation
+    error swamps genuinely small distances; recompute the survivors'
+    distances from the coordinate differences of the stored rows
+    (``points[rows]``) and re-sort, so ties keep their scan order.
+    """
+    cand = points[rows].float()  # (Q, k, d)
+    diff = torch.abs((qf[:, None, :] - cand) * wf[:, None, :])
+    if abs(p - 2.0) < 1e-9:
+        exact = torch.sqrt(torch.sum(diff * diff, dim=-1))
+    elif abs(p - 1.0) < 1e-9:
+        exact = torch.sum(diff, dim=-1)
+    else:
+        exact = torch.sum(diff**p, dim=-1) ** (1.0 / p)
+    vals = torch.where(torch.isfinite(vals), exact, vals)
+    order = torch.sort(vals, dim=1, stable=True).indices
+    return torch.gather(vals, 1, order), torch.gather(idx, 1, order)
+
+
+def _n_checked(nf_cum, stop, cfg: IndexConfig):
+    return torch.clamp_max(
+        torch.gather(nf_cum, 1, stop[:, None].long())[:, 0], cfg.budget
+    ).to(torch.int32)
+
+
+def query_step(state, queries, codes_q, q_weight, mu, r_min,
                beta_q, levels_q, *, cfg: IndexConfig):
     """Answer one query batch on ``state``'s device.
 
     Inputs are tensors on the state's device: queries/q_weight (Q, d)
     f32, codes_q (Q, beta) int32, mu/beta_q/levels_q (Q,) int32, r_min
     (Q,) f32.  Returns ``(dists (Q, k) f32, ids (Q, k) int32, stop (Q,)
-    int32, n_checked (Q,) int32)``.
+    int32, n_checked (Q,) int32)``.  A ``ShardedQueryState`` (with
+    ``cfg.n_shards`` equal to its shard count) is answered shard by
+    shard (``_query_sharded``); the answers land on its first device.
     """
-    if cfg.n_shards != 1:
-        raise NotImplementedError("row sharding across devices is not "
-                                  "ported yet; n_shards must be 1")
     if cfg.vec_dtype not in VEC_DTYPES:
         raise NotImplementedError(f"vec_dtype {cfg.vec_dtype!r}: vectors "
                                   f"are stored as one of {VEC_DTYPES}")
-    c, L, k = cfg.c, cfg.n_levels, cfg.k
+    if isinstance(state, ShardedQueryState) or cfg.n_shards != 1:
+        return _query_sharded(state, queries, codes_q, q_weight, mu, r_min,
+                              beta_q, levels_q, cfg=cfg)
+    k = cfg.k
     dev = state.device
     n = state.codes.shape[0]
     qf = queries.float()
     wf = q_weight.float()
     path = kplatform.resolve(cfg.use_kernels, dev)
-    kw = dict(boff=0, n_valid=state.n_valid, c=c, n_levels=L, p=cfg.p)
+    kw = dict(boff=0, n_valid=state.n_valid, c=cfg.c, n_levels=cfg.n_levels,
+              p=cfg.p)
 
     # ---- pass 1: level histograms -> stop level ---------------------------
     if path.fused:
@@ -165,16 +227,7 @@ def query_step(state: QueryState, queries, codes_q, q_weight, mu, r_min,
     else:
         hist_f, hist_g = _unfused_pass(state, codes_q, qf, wf, mu, r_min,
                                        beta_q, cfg, None)
-    nf_cum = torch.cumsum(hist_f[:, : L + 1], dim=1)
-    ng_cum = torch.cumsum(hist_g[:, : L + 1], dim=1)
-    # Stop conditions evaluated only up to each query's own level cap: the
-    # bound L may be padded above the member's n_levels (bucketed shape
-    # sharing), and a query that exhausts its levels stops *at* them.
-    levels = torch.arange(L + 1, device=dev)
-    cond = ((ng_cum >= k) | (nf_cum >= cfg.budget)) & (
-        levels[None, :] <= levels_q[:, None])
-    first = torch.where(cond, levels[None, :], L + 1).amin(dim=1)
-    stop = torch.where(first <= L, first, levels_q.long()).to(torch.int32)
+    stop, nf_cum = _stop_levels(hist_f, hist_g, levels_q, cfg)
 
     # ---- pass 2: masked distances -> top-k --------------------------------
     if path.fused:
@@ -189,29 +242,81 @@ def query_step(state: QueryState, queries, codes_q, q_weight, mu, r_min,
     del scores
 
     # ---- exact re-rank of the k winners ------------------------------------
-    # The p=2 scan scores with the norms expansion, whose f32 cancellation
-    # error swamps genuinely small distances; recompute the survivors'
-    # distances from the coordinate differences of the stored rows and
-    # re-sort (stable, so ties keep the lower row first).
     with record_function("wlsh_rerank"):
-        rows = idx.clamp(0, n - 1).long()
-        cand = state.points[rows].float()  # (Q, k, d)
-        diff = torch.abs((qf[:, None, :] - cand) * wf[:, None, :])
-        if abs(cfg.p - 2.0) < 1e-9:
-            exact = torch.sqrt(torch.sum(diff * diff, dim=-1))
-        elif abs(cfg.p - 1.0) < 1e-9:
-            exact = torch.sum(diff, dim=-1)
-        else:
-            exact = torch.sum(diff**cfg.p, dim=-1) ** (1.0 / cfg.p)
-        vals = torch.where(torch.isfinite(vals), exact, vals)
-        order = torch.sort(vals, dim=1, stable=True).indices
-        vals = torch.gather(vals, 1, order)
-        idx = torch.gather(idx, 1, order)
+        vals, idx = _rerank(state.points, idx.clamp(0, n - 1).long(), qf,
+                            wf, vals, idx, cfg.p)
+    return vals, idx, stop, _n_checked(nf_cum, stop, cfg)
 
-    n_checked = torch.clamp_max(
-        torch.gather(nf_cum, 1, stop[:, None].long())[:, 0], cfg.budget
-    ).to(torch.int32)
-    return vals, idx, stop, n_checked
+
+def _query_sharded(state, queries, codes_q, q_weight, mu, r_min, beta_q,
+                   levels_q, *, cfg: IndexConfig):
+    """``query_step`` over a ``ShardedQueryState``, shard by shard.
+
+    Step for step the JAX package's ``_query_shard``: pass 1 on every
+    shard at its row offset against the global ``n_valid``; the
+    histograms added on the first device (``merge_histograms``) and the
+    stop rule run once there; ``stop`` sent to every shard, pass 2, a
+    top-k whose rows are rebased to global ids, and an exact re-rank of
+    each shard's k survivors (gathered at ``id - offset``) before
+    ``merge_shard_topk`` picks the k smallest on the first device.  The
+    merged set is the exact top-k of the union of the shards' candidates.
+    Inputs are on the first shard's device and are copied to each
+    shard's (a no-op for shards on that device).
+    """
+    if not isinstance(state, ShardedQueryState):
+        raise ValueError(f"cfg.n_shards={cfg.n_shards} needs a "
+                         f"ShardedQueryState, got {type(state).__name__}")
+    if state.n_shards != cfg.n_shards:
+        raise ValueError(f"state has {state.n_shards} shards, cfg.n_shards "
+                         f"is {cfg.n_shards}")
+    k = cfg.k
+    dev0 = state.device
+    path = kplatform.resolve(cfg.use_kernels, dev0)
+    kw = dict(n_valid=state.n_valid, c=cfg.c, n_levels=cfg.n_levels,
+              p=cfg.p)
+    shards = list(zip(state.shards, state.offsets))
+    ins = [tuple(t.to(sh.device) for t in (codes_q, queries.float(),
+                                           q_weight.float(), mu, r_min,
+                                           beta_q))
+           for sh, _ in shards]
+
+    # ---- pass 1 on every shard, histograms merged, stop rule once --------
+    hf, hg = [], []
+    for (sh, off), (cq, qf, wf, m, r, bq) in zip(shards, ins):
+        if path.fused:
+            f, g = ops.fused_query_block(sh.codes, sh.points, cq, qf, wf, m,
+                                         r, bq, boff=off, **kw)
+        else:
+            f, g = _unfused_pass(sh, cq, qf, wf, m, r, bq, cfg, None,
+                                 boff=off, n_valid=state.n_valid)
+        hf.append(f)
+        hg.append(g)
+    hist_f, hist_g = group_sharding.merge_histograms(hf, hg, dev0)
+    stop, nf_cum = _stop_levels(hist_f, hist_g, levels_q, cfg)
+
+    # ---- pass 2, top-k and exact re-rank on every shard -------------------
+    vals_s, idx_s = [], []
+    for (sh, off), (cq, qf, wf, m, r, bq) in zip(shards, ins):
+        st = stop.to(sh.device)
+        if path.fused:
+            scores = ops.fused_query_block(sh.codes, sh.points, cq, qf, wf,
+                                           m, r, bq, boff=off, stop=st, **kw)
+        else:
+            scores = _unfused_pass(sh, cq, qf, wf, m, r, bq, cfg, st,
+                                   boff=off, n_valid=state.n_valid)
+        with record_function("wlsh_topk"):
+            vals, idx = _topk_rows(scores, k)
+            idx = torch.where(idx >= 0, idx + off, idx)  # global rows
+        del scores
+        with record_function("wlsh_rerank"):
+            rows = (idx.long() - off).clamp(0, sh.codes.shape[0] - 1)
+            vals, idx = _rerank(sh.points, rows, qf, wf, vals, idx, cfg.p)
+        vals_s.append(vals)
+        idx_s.append(idx)
+
+    # ---- exact merge of the shards' survivors ------------------------------
+    vals, idx = group_sharding.merge_shard_topk(vals_s, idx_s, k, dev0)
+    return vals, idx, stop, _n_checked(nf_cum, stop, cfg)
 
 
 class QueryStepCache:

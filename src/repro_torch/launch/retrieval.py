@@ -408,7 +408,7 @@ def run(args, *, include_codes: bool = True) -> dict:
                          use_kernels=args.use_kernels,
                          degrade_ladder=ladder, obs=obs,
                          recall_sample_rate=args.recall_sample_rate,
-                         device=str(device))
+                         n_shards=args.shards, device=str(device))
     svc = RetrievalService(plan, data, cfg=scfg)
     if obs and args.profile_dir:
         svc.batcher.profiler.profile_dir = args.profile_dir
@@ -423,6 +423,11 @@ def run(args, *, include_codes: bool = True) -> dict:
           f"{svc.step_cache.n_compiled} query steps "
           f"(shape sharing {plan.n_groups}/{svc.step_cache.n_compiled}) "
           f"in {t_build:.1f}s")
+    if args.shards > 1:
+        n_loc = svc.batcher.row_capacity() // args.shards
+        print(f"sharding: {args.shards} shards over devices "
+              f"{[str(d) for d in svc.devices]} ({n_loc} rows/shard, "
+              f"exactly merged top-k)")
     print(f"kernels: {kernel_platform.describe(scfg.use_kernels, device)} "
           f"(--use-kernels {args.use_kernels})")
     svc.reset_stats()  # serve-phase cache counters exclude warmup churn
@@ -674,6 +679,11 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a CUDA device) or "
                          "cpu (plain torch versions of the kernels)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="shard every group state's rows across this many "
+                         "devices (cuda:0 .. cuda:N-1, or N CPU devices "
+                         "with --device cpu): per-shard passes, exact "
+                         "merges, answers bit-identical at any shard count")
     ap.add_argument("--use-kernels", choices=["on", "off"], default="on",
                     help="on: fused passes (CUDA kernels on the card); "
                          "off: the unfused stage-by-stage oracle")

@@ -31,7 +31,10 @@ for its compactions (``row_capacity``).  With ``ServiceConfig.obs`` the
 core also stamps per-query trace spans, attributes step builds and
 dispatch time per shape signature, and (``recall_sample_rate``) offers
 sampled answers to the shadow recall estimator: host bookkeeping that
-leaves every answer bit for bit as it is.
+leaves every answer bit for bit as it is.  With ``ServiceConfig.n_shards
+> 1`` (or an explicit ``Batcher(devices=...)``) every group state's rows
+are split across devices (``distributed.group_sharding``); the frontends
+see no difference.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 
 from ..core.serving_plan import ServingPlan
+from ..distributed import group_sharding
 from ..index.builder import StatePager, build_group_state, pad_cols
 from ..index.config import VEC_DTYPES, IndexConfig, pad_beta, pad_levels
 from ..index.engine import QueryStepCache, encode_queries
@@ -85,7 +89,8 @@ class ServiceConfig:
     max_resident_groups: int | None = None  # StateCache: keep at most this
     # many group states on device (None = all groups stay resident)
     device_budget_bytes: int | None = None  # StateCache: keep resident
-    # state bytes (IndexConfig.state_nbytes accounting) under this budget
+    # state bytes (IndexConfig.state_nbytes accounting, times the shards
+    # that share the fullest device) under this budget
     offload_evicted: bool = True  # evicted states keep a host copy (restore
     # = one upload); False discards them (re-acquire rebuilds from scratch)
     delta_seal_rows: int = 1024  # streaming: a group's open delta memtable
@@ -99,6 +104,9 @@ class ServiceConfig:
     max_pending: int | None = None  # async backpressure: cap per-group
     # pending buffers; submit raises Overloaded instead of growing unbounded
     n_shards: int = 1  # devices each group's rows are sharded across
+    # (distributed.group_sharding.serving_devices: cuda:0 .. cuda:S-1, or
+    # S CPU devices); per-shard passes merge exactly, so answers are bit
+    # for bit those of one device.  An explicit Batcher(devices=...) wins
     obs: bool = False  # observability: per-query trace spans (obs.Tracer)
     # and profiling hooks (obs.Profiler) on the serving path.  Host-side
     # bookkeeping only: results are bit-exact on or off.  The metrics
@@ -227,11 +235,8 @@ class ServiceConfig:
             # obs layer on (bit-exact either way) rather than silently
             # sampling nothing
             object.__setattr__(self, "obs", True)
-        if self.n_shards != 1:
-            raise NotImplementedError(
-                f"n_shards={self.n_shards}: sharding group states across "
-                f"devices is not ported yet"
-            )
+        if self.n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
         if self.vec_dtype not in VEC_DTYPES:
             raise NotImplementedError(
                 f"vec_dtype {self.vec_dtype!r}: vectors are stored as one "
@@ -455,10 +460,19 @@ class Batcher:
     stay bit-exact.  ``self.clock`` is the injectable time source for
     span stamps; the async frontend re-binds it to its own clock, so
     ``ManualClock`` replays trace deterministically.
+
+    ``cfg.n_shards > 1`` splits every group state's rows across that many
+    devices (``group_sharding.serving_devices``); ``devices=`` names them
+    explicitly and wins over ``cfg.n_shards`` and ``cfg.device``, as the
+    JAX package's explicit ``mesh`` does.  It may name one card more than
+    once: ``devices=("cuda:0",) * 4`` runs four shards on one card, one
+    after another on its stream, which is how a one-card host exercises
+    the sharded path.  Answers and merges land on ``devices[0]``
+    (``self.device``).
     """
 
     def __init__(self, plan: ServingPlan, points: np.ndarray,
-                 cfg: ServiceConfig | None = None):
+                 cfg: ServiceConfig | None = None, devices=None):
         if cfg is None:
             cfg = ServiceConfig()
         points = np.ascontiguousarray(points, dtype=np.float32)
@@ -476,7 +490,18 @@ class Batcher:
                     f"plan c={plan.c} (relaxation must not tighten the "
                     f"approximation ratio)"
                 )
-        self.device = kplatform.resolve_device(cfg.device)
+        # the shards' devices; an explicit list wins over cfg.n_shards
+        if devices is not None:
+            devices = tuple(kplatform.resolve_device(d) for d in devices)
+            if not devices:
+                raise ValueError("devices must name at least one device")
+        elif cfg.n_shards > 1:
+            devices = group_sharding.serving_devices(cfg.n_shards,
+                                                     cfg.device)
+        else:
+            devices = (kplatform.resolve_device(cfg.device),)
+        self.devices = devices
+        self.device = devices[0]
         self.clock = time.monotonic  # injectable; async frontend re-binds
         self.metrics = MetricsRegistry()
         self.tracer = (Tracer(cfg.obs_trace_capacity, metrics=self.metrics)
@@ -497,11 +522,11 @@ class Batcher:
             )
         self._group_cfgs: dict[tuple[int, int], IndexConfig] = {}
         self._delta = None  # streaming DeltaIndex, created on first write
-        self.pager = StatePager(self.device)
+        self.pager = StatePager(self.devices)
         on_card = self.device.type == "cuda"
         self.state_cache = StateCache(
             build=self._build_state,
-            nbytes_of=lambda gi: self.group_config(gi).state_nbytes,
+            nbytes_of=self.state_nbytes,
             max_resident_groups=cfg.max_resident_groups,
             device_budget_bytes=cfg.device_budget_bytes,
             offload=self.pager.offload if cfg.offload_evicted else None,
@@ -522,11 +547,28 @@ class Batcher:
         """Row capacity of every group state (base corpus + delta reserve).
 
         ``ServiceConfig.delta_reserve_rows`` preallocates the rows that
-        streaming compaction appends into without changing any shape.
-        All groups share one capacity, which keeps the shape-bucket step
-        sharing.
+        streaming compaction appends into without changing any shape; the
+        capacity is rounded up to a multiple of the shard count so the
+        row slices stay even.  All groups share one capacity, which keeps
+        the shape-bucket step sharing.
         """
-        return self.plan.n + self.cfg.delta_reserve_rows
+        cap = self.plan.n + self.cfg.delta_reserve_rows
+        return cap + (-cap) % self.n_shards
+
+    @property
+    def n_shards(self) -> int:
+        """Devices every group state's rows are split across."""
+        return len(self.devices)
+
+    def state_nbytes(self, gi: int) -> int:
+        """Accounted bytes of group ``gi``'s state on its fullest device.
+
+        ``IndexConfig.state_nbytes`` prices one shard's slice; shards that
+        share a device (``devices=("cuda:0",) * S``) add up there, so the
+        residency budget and ``resident_bytes`` count them all.
+        """
+        per_device = max(self.devices.count(d) for d in self.devices)
+        return per_device * self.group_config(gi).state_nbytes
 
     @property
     def n_rungs(self) -> int:
@@ -589,7 +631,7 @@ class Batcher:
                 vec_dtype=self.cfg.vec_dtype,
                 use_kernels=self.cfg.use_kernels,
                 delta_seal_rows=self.cfg.delta_seal_rows,
-                n_shards=self.cfg.n_shards,
+                n_shards=self.n_shards,
             )
             self._group_cfgs[key] = cfg
         return cfg
@@ -609,7 +651,7 @@ class Batcher:
             base_rows = self._delta.base_rows()
         return self.pager.adopt(gi, build_group_state(
             self.group_config(gi), self.points, self.plan.groups[gi],
-            device=self.device, extra_points=extra_points,
+            device=self.devices, extra_points=extra_points,
             extra_codes=extra_codes, base_rows=base_rows))
 
     def _note_cache_event(self, gi: int, kind: str) -> None:
@@ -631,6 +673,8 @@ class Batcher:
 
         Every use of a state's tensors goes through here: a launch
         (``run_batch``), a seal's device encode and a compaction's write.
+        A sharded state is readied shard by shard, each on its device's
+        current stream.
         """
         with self.state_cache.lease(gi) as state:
             self.pager.ready(gi, state)
@@ -679,7 +723,7 @@ class Batcher:
         keep: list[int] = []
         nbytes = 0
         for gi in reversed(gids):
-            nb = self.group_config(gi).state_nbytes
+            nb = self.state_nbytes(gi)
             if cap is not None and len(keep) + 1 > cap:
                 break
             if budget is not None and nbytes + nb > budget:
@@ -786,7 +830,8 @@ class Batcher:
         mixes the two encodings and a query can miss its own point.
         Encoding is row-independent, so the host path encodes each real
         row once and gathers, while the device path encodes the padded
-        batch.
+        batch.  Either way the codes are computed once, on the first
+        shard's device; the step copies them to every other shard's.
         """
         g = self.plan.groups[gi]
         if g.codes is None:

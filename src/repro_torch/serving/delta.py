@@ -43,6 +43,10 @@ through bit for bit.
 Every lease here that reads or writes a state's tensors goes through
 ``Batcher.lease``, which orders the current stream after the state's
 restore copy (``StatePager.ready``) before the encode or the write.
+Sharded states (``ServiceConfig.n_shards > 1``) take the same path:
+``append_to_state`` writes each row into the shard that owns it, a
+codeless seal encodes on the first shard, and a purge's rebuild builds
+shard by shard.
 """
 
 from __future__ import annotations

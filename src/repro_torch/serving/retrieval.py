@@ -58,11 +58,15 @@ class RetrievalService:
     restore), bit for bit.  Pass the service (or its ``batcher``) to
     ``AsyncRetrievalService`` to serve streaming traffic over the same
     states, stats and step cache.
+
+    ``ServiceConfig.n_shards`` splits every group state's rows across
+    that many devices; ``devices=`` names them explicitly (one card may
+    be named more than once, see ``Batcher``).
     """
 
     def __init__(self, plan: ServingPlan, points: np.ndarray,
-                 cfg: ServiceConfig = ServiceConfig()):
-        self.batcher = Batcher(plan, points, cfg=cfg)
+                 cfg: ServiceConfig = ServiceConfig(), devices=None):
+        self.batcher = Batcher(plan, points, cfg=cfg, devices=devices)
 
     @property
     def plan(self) -> ServingPlan:
@@ -81,8 +85,13 @@ class RetrievalService:
 
     @property
     def device(self):
-        """The torch device the group states live on."""
+        """The torch device the answers land on (the first shard's)."""
         return self.batcher.device
+
+    @property
+    def devices(self) -> tuple:
+        """The devices group states are sharded across, one per shard."""
+        return self.batcher.devices
 
     @property
     def step_cache(self):

@@ -620,3 +620,84 @@ def test_replaced_state_reuses_pinned_buffers(dev):
     res = svc.query(vecs, [w_in] * 8)  # restored, appended rows served
     np.testing.assert_array_equal(res.ids[:, 0], pids)
     assert np.all(res.dists[:, 0] == 0.0)
+
+
+# ------------------------------------------------------- shards on the card
+
+
+@pytest.mark.parametrize("p", [2.0, 1.0, 0.5])
+def test_fused_passes_on_the_last_shard(dev, p):
+    """Both fused passes on the last of 4 row shards (boff = 750) with
+    n_valid = 900 inside it: equal to their plain versions on the shard,
+    and bit for bit to the same rows' columns of a whole-state launch."""
+    n, s = 1000, 4
+    t = _tensors((n, 24, 64, 17, 3, 24), 7, dev)
+    off, n_valid = n - n // s, 900
+    args = [t[k] for k in ("cp", "pts", "cq", "qs", "qw", "mu", "beta_q")]
+    shard = [a[off:].contiguous() if k < 2 else a for k, a in
+             enumerate(args)]
+    kw = dict(n_valid=n_valid, c=3, n_levels=24, p=p)
+    hf, hg = fused_query.fused_query_hist(*shard, t["r_min"], boff=off, **kw)
+    sc = fused_query.fused_query_scores(*shard, t["stop"], boff=off, **kw)
+    whole = fused_query.fused_query_scores(*args, t["stop"], boff=0, **kw)
+    row_ok = (off + torch.arange(n - off, device=dev)) < n_valid
+    rf, rg = ref.fused_query_hist_ref(*shard, t["r_min"], row_ok, c=3,
+                                      n_levels=24, p=p)
+    rs = ref.fused_query_scores_ref(*shard, t["stop"], row_ok, c=3,
+                                    n_levels=24, p=p)
+    torch.cuda.synchronize()
+    assert torch.equal(hf, rf) and torch.equal(hg, rg)
+    assert int(hf[:, -1].sum()) == (n - n_valid) * hf.shape[0]  # dead bin
+    assert torch.equal(sc, whole[:, off:])
+    assert bool(torch.isinf(sc[:, n_valid - off:]).all())
+    assert_scores_close(sc.cpu().numpy(), rs.cpu().numpy(),
+                        t["qs"].cpu().numpy(), t["qw"].cpu().numpy(),
+                        shard[1].cpu().numpy(), p)
+
+
+def test_per_shard_device_encode_equals_whole_encode(dev):
+    """A plan without host codes built in 4 shards on one card: each
+    shard's codes and vectors are the whole-state build's rows."""
+    import dataclasses
+
+    from repro_torch.index import IndexConfig, build_group_state, pad_beta
+
+    data, plan = _paging_plan(4093, 24, 13)
+    plan = dataclasses.replace(plan, groups=[
+        dataclasses.replace(g, codes=None) for g in plan.groups])
+    g = plan.groups[0]
+    cfg = IndexConfig(n=4100, d=24, beta=pad_beta(g.beta_group), n_shards=4)
+    _cuda.reset_launch_counts()
+    sharded = build_group_state(cfg, data, g, ("cuda:0",) * 4)
+    assert _cuda.launch_counts()["hash_encode"] == 4
+    whole = build_group_state(dataclasses.replace(cfg, n_shards=1), data, g,
+                              dev)
+    assert [sh.n_valid for sh in sharded.shards] == [1025, 1025, 1025, 1018]
+    for sh, off in zip(sharded.shards, sharded.offsets):
+        assert torch.equal(sh.codes, whole.codes[off:off + 1025])
+        assert torch.equal(sh.points, whole.points[off:off + 1025])
+
+
+def test_sharded_service_on_the_card_matches_unsharded(dev):
+    """Four shards on one card (devices named explicitly): answers bit
+    for bit the unsharded service's, unpaged and paged at one resident
+    group, with every pass launched once a shard."""
+    from repro_torch.serving import RetrievalService, ServiceConfig
+
+    data, plan = _paging_plan(4093, 24, 17)
+    qs, wids = _queries(data, 8, 40, 18)
+    base = RetrievalService(plan, data, cfg=ServiceConfig(
+        k=5, q_batch=8, delta_reserve_rows=7)).query(qs, wids)
+    for kw in ({}, dict(max_resident_groups=1)):
+        svc = RetrievalService(plan, data, cfg=ServiceConfig(
+            k=5, q_batch=8, delta_reserve_rows=7, **kw),
+            devices=("cuda:0",) * 4)
+        svc.warmup()
+        _cuda.reset_launch_counts()
+        res = svc.query(qs, wids)
+        n_batches = sum(s["n_batches"] for s in svc.stats_summary().values())
+        assert _cuda.launch_counts()["fused_query_hist"] == 4 * n_batches
+        for f in ("ids", "stop_levels", "n_checked"):
+            np.testing.assert_array_equal(getattr(res, f), getattr(base, f))
+        np.testing.assert_array_equal(res.dists.view(np.uint32),
+                                      base.dists.view(np.uint32))

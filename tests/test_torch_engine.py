@@ -148,12 +148,13 @@ def test_topk_breaks_ties_toward_the_lower_row():
 
 
 def test_unsupported_options_raise():
-    """Sharding still raises; bfloat16 storage is served (a state built
-    and queried), and any other vector dtype still raises."""
+    """A sharded config needs a sharded state (an unsharded one raises);
+    bfloat16 storage is served (a state built and queried), and any
+    other vector dtype still raises."""
     from repro_torch.index import query_step
 
     cfg = IndexConfig(n=8, d=2, beta=32, n_shards=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs a ShardedQueryState"):
         query_step(None, *([None] * 7), cfg=cfg)
     for bad in ("float16", "int8"):
         with pytest.raises(NotImplementedError):

@@ -89,8 +89,9 @@ def test_service_rejects_bad_input(parity):
 def test_service_config_validates():
     with pytest.raises(ValueError):
         ServiceConfig(k=0)
-    with pytest.raises(NotImplementedError):
-        ServiceConfig(n_shards=2)
+    with pytest.raises(ValueError, match="n_shards must be >= 1"):
+        ServiceConfig(n_shards=0)
+    assert ServiceConfig(n_shards=2).n_shards == 2  # sharding is served
     assert ServiceConfig(vec_dtype="bfloat16").vec_dtype == "bfloat16"
     for bad in ("float16", "int8"):
         with pytest.raises(NotImplementedError):
