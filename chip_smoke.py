@@ -121,7 +121,26 @@ non-zero:
                fresh sharded build over the survivors).  p50 / p95 per
                batch, q/s, peak memory a leg, bytes, ms and GB/s a shard
                copy
- 13. times   — each kernel on the main path's inputs for the widest
+ 13. search  — the paper's host search (WLSHIndex.search, numpy: per-table
+               sorted codes, the C2LSH level loop with incremental
+               collision counting and I/O accounting) on the slice's
+               host index: 4 queries routed to the widest group and 4 to
+               the narrowest (only those two groups' sorted tables are
+               built, in parallel), each also through search_dense: stop
+               level and n_checked equal on 8 of 8, ids equal wherever
+               n_checked is below the budget k + ceil(gamma n); the same
+               rules against the card's answers from the slice leg with at
+               most 1 of 8 differing; seconds to sort each group's tables,
+               host ms, io_blocks and n_collisions a query, the overall
+               ratio of both answers against exact brute force, and the
+               slice leg's p50 per batch beside them; no kernel launched
+ 14. sentinel — benchmarks_torch.sentinel's seeded serving workload (async
+               frontend, ServiceDriver, DeadlinePrefetch, paging, shadow
+               recall, a degrade ladder) on the card and then on the CPU:
+               the seeded metrics equal, the rest side by side; the fused
+               passes launched and no other kernel; no regression row
+               against experiments/bench_torch/BASELINE.json
+ 15. times   — each kernel on the main path's inputs for the widest
                group: held to its plain version there (the rules of
                phase 3), its time, its plain version's time, the time of
                one PyTorch call that computes the same function where
@@ -134,7 +153,9 @@ without the rest of the repository beside it, the script fails before
 printing any result.  ``--phases`` runs a subset (e.g. ``device,build,
 kernels``) for a short check; the full run needs all of them.  ``obs``
 and ``bf16`` need only ``slice`` (``--phases device,build,slice,obs,bf16``),
-as does ``shard`` (``--phases device,build,slice,shard``).
+as does ``shard`` (``--phases device,build,slice,shard``) and ``search``
+(``--phases device,build,slice,search``); ``sentinel`` needs only
+``device`` and ``build``.
 """
 
 from __future__ import annotations
@@ -155,7 +176,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "kernels", "slice", "encode", "unfused",
-          "paged", "async", "obs", "bf16", "stream", "shard", "times")
+          "paged", "async", "obs", "bf16", "stream", "shard", "search",
+          "sentinel", "times")
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
 # float32 outside the tensor cores (F32_FLOPS counts an FMA as two flops;
@@ -208,6 +230,13 @@ STREAM = dict(reserve=1_000, seal_rows=32, inserts=512, codeless_inserts=128,
 # edge: 99,250 live rows and 1,000 dead), and the streaming sub-leg's
 # inserts and deletes (base rows and inserts each)
 SHARD = dict(counts=(2, 4), reserve=1_000, inserts=64, deletes=8)
+# the search leg: queries a group searched by the host's C2LSH level loop
+# (the first ones routed to the widest and to the narrowest group, whose
+# per-table sorted orders take tens of seconds each to build)
+SEARCH_PER_GROUP = 4
+# the sentinel leg: metrics fixed by its seed, equal on the card and the CPU
+SENTINEL_SEEDED = ("observed_recall", "recall_margin_min",
+                   "n_shadow_dropped", "n_compiled_steps")
 # the obs leg: shadow recall sample rate (~16 of the 256 queries), the
 # recall floor its alert rule holds the shadow recall to, the threads that
 # run the host oracle's scans, and the async replay's arrival rate (a
@@ -2509,6 +2538,161 @@ def phase_shard(torch, dev, sl, smi):
     return dict(launches=launches, err=errs)
 
 
+def _narrowest(svc, plan) -> int:
+    """The group with the narrowest padded state (ties: the fewest
+    tables)."""
+    return min(range(plan.n_groups), key=lambda g: (
+        svc.group_config(g).beta, plan.groups[g].beta_group))
+
+
+def phase_search(torch, dev, sl, smi):
+    """The paper's host search at the slice's full width, held to the dense
+    host oracle and to the card's answers (see the module docstring)."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import _cuda
+
+    svc, plan, host = sl["svc"], sl["plan"], sl["host"]
+    qpts, wids, card = sl["qpts"], sl["wids"], sl["res"]
+    k = SLICE["k"]
+    budget = k + int(np.ceil(plan.gamma_n))
+    t_phase = time.time()
+    groups = (_widest(svc, plan), _narrowest(svc, plan))
+    take = []
+    for gi in groups:
+        rows = np.where(plan.group_of[wids] == gi)[0][:SEARCH_PER_GROUP]
+        _need(len(rows) == SEARCH_PER_GROUP,
+              f"group {gi} serves {len(rows)} of the slice's queries")
+        take += [int(qi) for qi in rows]
+
+    def sort_tables(gi):  # numpy's sort releases the GIL: both at once
+        t0 = time.time()
+        host._group(gi).sorted_tables()
+        return time.time() - t0
+
+    _cuda.reset_launch_counts()
+    with ThreadPoolExecutor(max_workers=len(groups)) as pool:
+        t_sort = list(pool.map(sort_tables, groups))
+    for gi, secs in zip(groups, t_sort):
+        g = plan.groups[gi]
+        say(f"search tables: group {gi} (beta_group {g.beta_group}, "
+            f"beta_pad {svc.group_config(gi).beta}, n={plan.n}) sorted per "
+            f"table in {secs:.1f}s")
+    found, host_ms = [], []
+    for qi in take:
+        t0 = time.perf_counter()
+        found.append(host.search(qpts[qi], weight_id=int(wids[qi]), k=k))
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=len(take)) as pool:
+        dense = list(pool.map(lambda qi: host.search_dense(
+            qpts[qi], weight_id=int(wids[qi]), k=k), take))
+    t_dense = time.time() - t0
+    launches = _cuda.launch_counts()
+
+    def agree(r, stop, n_checked, ids):
+        """(stop and n_checked equal, ids equal or None where the budget
+        truncated the frequent set, top-1 equal)."""
+        same = (r.stats.stop_level == int(stop)
+                and r.stats.n_checked == int(n_checked))
+        ids_eq = (np.array_equal(r.ids, np.asarray(ids, np.int64))
+                  if r.stats.n_checked < budget else None)
+        return same, ids_eq, int(r.ids[0]) == int(ids[0])
+
+    vs_dense, vs_card = [], []
+    for i, (qi, r, rd) in enumerate(zip(take, found, dense)):
+        st = r.stats
+        vs_dense.append(agree(r, rd.stats.stop_level, rd.stats.n_checked,
+                              rd.ids))
+        vs_card.append(agree(r, card.stop_levels[qi], card.n_checked[qi],
+                             card.ids[qi]))
+        say(f"search query {qi} (group {plan.group_of[wids[qi]]}, weight "
+            f"{wids[qi]}): {host_ms[i]:.1f} ms on the host, stop level "
+            f"{st.stop_level} (dense {rd.stats.stop_level}, card "
+            f"{card.stop_levels[qi]}), n_checked {st.n_checked} (dense "
+            f"{rd.stats.n_checked}, card {card.n_checked[qi]}), "
+            f"n_collisions {st.n_collisions}, io_blocks {st.io_blocks:.1f}, "
+            f"found_k {st.found_k}")
+
+    def count(rows):
+        return (sum(same and ids_eq is not False for same, ids_eq, _ in rows),
+                sum(ids_eq is None for _, ids_eq, _ in rows),
+                sum(top1 for same, ids_eq, top1 in rows if ids_eq is None))
+
+    n_q = len(take)
+    ok_d, trunc_d, top1_d = count(vs_dense)
+    ok_c, trunc_c, top1_c = count(vs_card)
+    data_t = torch.from_numpy(sl["data"]).to(dev).double()
+    q_t, w_t = qpts[take], wids[take]
+    rec_h, ratio_h = _quality(torch, dev, data_t, sl["weights"], q_t, w_t,
+                              SimpleNamespace(ids=np.stack(
+                                  [r.ids for r in found])), k)
+    rec_c, ratio_c = _quality(torch, dev, data_t, sl["weights"], q_t, w_t,
+                              SimpleNamespace(ids=card.ids[take]), k)
+    del data_t
+    _release(torch)
+    io = np.array([r.stats.io_blocks for r in found])
+    secs = time.time() - t_phase
+    say(f"search vs search_dense: {ok_d}/{n_q} agree (stop, n_checked, and "
+        f"ids where n_checked < budget {budget}); {trunc_d} truncated by the "
+        f"budget, top-1 equal on {top1_d} of them; search_dense "
+        f"{t_dense:.1f}s for {n_q} in parallel")
+    say(f"search vs the card's answers (slice leg): {ok_c}/{n_q} agree; "
+        f"{trunc_c} truncated, top-1 equal on {top1_c} of them")
+    say(f"search summary: {n_q} queries, host ms p50 "
+        f"{np.percentile(host_ms, 50):.1f} (max {max(host_ms):.1f}); "
+        f"io_blocks mean {io.mean():.1f} (min {io.min():.1f}, max "
+        f"{io.max():.1f}); overall ratio {ratio_h:.4f} (card {ratio_c:.4f}), "
+        f"recall@{k} {rec_h:.4f} (card {rec_c:.4f}); the card's p50 per "
+        f"batch of {SLICE['q_batch']} on the slice leg "
+        f"{np.percentile(sl['lat'], 50):.2f} ms; phase {secs:.1f}s [{smi}]")
+    _need_launches(launches, {name: 0 for name in KERNELS}, "search")
+    _need(ok_d == n_q, f"search agrees with search_dense on {ok_d} of {n_q}")
+    _need(ok_c >= n_q - 1,
+          f"search agrees with the card's answers on {ok_c} of {n_q}")
+    return dict(seconds=secs, sort_seconds=t_sort, host_ms=host_ms,
+                io_blocks=io.tolist(), ratio=ratio_h, card_ratio=ratio_c)
+
+
+def phase_sentinel(torch, dev, smi):
+    """The bench sentinel's workload on the card, then on the CPU; gated
+    against the committed baseline."""
+    from benchmarks_torch import sentinel
+    from repro_torch.kernels import _cuda
+
+    _release(torch)  # the earlier legs' dropped services and cached blocks
+    t0 = time.time()
+    _cuda.reset_launch_counts()
+    card = sentinel.collect(device=str(dev))
+    launches = _cuda.launch_counts()
+    t_card = time.time() - t0
+    _need_launches(launches, {"fused_query_hist": None,
+                              "fused_query_scores": None, "hash_encode": 0,
+                              "freq_level": 0, "weighted_lp": 0}, "sentinel")
+    t0 = time.time()
+    cpu = sentinel.collect(device="cpu")
+    t_cpu = time.time() - t0
+    for name in card:
+        say(f"sentinel {name}: card {card[name]!r}, cpu {cpu[name]!r}")
+    say(f"sentinel: {t_card:.1f}s on the card, {t_cpu:.1f}s on the CPU "
+        f"[{smi}]")
+    for name in SENTINEL_SEEDED:
+        _need(card[name] == cpu[name], f"sentinel {name}: card {card[name]}"
+              f" != cpu {cpu[name]}")
+    base_path = sentinel.DEFAULT_BASELINE
+    with open(base_path) as fh:
+        pinned = json.load(fh)
+    rows = sentinel.compare(card, pinned["metrics"])
+    for r in rows:
+        say(f"sentinel vs {os.path.relpath(base_path, ROOT)} "
+            f"({pinned.get('device')}): {r['metric']} {r['current']!r} vs "
+            f"{r['baseline']!r}, limit {r['limit']!r} ({r['direction']} is "
+            f"better), {'PASS' if r['ok'] else 'FAIL'} [{smi}]")
+    bad = [r["metric"] for r in rows if not r["ok"]]
+    _need(rows and not bad, f"sentinel regressions: {bad}")
+    return dict(launches=launches, card=card, cpu=cpu)
+
+
 def _bound(bytes_, ops_ms: float):
     """(bound ms, what bounds it) from bytes and the operations' time."""
     bytes_ms = 1e3 * bytes_ / HBM_BYTES_PER_S
@@ -2565,8 +2749,8 @@ def _times_fused(torch, dev, sl, errs, smi, inputs, other):
             f"{t_p[name]:.3f} ms, bound {bound[0]:.3f} ms by {bound[1]} "
             f"({tests} level tests, {flops} flops, "
             f"{in_bytes + out_bytes[name]} bytes) [{smi}]")
-        # launches: the slice leg's main path and the stream, obs, bf16
-        # and shard legs'
+        # launches: the slice leg's main path and the stream, obs, bf16,
+        # shard and sentinel legs'
         table.append(_row(name, sl["launches"][name] + other[name],
                           errs[name], t_k[name], t_p[name], bound))
     _times_fused_bf16(torch, dev, smi, inputs, t_k)
@@ -2733,7 +2917,8 @@ def phase_times(torch, dev, sl, legs, errs, smi):
     inputs = _slice_pass_inputs(sl, torch, dev)
     stream, shard = legs["stream"]["launches"], legs["shard"]["launches"]
     other = {k: stream[k] + legs["obs"]["launches"][k]
-             + legs["bf16"]["launches"][k] + shard.get(k, 0) for k in stream}
+             + legs["bf16"]["launches"][k] + shard.get(k, 0)
+             + legs["sentinel"]["launches"][k] for k in stream}
     errs = _max_err(errs, legs["bf16"]["err"])
     errs = _max_err(errs, legs["shard"]["err"])
     table = _times_fused(torch, dev, sl, errs, smi, inputs, other)
@@ -2762,6 +2947,7 @@ def main(argv=None) -> int:
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
 
+    t_main = time.time()
     import torch
 
     if not torch.cuda.is_available():
@@ -2807,10 +2993,19 @@ def main(argv=None) -> int:
         if sl is None:
             raise SystemExit("the shard phase needs the slice phase")
         legs["shard"] = phase_shard(torch, dev, sl, smi)
+    if "search" in phases:
+        if sl is None:
+            raise SystemExit("the search phase needs the slice phase")
+        legs["search"] = phase_search(torch, dev, sl, smi)
+    if "sentinel" in phases:
+        legs["sentinel"] = phase_sentinel(torch, dev, smi)
     if "times" in phases:
         if sl is None or errs is None or set(legs) != set(PHASES[4:-1]):
             raise SystemExit("the times phase needs every other phase")
         table = phase_times(torch, dev, sl, legs, errs, smi)
+    say(f"chip_smoke: {len(phases)} phases in {time.time() - t_main:.1f}s "
+        f"[{smi}]")
+    if "times" in phases:
         say(json.dumps({"kernels": table}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,14 @@
-"""WLSH index: Preprocess (Algorithm 1) + the dense host oracle, numpy.
+"""WLSH index: Preprocess (Algorithm 1) + Search (Algorithm 2), numpy.
 
 The planner partitions the weight vector set into table groups, samples
 each group's hash family and computes its host codes; ``export_serving_plan``
 hands the result to the device layers as a ``ServingPlan``.
-``search_dense`` is the single-pass dense formulation of the paper's
-Search (Algorithm 2) in numpy, the oracle the device engine is held to.
+``search`` is the paper-faithful host search: per-table sorted code
+arrays, the C2LSH virtual-rehashing level loop with incremental collision
+counting, so its work (and the I/O metric it reports) is proportional to
+the buckets actually probed, the quantity the paper's experiments
+measure.  ``search_dense`` is the single-pass dense formulation of the
+same search in numpy, the oracle the device engine is held to.
 
 Glossary against the paper:
   * group            = S_i in the partition (one physical table group)
@@ -27,14 +31,21 @@ from .params import PlanConfig
 from .partition import GroupPlan, PartitionResult, partition
 from .serving_plan import GroupServingPlan, ServingPlan
 
-__all__ = ["WLSHIndex", "SearchResult", "SearchStats"]
+__all__ = ["WLSHIndex", "SearchResult", "SearchStats", "BLOCK_BYTES"]
+
+BLOCK_BYTES = 4096  # paper Sec. 5.1.3
+_ENTRY_BYTES = 8  # (point id, code) per hash-table entry
+_COORD_BYTES = 4
 
 
 @dataclasses.dataclass
 class SearchStats:
     stop_level: int
     n_checked: int  # candidates whose exact distance was computed
-    n_collisions: int  # (point, table) pairs colliding at the stop level
+    n_collisions: int  # search: hash-table entries scanned (identify
+    # cost); search_dense: (point, table) pairs colliding at the stop level
+    io_blocks: float  # paper-style I/O: identify + check, in 4KB blocks
+    # (search only; nan from search_dense)
     found_k: bool
 
 
@@ -208,6 +219,120 @@ class WLSHIndex:
             )
         return int(round(c_eff))
 
+    def search(
+        self, q: np.ndarray, weight_id: int, k: int = 1,
+        c: float | None = None,
+    ) -> SearchResult:
+        """(c, k)-WNN search under weight vector ``weight_id`` (Algorithm 2).
+
+        Faithful C2LSH level loop with incremental collision counting over
+        the group's first beta_{W_i} tables.  ``c`` optionally overrides
+        the configured approximation ratio at query time (an integer >=
+        the planned one: the tables are c-independent, virtual rehashing
+        only regroups buckets as ``code // c**j``).
+        """
+        built, slot, beta_i, mu_i = self._member_params(weight_id)
+        plan = built.plan
+        w_i = self.weights[weight_id]
+        r_min = float(plan.r_min_members[slot])
+        n_levels = int(plan.n_levels[slot])
+        c = self._c_eff(self.cfg.c, c)
+        n = self.n
+        budget = k + int(math.ceil(self.cfg.gamma_n))  # == gamma * n, float-exact
+
+        q = np.asarray(q, dtype=np.float32)
+        q_codes = hash_codes_np(q[None, :], built.fam)[0][:beta_i]
+        sorted_codes, sorted_ids = built.sorted_tables()
+        sc = sorted_codes[:beta_i]
+        sids = sorted_ids[:beta_i]
+
+        counts = np.zeros(n, dtype=np.int32)
+        checked = np.zeros(n, dtype=bool)
+        cand_ids: list[np.ndarray] = []
+        cand_dists: list[np.ndarray] = []
+        lo = np.empty(beta_i, dtype=np.int64)
+        hi = np.empty(beta_i, dtype=np.int64)
+        prev_lo = np.zeros(beta_i, dtype=np.int64)
+        prev_hi = np.zeros(beta_i, dtype=np.int64)
+        first = True
+        n_collisions = 0
+        n_checked = 0
+        n_good = 0
+        stop_level = n_levels
+        found_k = False
+
+        for j in range(n_levels + 1):
+            l = c**j
+            b_lo = (q_codes // l) * l  # level-j bucket = codes in [b_lo, b_lo+l)
+            newly: list[np.ndarray] = []
+            for t in range(beta_i):
+                lo[t] = np.searchsorted(sc[t], b_lo[t], side="left")
+                hi[t] = np.searchsorted(sc[t], b_lo[t] + l, side="left")
+                if first:
+                    seg = sids[t, lo[t] : hi[t]]
+                    if seg.size:
+                        newly.append(seg)
+                else:
+                    left = sids[t, lo[t] : prev_lo[t]]
+                    right = sids[t, prev_hi[t] : hi[t]]
+                    if left.size:
+                        newly.append(left)
+                    if right.size:
+                        newly.append(right)
+            first = False
+            prev_lo[:] = lo
+            prev_hi[:] = hi
+            if newly:
+                inc = np.concatenate(newly)
+                n_collisions += inc.size
+                # the same integers as np.add.at(counts, inc, 1), which
+                # takes seconds a level at n = 400k, where a late level
+                # adds tens of millions of collisions
+                counts += np.bincount(inc, minlength=n)
+            # identify frequent, not-yet-checked candidates
+            freq = np.where((counts >= mu_i) & ~checked)[0]
+            if freq.size:
+                take = freq[: max(0, budget - n_checked)]
+                if take.size:
+                    d = weighted_lp_np(self.data[take], q, w_i, self.cfg.p)
+                    checked[take] = True
+                    n_checked += take.size
+                    cand_ids.append(take)
+                    cand_dists.append(d)
+            R = r_min * (c**j)
+            if cand_dists:
+                all_d = np.concatenate(cand_dists)
+                n_good = int(np.sum(all_d <= c * R))
+            if n_good >= k or n_checked >= budget:
+                stop_level = j
+                found_k = n_good >= k
+                break
+
+        if cand_ids:
+            ids = np.concatenate(cand_ids)
+            dists = np.concatenate(cand_dists)
+            top = np.argsort(dists, kind="stable")[:k]
+            out_ids = np.full(k, -1, dtype=np.int64)
+            out_d = np.full(k, np.inf)
+            out_ids[: top.size] = ids[top]
+            out_d[: top.size] = dists[top]
+        else:
+            out_ids = np.full(k, -1, dtype=np.int64)
+            out_d = np.full(k, np.inf)
+
+        blocks_identify = n_collisions / (BLOCK_BYTES / _ENTRY_BYTES)
+        blocks_check = n_checked * max(
+            1, math.ceil(self.data.shape[1] * _COORD_BYTES / BLOCK_BYTES)
+        )
+        stats = SearchStats(
+            stop_level=stop_level,
+            n_checked=n_checked,
+            n_collisions=n_collisions,
+            io_blocks=blocks_identify + blocks_check,
+            found_k=found_k,
+        )
+        return SearchResult(ids=out_ids, dists=out_d, stats=stats)
+
     def search_dense(
         self, q: np.ndarray, weight_id: int, k: int = 1,
         c: float | None = None,
@@ -216,8 +341,10 @@ class WLSHIndex:
 
         Computes jmin per (point, table), takes the mu-th order statistic to
         get L_freq, then applies the paper's stop conditions level-by-level
-        analytically.  ``c`` optionally overrides the configured
-        approximation ratio (an integer >= the planned one).
+        analytically.  Agrees with ``search`` on the stop level and on the
+        candidate sets wherever the frequent set fits the budget.  ``c``
+        optionally overrides the configured approximation ratio (an integer
+        >= the planned one).
         """
         built, slot, beta_i, mu_i = self._member_params(weight_id)
         plan = built.plan
@@ -269,6 +396,7 @@ class WLSHIndex:
             stop_level=stop_level,
             n_checked=n_checked,
             n_collisions=int(np.sum(jmin <= stop_level)),
+            io_blocks=float("nan"),
             found_k=found_k,
         )
         return SearchResult(ids=out_ids, dists=out_d, stats=stats)

@@ -19,7 +19,9 @@ streaming tests hold a plan without host codes' seals to the plain
 ``hash_encode`` and its compacted state to a fresh device build, a
 compaction issued right after a prefetched restore (on a second
 stream) to a fresh union build and to an unpaged service, and a
-replaced state's offload to the group's existing pinned buffers.
+replaced state's offload to the group's existing pinned buffers.  The
+bench sentinel's workload on the card is held to its CPU run's seeded
+metrics.
 """
 
 from __future__ import annotations
@@ -701,3 +703,22 @@ def test_sharded_service_on_the_card_matches_unsharded(dev):
             np.testing.assert_array_equal(getattr(res, f), getattr(base, f))
         np.testing.assert_array_equal(res.dists.view(np.uint32),
                                       base.dists.view(np.uint32))
+
+
+def test_sentinel_on_the_card_matches_the_cpu(dev):
+    """The bench sentinel's seeded workload on the card (fused kernels)
+    gives the CPU run's seeded metrics, and launches both fused passes
+    and no other kernel."""
+    from benchmarks_torch import sentinel
+
+    _cuda.reset_launch_counts()
+    got = sentinel.collect(device="cuda")
+    launches = _cuda.launch_counts()
+    want = sentinel.collect(device="cpu")
+    for name in ("observed_recall", "recall_margin_min", "n_shadow_dropped",
+                 "n_compiled_steps"):
+        assert got[name] == want[name], name
+    assert launches["fused_query_hist"] > 0
+    assert launches["fused_query_scores"] > 0
+    assert launches["hash_encode"] == launches["freq_level"] == 0
+    assert launches["weighted_lp"] == 0

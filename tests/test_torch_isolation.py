@@ -1,11 +1,15 @@
 """The port stands alone: no JAX, no JAX package, no ml_dtypes, and the
 card by default.
 
-* Every ``repro_torch`` module imports in a fresh interpreter in which
-  ``jax``, ``repro`` and ``ml_dtypes`` cannot be imported at all.
-* No source file of the port (nor ``chip_smoke.py``) mentions an import
-  of ``jax``, of the ``repro`` package (``repro_torch`` itself is fine)
-  or of ``ml_dtypes`` (bfloat16 data moves as torch tensors).
+* Every ``repro_torch`` and ``benchmarks_torch`` module imports in a
+  fresh interpreter in which ``jax``, ``repro``, ``benchmarks`` and
+  ``ml_dtypes`` cannot be imported at all.
+* No source file of the port (nor ``chip_smoke.py``, the port's
+  ``benchmarks_torch/`` scripts and its ``examples/*_torch.py``)
+  mentions an import of ``jax``, of the ``repro`` package
+  (``repro_torch`` itself is fine), of the JAX package's ``benchmarks``
+  (``benchmarks_torch`` is fine) or of ``ml_dtypes`` (bfloat16 data
+  moves as torch tensors).
 * Entry points default to ``device="cuda"`` and raise when no CUDA device
   is present, unless the caller passes ``device="cpu"``.
 """
@@ -34,16 +38,19 @@ from repro_torch.serving import RetrievalService, ServiceConfig
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+BENCH = ROOT / "benchmarks_torch"
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_)|"
-    r"from\s+repro\b(?!_)|from\s+repro\.|import\s+ml_dtypes\b|"
-    r"from\s+ml_dtypes\b)", re.M)
+    r"from\s+repro\b(?!_)|from\s+repro\.|import\s+benchmarks\b(?!_)|"
+    r"from\s+benchmarks\b(?!_)|from\s+benchmarks\.|"
+    r"import\s+ml_dtypes\b|from\s+ml_dtypes\b)", re.M)
 
 
 def _modules() -> list[str]:
     names = ["repro_torch"]
     for info in pkgutil.walk_packages([str(PKG)], prefix="repro_torch."):
         names.append(info.name)
+    names += [f"benchmarks_torch.{f.stem}" for f in sorted(BENCH.glob("*.py"))]
     return names
 
 
@@ -53,31 +60,41 @@ def test_every_module_imports_without_jax_or_repro():
     assert "repro_torch.launch.retrieval" in mods
     assert "repro_torch.index.streaming" in mods
     assert "repro_torch.serving.delta" in mods
+    for name in ("core.c2lsh", "core.e2lsh", "core.alsh"):
+        assert f"repro_torch.{name}" in mods
+    for name in ("sentinel", "run", "table8_ratio", "fig1_query"):
+        assert f"benchmarks_torch.{name}" in mods
     for name in ("trace", "profile", "recall", "health"):
         assert f"repro_torch.obs.{name}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['benchmarks'] = None\n"
         "sys.modules['ml_dtypes'] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes']\n"
+        " or m == 'repro' or m.startswith('repro.') or m == 'benchmarks'"
+        " or m.startswith('benchmarks.') or m == 'ml_dtypes']\n"
         "assert all(sys.modules[m] is None for m in bad), bad\n"
         "print('ok', len(sys.modules))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env=env, timeout=120)
+                         text=True, env=env, cwd=ROOT, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
 
 
 def test_sources_never_import_jax_or_repro():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted(BENCH.glob("*.py"))
+             + sorted((ROOT / "examples").glob("*_torch.py")))
     assert len(files) > 10
+    assert ROOT / "examples" / "quickstart_torch.py" in files
+    assert BENCH / "sentinel.py" in files
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
@@ -89,6 +106,11 @@ def test_sources_never_import_jax_or_repro():
     ("import repro", True),
     ("from repro.core import wlsh", True),
     ("from repro import core", True),
+    ("import benchmarks", True),
+    ("from benchmarks import sentinel", True),
+    ("from benchmarks.common import TAU", True),
+    ("from benchmarks_torch import sentinel", False),
+    ("import benchmarks_torch.sentinel", False),
     ("import ml_dtypes", True),
     ("from ml_dtypes import bfloat16", True),
     ("import repro_torch", False),
