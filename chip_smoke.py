@@ -11,7 +11,18 @@ non-zero:
                object per source, in parallel) into one library; ptxas
                registers and spills per source, and the fused passes'
                shared bytes per block and resident blocks per SM
-  3. kernels — every kernel against its plain torch version on the card
+  3. sentinel — benchmarks_torch.sentinel's seeded serving workload (async
+               frontend, ServiceDriver, DeadlinePrefetch, paging, shadow
+               recall, a degrade ladder) on the card and then on the CPU:
+               the seeded metrics equal, the rest side by side; the fused
+               passes launched and no other kernel; no regression row
+               against experiments/bench_torch/BASELINE.json.  It runs
+               before every other leg, in the state in which its baseline
+               is pinned (a fresh process): run after the other legs, its
+               host-bound steps read slower and its p50 gate can fail
+               (benchmarks_torch/sentinel_drift.py prints the sentinel's
+               p50 at each stage of one process)
+  4. kernels — every kernel against its plain torch version on the card
                at ~65k rows with a ragged tail: both fused-query passes
                (p in {2, 1, 0.5}, Q=64, d=400, beta=512, beta_q ~ 450,
                L=16, n_valid below the row count; and c in {2, 3} at
@@ -27,21 +38,21 @@ non-zero:
                exactly;
                weighted_lp (p in {1, 0.5, 1.5}, d in {400, 397}) to
                rtol 1e-5
-  4. slice   — the synchronous query path at the paper's default data
+  5. slice   — the synchronous query path at the paper's default data
                scale (n=400,000, d=400, |S|=24, p=2, tau=500, c=3,
                v=v'=6) from a plan with host codes: plan, build every
                group state, serve 256 queries, check 8 against the host
                oracle search_dense and recall@10 against exact brute force
-  5. encode  — the same plan exported without host codes: every group
+  6. encode  — the same plan exported without host codes: every group
                state built and every query encoded on the card by the
                hash_encode kernel; the widest group's codes held to the
                float64 window, 65 self-queries found at rank 0, the 256
                queries served, recall beside the host-code leg's
-  6. unfused — the host-code plan served with use_kernels="off" (the
+  7. unfused — the host-code plan served with use_kernels="off" (the
                freq_level kernel, then torch distances and histograms):
                hist_f equal to the fused kernel's, answers equal to the
                fused leg's, and pass 1 of both routes timed
-  7. paged   — the slice's 256 queries through a RetrievalService that
+  8. paged   — the slice's 256 queries through a RetrievalService that
                keeps 3 of the 7 group states on the card (LRU eviction,
                offload to pinned host memory, restore on a copy stream):
                answers equal to the slice leg's bit for bit, restores > 0
@@ -50,7 +61,7 @@ non-zero:
                slice leg's; restores and evictions, bytes and device ms
                per restore (CUDA events on the copy stream), pinned
                bytes, per-batch latency and q/s
-  8. async   — the same queries as open-loop arrivals at half the paged
+  9. async   — the same queries as open-loop arrivals at half the paged
                leg's q/s (real clock, 5 ms deadline) into an
                AsyncRetrievalService under the same budget, driven by a
                ServiceDriver thread with DeadlinePrefetch: every future
@@ -58,7 +69,7 @@ non-zero:
                overlapped at least one restore; submit-to-resolve
                latency, deadline misses, wasted prefetches and the
                restore cost model's learned rate
-  9. stream  — streaming writes on the host-code plan, 3 of 7 states on
+ 10. stream  — streaming writes on the host-code plan, 3 of 7 states on
                the card, 1,000 rows reserved per state (capacity 401,000):
                the 256 queries interleaved with 512 inserts (uniform over
                the 24 weight ids, past the corpus range), every insert's
@@ -78,7 +89,7 @@ non-zero:
                purges and rebuilds; ms per seal and compaction (CUDA
                events), host ms of the exact scan, p50 per batch with rows
                pending and after compaction, purge seconds and peak memory
- 10. obs     — the host-code plan with the observability layer on
+ 11. obs     — the host-code plan with the observability layer on
                (obs=True, recall_sample_rate 0.0625): the sync frontend's
                answers equal to the slice leg's bit for bit, one monotone
                span per query, the hash-sampled ids shadow-checked and the
@@ -92,7 +103,7 @@ non-zero:
                their launch causes, the same sampled set and estimate as
                the sync leg, and the span, metrics and alert exports equal
                after a reload; obs-on p50 / p95 beside the slice leg's
- 11. bf16    — the host-code plan with bfloat16 vector storage: every
+ 12. bf16    — the host-code plan with bfloat16 vector storage: every
                state's bytes equal to state_nbytes, the stored bits equal
                to float32 rounded to nearest even, the 256 queries served
                (p50 / p95, q/s, recall and ratio, ids in common with the
@@ -102,7 +113,7 @@ non-zero:
                memory by less than a float32 copy of the rows; a paged
                round trip (3 of 7 states) equal to the unpaged bf16 leg,
                with pinned bfloat16 host buffers and its restore times
- 12. shard   — the host-code plan with every group's rows split into S
+ 13. shard   — the host-code plan with every group's rows split into S
                contiguous slices on the one card (devices named
                explicitly), 1,000 rows reserved a state (capacity 401,000
                = 4 x 100,250: the last shard holds the live rows' edge):
@@ -121,7 +132,7 @@ non-zero:
                fresh sharded build over the survivors).  p50 / p95 per
                batch, q/s, peak memory a leg, bytes, ms and GB/s a shard
                copy
- 13. search  — the paper's host search (WLSHIndex.search, numpy: per-table
+ 14. search  — the paper's host search (WLSHIndex.search, numpy: per-table
                sorted codes, the C2LSH level loop with incremental
                collision counting and I/O accounting) on the slice's
                host index: 4 queries routed to the widest group and 4 to
@@ -134,13 +145,27 @@ non-zero:
                host ms, io_blocks and n_collisions a query, the overall
                ratio of both answers against exact brute force, and the
                slice leg's p50 per batch beside them; no kernel launched
- 14. sentinel — benchmarks_torch.sentinel's seeded serving workload (async
-               frontend, ServiceDriver, DeadlinePrefetch, paging, shadow
-               recall, a degrade ladder) on the card and then on the CPU:
-               the seeded metrics equal, the rest side by side; the fused
-               passes launched and no other kernel; no regression row
-               against experiments/bench_torch/BASELINE.json
- 15. times   — each kernel on the main path's inputs for the widest
+ 15. lm      — the LM substrate (repro_torch.models, serving.decode): the
+               10 reduced archs of every family in float32 on the card
+               (hidden states, prefill logits, 3 decode steps' logits and
+               cache) held to the port's CPU run of the same parameters,
+               and each once in its bfloat16, finite; olmo-1b at full
+               width (16 layers, d_model 2,048, d_ff 8,192, vocab 50,304,
+               tied: ~1.18 B parameters from a seeded generator on the
+               card) embedding 65,536 docs x 32 tokens mean-pooled in
+               batches of 64 in bfloat16 (ms a batch, tokens/s, peak
+               memory), 8 docs' float32 hidden states held to the CPU's,
+               greedy generation (batch 8, prompt 16, 32 new) twice equal,
+               decode logits held to prefill's (ms a decode step,
+               tokens/s); the corpus served as examples/
+               serve_retrieval_torch.py does (positive orthant, |S| = 12,
+               p = 2, c = 3, tau = 500, v = v' = d/4, k = 5) through the
+               fused kernels at q_batch 64: 256 noisy corpus rows, both
+               passes held to their plain versions on the widest group, 8
+               queries vs search_dense, the source docs found, top-k
+               overlap with exact brute force, p50 / p95 and q/s, and the
+               example's open-loop replay bit-exact with sync
+ 16. times   — each kernel on the main path's inputs for the widest
                group: held to its plain version there (the rules of
                phase 3), its time, its plain version's time, the time of
                one PyTorch call that computes the same function where
@@ -154,8 +179,8 @@ printing any result.  ``--phases`` runs a subset (e.g. ``device,build,
 kernels``) for a short check; the full run needs all of them.  ``obs``
 and ``bf16`` need only ``slice`` (``--phases device,build,slice,obs,bf16``),
 as does ``shard`` (``--phases device,build,slice,shard``) and ``search``
-(``--phases device,build,slice,search``); ``sentinel`` needs only
-``device`` and ``build``.
+(``--phases device,build,slice,search``); ``lm`` and ``sentinel`` need
+only ``device`` and ``build`` (``--phases device,build,lm``).
 """
 
 from __future__ import annotations
@@ -175,9 +200,9 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-PHASES = ("device", "build", "kernels", "slice", "encode", "unfused",
-          "paged", "async", "obs", "bf16", "stream", "shard", "search",
-          "sentinel", "times")
+PHASES = ("device", "build", "sentinel", "kernels", "slice", "encode",
+          "unfused", "paged", "async", "obs", "bf16", "stream", "shard",
+          "search", "lm", "times")
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
 # float32 outside the tensor cores (F32_FLOPS counts an FMA as two flops;
@@ -254,6 +279,34 @@ OBS_ARRIVALS = 1_000.0
 # source row to ~1.3e-3, so on bfloat16 rows the squared-distance rule
 # holds up to 0.1 (kernel and plain version alike miss the atol there).
 BF16_ZONE = 0.1
+# the lm leg: the reduced families' decode steps, sequence length and
+# cache length; the full-width arch, its corpus (docs x tokens, embedded
+# in batches), the docs held in float32 to the CPU, the greedy
+# generation's batch, prompt and new tokens; the serving leg's users,
+# queries, k, batch, oracle checks and timed passes, and the example's
+# open-loop replay (rate, deadline)
+LM = dict(family_steps=3, family_seq=32, cache_len=16, arch="olmo_1b",
+          n_docs=65_536, seq=32, embed_batch=64, hold_docs=8, gen_batch=8,
+          prompt=16, new=32, n_users=12, n_queries=256, k=5, q_batch=64,
+          n_check=8, reps=3, async_rate=2_000.0, async_delay_ms=2.0)
+# float32 on the card vs the port's CPU run: the reduced families (the
+# CPU parity tests see at most 4e-6 between XLA and torch on values of
+# order 4), and olmo-1b's 16 layers at d_model 2,048 (values of order 5;
+# the card read 9.5e-6 there).  The full-width hold runs a control with
+# TF32 matmuls on and fails unless that control falls outside its limit.
+LM_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+LM_FULL_TOL = dict(rtol=1e-4, atol=1e-4)
+# bfloat16 decode vs prefill at the last prompt position: relative
+# Frobenius error of the logits (two bfloat16 paths that round apart)
+LM_DECODE_REL = 0.05
+# The p = 2 hold of the fused passes on the embedded corpus.  Its queries
+# are corpus rows plus N(0, 0.01): a source row sits at ~1.1e-2 of
+# sqrt(qw2+onorm), every other row above ~0.25, so the cancellation zone
+# reaches 0.1 (as BF16_ZONE does for bfloat16 rows).  Both tolerances of
+# the rule are scaled by d / 400 above d = 400: a float32 sum errs in
+# proportion to its length, and the d = 400 rule is ~17 ulps of the
+# expansion's terms.
+LM_ZONE = 0.1
 
 
 def say(msg: str) -> None:
@@ -428,17 +481,18 @@ def _freq_level_occupancy(c: int, L: int) -> str:
             f"registers")
 
 
-def _hold(torch, inp, p, kernel_out, plain_out, label, zone_edge=1e-3):
+def _hold(torch, inp, p, kernel_out, plain_out, label, zone_edge=1e-3,
+          tol=1e-6):
     """Hold both kernels' outputs to their plain versions' on one input.
 
     ``kernel_out`` and ``plain_out`` are ``(hist_f, hist_g, scores)``.
     hist_f and the +inf mask must be equal; hist_g may move at most 1e-4
     of the (query, row) cells (a good level on a float boundary); finite
     scores must agree to rtol 1e-5, or for p = 2 to atol
-    1e-6*sqrt(qw2+onorm), except in the cancellation zone (float64
+    ``tol``*sqrt(qw2+onorm), except in the cancellation zone (float64
     distance below ``zone_edge``*sqrt(qw2+onorm)), where the squared
-    distance is held to 1e-6*(qw2+onorm).  Returns the max abs error of
-    each kernel.
+    distance is held to ``tol``*(qw2+onorm).  Returns the max abs error
+    of each kernel.
     """
     hf, hg, sc = kernel_out
     rf, rg, rs = plain_out
@@ -468,24 +522,26 @@ def _hold(torch, inp, p, kernel_out, plain_out, label, zone_edge=1e-3):
         exact = exact.clamp_min(0).sqrt()[fin]
         scale = s2.sqrt()[fin]
         del s2
-        rule = "atol 1e-6*sqrt(qw2+onorm)"
+        rule = f"atol {tol:g}*sqrt(qw2+onorm)"
         zone = exact < zone_edge * scale  # expansion lost its digits
-        bad_cells = diff > 1e-6 * scale
+        bad_cells = diff > tol * scale
         kd = sc[fin].double()
         ek = ((kd - exact).abs() / scale)[~zone]
         ep = ((rs[fin].double() - exact).abs() / scale)[~zone]
         # In the zone the float32 expansion has lost its digits in both
         # versions, and no two float32 sums meet the atol there.  The
         # kernel's squared distance is held to float64 within 1e-6*(qw2+
-        # onorm), ~17 float32 ulps of the expansion's terms: a value far
-        # from the true one fails, one the expansion cannot tell from 0
-        # passes, so ranking there rests on the exact re-rank.
-        bad_zone = (kd * kd - exact * exact).abs() > 1e-6 * scale * scale
+        # onorm) at the default tol, ~17 float32 ulps of the expansion's
+        # terms: a value far from the true one fails, one the expansion
+        # cannot tell from 0 passes, so ranking there rests on the exact
+        # re-rank.
+        bad_zone = ((kd * kd - exact * exact).abs()
+                    > tol * scale * scale)
         ez = ((kd * kd - exact * exact).abs() / (scale * scale))[zone]
         note = (f"; {int(zone.sum())} cells in the cancellation zone "
                 f"(dist < {zone_edge:g}*sqrt(qw2+onorm)) held to "
                 f"|k^2-d64^2| <= "
-                f"1e-6*(qw2+onorm), max {_top(ez):.3g}; outside it max "
+                f"{tol:g}*(qw2+onorm), max {_top(ez):.3g}; outside it max "
                 f"|err| / sqrt(qw2+onorm) vs float64: kernel {_top(ek):.3g}"
                 f", plain {_top(ep):.3g}")
         bad = int(bad_cells[~zone].sum() + bad_zone[zone].sum())
@@ -2693,6 +2749,443 @@ def phase_sentinel(torch, dev, smi):
     return dict(launches=launches, card=card, cpu=cpu)
 
 
+# ---------------------------------------------------------------- lm leg
+
+
+def _lm_full_config():
+    """The full-width model of the lm leg (a function, so a rehearsal on
+    the CPU can shrink it)."""
+    from repro_torch.configs import get_config
+
+    return get_config(LM["arch"])
+
+
+def _lm_batch(torch, cfg, rng, dev, b: int, s: int):
+    """Seeded inputs of ``b`` x ``s``: token ids, or frame/patch
+    embeddings for the archs whose frontend is a stub."""
+    if cfg.input_mode == "embeddings":
+        x = rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
+        return {"embeddings": torch.from_numpy(x).to(dev)}
+    toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks).to(dev)}
+
+
+def _lm_run(torch, model, params, batch, toks, dev):
+    """(hidden, prefill logits, last decode logits, cache) of one model on
+    ``dev``: the forward, then ``len(toks)`` decode steps from position 0."""
+    b = {k: v.to(dev) for k, v in batch.items()}
+    with torch.no_grad():
+        hid = model.hidden_states(params, b)
+        pre = model.prefill(params, b)
+        cache = model.init_cache(toks.shape[1], LM["cache_len"], device=dev)
+        for t in range(toks.shape[0]):
+            logits, cache = model.decode_step(params, cache,
+                                              toks[t].to(dev), t)
+    return hid, pre, logits, cache
+
+
+def _lm_err(torch, got, want, tol, label) -> float:
+    """Max abs error of ``got`` (the card) against ``want`` (the CPU)
+    within ``tol`` (float8 within one float8 step more)."""
+    got = got.cpu()
+    if got.dtype == torch.float8_e4m3fn:
+        tol = dict(tol, rtol=tol["rtol"] + 2.0 ** -3)
+    g, w = got.double(), want.double()
+    ok = (g - w).abs() <= tol["atol"] + tol["rtol"] * w.abs()
+    err = _top((g - w).abs())
+    _need(bool(ok.all()) and bool(torch.isfinite(g).all()),
+          f"{label}: {int((~ok).sum())} values outside {tol}, max abs err "
+          f"{err:.3g}")
+    return err
+
+
+def _lm_profile(torch, dev, fn, label: str, smi, calls: int = 4):
+    """``calls`` runs of ``fn`` under ``torch.profiler`` after a warm one:
+    device busy time a call (the kernels' spans), its share of the host
+    wall time of ``calls`` runs timed without the profiler (1 - the idle
+    share; the profiler's own per-launch cost would inflate a wall taken
+    under it), and the kernels that took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    _sync(torch, dev)
+    wall_us = 1e6 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        _sync(torch, dev)
+        prof_us = 1e6 * (time.perf_counter() - t0)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    say(f"lm profile {label}: {calls} calls, host wall "
+        f"{wall_us / 1e3 / calls:.2f} ms a call without the profiler "
+        f"({prof_us / 1e3 / calls:.2f} under it), device "
+        f"busy {busy / 1e3 / calls:.2f} ms a call, idle share "
+        f"{1 - busy / wall_us:.1%}; {len(by_name)} kernels, the most "
+        f"device time: " + "; ".join(
+            f"{name[:60]} {us / 1e3 / calls:.2f} ms" for name, us in top)
+        + f" [{smi}]")
+    return dict(busy_ms=busy / 1e3 / calls, wall_ms=wall_us / 1e3 / calls,
+                top=[(name, us / 1e3 / calls) for name, us in top])
+
+
+def _lm_families(torch, dev, smi):
+    """Every LM family's reduced arch on the card, float32, held to the
+    port's CPU run on the same parameters; once in bfloat16, finite."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, get_config, reduced
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.params import tree_map
+
+    t0 = time.time()
+    cpu = torch.device("cpu")
+    archs = [a for a in ARCHS if a != "wlsh_index"]
+    steps = LM["family_steps"]
+    for i, arch in enumerate(archs):
+        base = reduced(get_config(arch))
+        model = build_model(dataclasses.replace(base, dtype="float32"))
+        p_cpu = init_params(model.defs(),
+                            torch.Generator().manual_seed(100 + i),
+                            device="cpu")
+        p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+        rng = np.random.default_rng(100 + i)
+        batch = _lm_batch(torch, base, rng, cpu, 2, LM["family_seq"])
+        toks = torch.from_numpy(rng.integers(0, base.vocab, (steps, 2)).astype(
+            np.int32))
+        want = _lm_run(torch, model, p_cpu, batch, toks, cpu)
+        got = _lm_run(torch, model, p_dev, batch, toks, dev)
+        errs = [_lm_err(torch, g, w, LM_F32_TOL, f"lm {arch} {name}")
+                for name, g, w in zip(("hidden", "prefill", "decode"),
+                                      got[:3], want[:3])]
+        cache_err = max(_lm_err(torch, got[3][k], want[3][k], LM_F32_TOL,
+                                f"lm {arch} cache {k}") for k in want[3])
+        bf = build_model(base)  # the config's own bfloat16
+        hb, pb, lb, cb = _lm_run(torch, bf, p_dev, batch, toks, dev)
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (hb, pb, lb, *cb.values()))
+        _need(finite and hb.dtype == torch.bfloat16,
+              f"lm {arch}: bfloat16 run not finite")
+        say(f"lm family {arch} ({base.family}, {base.n_layers} layers, "
+            f"d={base.d_model}): card vs CPU float32 max abs err hidden "
+            f"{errs[0]:.3g}, prefill {errs[1]:.3g}, decode step {steps} "
+            f"logits {errs[2]:.3g}, cache {cache_err:.3g} (cache "
+            f"{sorted(want[3])}, kv {base.kv_dtype_}); bfloat16 run finite")
+    say(f"lm families: {len(archs)} archs held to rtol "
+        f"{LM_F32_TOL['rtol']:g}, atol {LM_F32_TOL['atol']:g} (float8 "
+        f"caches one float8 step more), {time.time() - t0:.1f}s [{smi}]")
+
+
+def _lm_embed(torch, dev, smi):
+    """olmo-1b at full width: init on the card, embed the corpus in
+    bfloat16, hold 8 docs' float32 hidden states to the CPU's, generate
+    greedily twice and hold the decode path to prefill."""
+    import dataclasses
+
+    from repro_torch.models import (build_model, count_params, init_params,
+                                    tree_bytes)
+    from repro_torch.models.params import tree_map
+    from repro_torch.serving import SamplerConfig, generate
+
+    cfg = _lm_full_config()
+    model = build_model(cfg)
+    n_params = count_params(model.defs())
+    _reset_peak(torch, dev)
+    t0 = time.time()
+    params = init_params(model.defs(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    _sync(torch, dev)
+    say(f"lm {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied "
+        f"{cfg.tie_embeddings}, {cfg.norm}: count_params {n_params}, "
+        f"{tree_bytes(params)} bytes of {cfg.param_dtype} params on the "
+        f"card, initialised in {time.time() - t0:.1f}s")
+
+    n_docs, seq, bs = LM["n_docs"], LM["seq"], LM["embed_batch"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    vecs = torch.empty((n_docs, cfg.d_model), dtype=torch.float32,
+                       device=dev)
+    events, first = [], None
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for i in range(0, n_docs, bs):
+            toks = torch.randint(0, cfg.vocab, (min(bs, n_docs - i), seq),
+                                 generator=gen, dtype=torch.int32, device=dev)
+            if first is None:
+                first = toks[: LM["hold_docs"]].clone()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            h = model.hidden_states(params, {"tokens": toks})
+            # bfloat16 mean, as jnp.mean of the JAX example's hidden states
+            vecs[i:i + len(toks)] = h.mean(dim=1).float()
+            e.record()
+            events.append((s, e))
+    _sync(torch, dev)
+    secs = time.perf_counter() - t0
+    ms = [s.elapsed_time(e) for s, e in events]
+    peak = _peak(torch, dev)
+    _need(bool(torch.isfinite(vecs).all()), "lm embeddings not finite")
+    say(f"lm embed: {n_docs} docs x {seq} tokens in {len(ms)} batches of "
+        f"{bs} ({cfg.dtype}): per batch (CUDA events) p50 "
+        f"{np.percentile(ms, 50):.2f} ms, p95 {np.percentile(ms, 95):.2f} "
+        f"ms, first {ms[0]:.2f} ms; {secs:.2f}s wall, "
+        f"{n_docs * seq / secs:.0f} tokens/s; peak device memory {peak} "
+        f"bytes [{smi}]")
+
+    # 8 docs in float32 on the card against the CPU on the same params
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"))
+    t0 = time.time()
+    with torch.no_grad():
+        h_card = m32.hidden_states(params, {"tokens": first}).cpu()
+        p_cpu = tree_map(lambda t: t.cpu(), params)
+        h_cpu = m32.hidden_states(p_cpu, {"tokens": first.cpu()})
+        # the control: the same docs with TF32 matmuls on the card
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            h_tf32 = m32.hidden_states(params, {"tokens": first}).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    del p_cpu
+    err = _lm_err(torch, h_card, h_cpu, LM_FULL_TOL, "lm hold")
+    rel = float((h_card - h_cpu).double().norm() / h_cpu.double().norm())
+    g, w = h_tf32.double(), h_cpu.double()
+    tf32_out = int(((g - w).abs() > LM_FULL_TOL["atol"]
+                    + LM_FULL_TOL["rtol"] * w.abs()).sum())
+    tf32_err = _top((g - w).abs())
+    tf32_rel = float((g - w).norm() / w.norm())
+    say(f"lm hold: {LM['hold_docs']} docs' float32 hidden states on the card "
+        f"vs the CPU: max abs err {err:.3g} (values up to "
+        f"{_top(h_cpu.abs()):.3g}), relative {rel:.3g}, within rtol "
+        f"{LM_FULL_TOL['rtol']:g}, atol {LM_FULL_TOL['atol']:g}; control "
+        f"with TF32 matmuls: max abs err {tf32_err:.3g}, relative "
+        f"{tf32_rel:.3g}, {tf32_out} of {g.numel()} values outside "
+        f"({time.time() - t0:.1f}s)")
+    _need(tf32_out > 0, "lm hold: the TF32 control passes the float32 "
+          "tolerance, which then cannot tell TF32 matmuls from float32")
+
+    # greedy generation, twice, with every decode step timed
+    gb, plen, new = LM["gen_batch"], LM["prompt"], LM["new"]
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab, (gb, plen)).astype(np.int32)
+    step_events = []
+    decode_step = model.decode_step
+
+    def timed(*a, **kw):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = decode_step(*a, **kw)
+        e.record()
+        step_events.append((s, e))
+        return out
+
+    model.decode_step = timed
+    runs, walls = [], []
+    try:
+        for _ in range(2):
+            step_events.clear()
+            t0 = time.perf_counter()
+            runs.append(generate(model, params, prompts, new, plen + new + 1,
+                                 SamplerConfig(temperature=0.0), device=dev))
+            _sync(torch, dev)
+            walls.append(time.perf_counter() - t0)
+    finally:
+        del model.decode_step
+    step_ms = [s.elapsed_time(e) for s, e in step_events]
+    _need(runs[0].shape == (gb, new) and np.array_equal(runs[0], runs[1]),
+          "lm generate: two greedy runs differ")
+    # where a batch's and a step's device time goes
+    pt = torch.from_numpy(prompts).to(dev)
+    with torch.no_grad():
+        prof_embed = _lm_profile(torch, dev, lambda: model.hidden_states(
+            params, {"tokens": first.repeat(bs // len(first) + 1, 1)[:bs]}),
+            f"embed batch ({bs} x {seq})", smi)
+        cache = model.init_cache(gb, plen + 1, device=dev)
+        prof_step = _lm_profile(torch, dev, lambda: model.decode_step(
+            params, cache, pt[:, 0], 0), f"decode step (batch {gb})", smi)
+    # the decode path's logits after the prompt vs prefill's last position
+    with torch.no_grad():
+        cache = model.init_cache(gb, plen + 1, device=dev)
+        for pos in range(plen):
+            logits, cache = model.decode_step(params, cache, pt[:, pos], pos)
+        full = model.prefill(params, {"tokens": pt})
+    lg, fl = logits.float(), full.float()
+    err = _top((lg - fl).abs())
+    rel = float((lg - fl).double().norm() / fl.double().norm())
+    same_top = int((lg.argmax(-1) == fl.argmax(-1)).sum())
+    say(f"lm generate: batch {gb}, prompt {plen}, {new} new tokens greedy, "
+        f"two runs equal; {len(step_ms)} decode steps a run, p50 "
+        f"{np.percentile(step_ms, 50):.2f} ms, p95 "
+        f"{np.percentile(step_ms, 95):.2f} ms a step (CUDA events); "
+        f"{gb * new / walls[1]:.1f} new tokens/s ({walls[1]:.2f}s wall, "
+        f"first run {walls[0]:.2f}s); decode vs prefill at the last prompt "
+        f"position: max abs err {err:.3g} (logits up to "
+        f"{_top(fl.abs()):.3g}), relative {rel:.3g}, argmax equal on "
+        f"{same_top}/{gb} [{smi}]")
+    _need(rel <= LM_DECODE_REL, f"lm decode vs prefill: relative error "
+          f"{rel:.3g} above {LM_DECODE_REL}")
+    del params, cache
+    out = vecs.cpu().numpy()
+    del vecs
+    _release(torch)
+    return dict(corpus=out, embed_ms=ms, embed_tok_s=n_docs * seq / secs,
+                step_ms=step_ms, gen_tok_s=gb * new / walls[1], peak=peak,
+                n_params=n_params, prof_embed=prof_embed, prof_step=prof_step)
+
+
+def _lm_serve(torch, dev, smi, corpus):
+    """The embedded corpus served with the example's plan settings through
+    the fused kernels (see the module docstring)."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.datagen import make_weight_set
+    from repro_torch.core.params import PlanConfig
+    from repro_torch.core.wlsh import WLSHIndex
+    from repro_torch.kernels import _cuda, platform
+    from repro_torch.serving import (AsyncRetrievalService, ManualClock,
+                                     RetrievalService, ServiceConfig,
+                                     replay_open_loop)
+
+    corpus = corpus - corpus.min(axis=0, keepdims=True)
+    n, d = corpus.shape
+    k = LM["k"]
+    users = make_weight_set(size=LM["n_users"], d=d, n_subset=3,
+                            n_subrange=10, seed=7)
+    t0 = time.time()
+    host = WLSHIndex(corpus, users, PlanConfig(p=2.0, c=3, n=n,
+                                               gamma_n=100.0),
+                     tau=500.0, v=d // 4, v_prime=d // 4,
+                     value_range=float(corpus.max()), seed=8)
+    plan = host.export_serving_plan()
+    t_plan = time.time() - t0
+    svc = RetrievalService(plan, corpus, cfg=ServiceConfig(
+        k=k, q_batch=LM["q_batch"], offload_evicted=False, device=str(dev)))
+    path = platform.resolve(svc.cfg.use_kernels, svc.device)
+    _need(path.label == "fused-cuda", f"lm serve path {path.label}")
+    t0 = time.time()
+    svc.warmup()
+    _sync(torch, dev)
+    say(f"lm plan: n={n} d={d} |S|={LM['n_users']} p=2 c=3 gamma_n=100 "
+        f"tau=500 v=v'={d // 4} -> {plan.n_groups} groups, beta_group "
+        f"{[g.beta_group for g in plan.groups]}, beta_pad "
+        f"{[svc.group_config(g).beta for g in range(plan.n_groups)]} (plan "
+        f"{t_plan:.1f}s); {svc.resident_bytes} bytes of states on the card, "
+        f"built in {time.time() - t0:.1f}s; {path.label}")
+
+    n_q = LM["n_queries"]
+    rng = np.random.default_rng(9)
+    wids = rng.integers(0, LM["n_users"], n_q)
+    doc_ids = rng.choice(n, n_q, replace=False)
+    qpts = (corpus[doc_ids] + rng.normal(0, 0.01, (n_q, d))).astype(
+        np.float32)
+    svc.query(qpts, wids)  # warm
+    _sync(torch, dev)
+    runs, lat, t_q, launches = _serve(torch, dev, svc, qpts, wids,
+                                      LM["reps"])
+    _need_launches(launches, {"fused_query_hist": None,
+                              "fused_query_scores": None, "hash_encode": 0,
+                              "freq_level": 0, "weighted_lp": 0}, "lm serve")
+    res = runs[-1]
+    say(f"lm serve: {LM['reps']} x {n_q} queries in {len(lat)} batches, "
+        f"{t_q:.3f}s ({LM['reps'] * n_q / t_q:.1f} q/s), identical across "
+        f"runs; {_lat(lat)}; mean stop level {res.stop_levels.mean():.2f}, "
+        f"mean n_checked {res.n_checked.mean():.1f} [{smi}]")
+
+    # both passes on the widest group's state: held to their plain
+    # versions and timed at d = 2,048
+    inputs = _slice_pass_inputs(dict(svc=svc, plan=plan, wids=wids,
+                                     qpts=qpts), torch, dev)
+    gi, st = inputs[0], inputs[2]
+    f = _fused_passes(torch, dev, inputs, st.points,
+                      f"lm kernels (group {gi}, the lm leg's inputs)",
+                      zone_edge=LM_ZONE,
+                      tol=1e-6 * max(1.0, d / SLICE["d"]))
+    for name in ("fused_query_hist", "fused_query_scores"):
+        bound = f["bound"][name]
+        say(f"lm times {name} (group {gi}: {f['shape']}): kernel "
+            f"{f['t_k'][name]:.3f} ms, plain {f['t_p'][name]:.3f} ms, bound "
+            f"{bound[0]:.3f} ms by {bound[1]} ({f['tests']} level tests, "
+            f"{f['flops']} flops, {f['bytes'][name]} bytes) [{smi}]")
+
+    check = list(range(0, n_q, n_q // LM["n_check"]))[: LM["n_check"]]
+    t0 = time.time()
+    rows = _dense_check(host, qpts, wids, res, k, check)
+    n_bad = sum(not ok for ok, _ in rows)
+    detail = [info for ok, info in rows if not ok]
+    say(f"lm check vs search_dense: {len(check) - n_bad}/{len(check)} exact "
+        f"(stop, n_checked, ids){' ' + str(detail) if detail else ''} "
+        f"({time.time() - t0:.1f}s)")
+    _need(n_bad <= len(check) // 8,
+          f"lm: {n_bad} of {len(check)} queries disagree with search_dense")
+    data_t = torch.from_numpy(corpus).to(dev).double()
+    overlap, ratio = _quality(torch, dev, data_t, users, qpts, wids, res, k)
+    del data_t
+    found = float(np.mean([did in res.ids[qi]
+                           for qi, did in enumerate(doc_ids)]))
+    say(f"lm quality: source doc found in the top {k} for {found:.4f} of "
+        f"{n_q} queries (the example asks >= 0.75"
+        f"{'' if found >= 0.75 else '; BELOW IT'}); top-{k} overlap with "
+        f"exact brute force {overlap:.4f}, overall ratio {ratio:.4f}")
+
+    # the example's open-loop replay on a manual clock: bit-exact
+    arrivals = np.cumsum(rng.exponential(1.0 / LM["async_rate"], n_q))
+    svc.reset_stats()
+    asvc = AsyncRetrievalService(svc, max_delay_ms=LM["async_delay_ms"],
+                                 clock=ManualClock())
+    _cuda.reset_launch_counts()
+    ares, waits = replay_open_loop(asvc, qpts, wids, arrivals)
+    _sync(torch, dev)
+    a_launches = _cuda.launch_counts()
+    same = (np.array_equal(ares.ids, res.ids)
+            and np.array_equal(ares.dists, res.dists)
+            and np.array_equal(ares.stop_levels, res.stop_levels)
+            and np.array_equal(ares.n_checked, res.n_checked))
+    say(f"lm async replay at {LM['async_rate']:.0f} q/s, deadline "
+        f"{LM['async_delay_ms']} ms (manual clock): "
+        f"{'bit-exact' if same else 'DIFFERENT'} with sync; "
+        f"{asvc.n_launched_full} full / {asvc.n_launched_deadline} deadline "
+        f"launches, occupancy {svc.mean_occupancy():.2f}, wait mean "
+        f"{1e3 * waits.mean():.2f} ms; launches {a_launches}")
+    _need(same, "lm async answers differ from the sync answers")
+    _need(a_launches["fused_query_hist"] > 0, "lm async launched nothing")
+    _free(torch, svc)
+    return dict(launches={name: launches[name] + a_launches[name]
+                          for name in launches},
+                err=f["err"], times=f, lat=lat, qps=LM["reps"] * n_q / t_q,
+                found=found,
+                overlap=overlap, ratio=ratio,
+                res=SimpleNamespace(ids=res.ids))
+
+
+def phase_lm(torch, dev, smi):
+    """The LM substrate on the card: every family reduced and held to the
+    CPU, olmo-1b at full width embedding a corpus, and that corpus served
+    through the fused kernels."""
+    t0 = time.time()
+    _release(torch)
+    _lm_families(torch, dev, smi)
+    emb = _lm_embed(torch, dev, smi)
+    out = _lm_serve(torch, dev, smi, emb.pop("corpus"))
+    out.update(emb)
+    say(f"lm phase: {time.time() - t0:.1f}s [{smi}]")
+    return out
+
+
 def _bound(bytes_, ops_ms: float):
     """(bound ms, what bounds it) from bytes and the operations' time."""
     bytes_ms = 1e3 * bytes_ / HBM_BYTES_PER_S
@@ -2708,21 +3201,21 @@ def _row(name, launches, err, ms, plain_ms, bound, library_ms=None):
                 library_ms=library_ms)
 
 
-def _times_fused(torch, dev, sl, errs, smi, inputs, other):
+def _fused_passes(torch, dev, inputs, points, label, **hold_kw):
+    """Both fused passes on one group's state with ``points`` as its rows:
+    held to their plain versions (``_hold``, with ``hold_kw``), each timed
+    (kernel: mean of 5 launches after a warm one; plain: one call), and
+    the bound of each from the bytes it must move (each input read once,
+    each output written once) and its level tests and p = 2 flops."""
     from repro_torch.kernels import fused_query, ref
 
     gi, cfg, st, inp = inputs
     n, beta = st.codes.shape
     q, d = inp["queries"].shape
+    inp = dict(inp, points=points)
     kw = dict(boff=0, n_valid=st.n_valid, c=cfg.c, n_levels=cfg.n_levels,
               p=cfg.p)
     row_ok = torch.arange(n, device=dev) < st.n_valid
-    tests = int(inp["beta_q"].clamp_max(beta).sum()) * n  # level tests
-    flops = 4 * q * n * d  # p=2: cross and onorm multiply-adds
-    in_bytes = 4 * (n * beta + n * d + q * beta + 2 * q * d + 4 * q)
-    out_bytes = {"fused_query_hist": 2 * 4 * q * (cfg.n_levels + 3),
-                 "fused_query_scores": 4 * q * n}
-    ops_ms = 1e3 * max(tests / INT32_OPS, flops / F32_FLOPS)
     t_k, t_p, out_k, out_p = {}, {}, [], []
     for name, which in (("fused_query_hist", "hist"),
                         ("fused_query_scores", "scores")):
@@ -2736,66 +3229,52 @@ def _times_fused(torch, dev, sl, errs, smi, inputs, other):
             *args, row_ok, c=cfg.c, n_levels=cfg.n_levels, p=cfg.p)),
             torch, reps=1)
     out_p = [*out_p[0], out_p[1]]
-    err = _hold(torch, inp, cfg.p, out_k, out_p,
-                f"times check (group {gi}, the main path's inputs)")
-    errs = _max_err(errs, err)
+    err = _hold(torch, inp, cfg.p, out_k, out_p, label, **hold_kw)
+    tests = int(inp["beta_q"].clamp_max(beta).sum()) * n  # level tests
+    flops = 4 * q * n * d  # p=2: cross and onorm multiply-adds
+    in_bytes = (4 * (n * beta + q * beta + 2 * q * d + 4 * q)
+                + points.element_size() * n * d)
+    out_bytes = {"fused_query_hist": 2 * 4 * q * (cfg.n_levels + 3),
+                 "fused_query_scores": 4 * q * n}
+    ops_ms = 1e3 * max(tests / INT32_OPS, flops / F32_FLOPS)
+    nbytes = {k: in_bytes + v for k, v in out_bytes.items()}
+    return dict(t_k=t_k, t_p=t_p, err=err, tests=tests, flops=flops,
+                bytes=nbytes, bound={k: _bound(b, ops_ms)
+                                     for k, b in nbytes.items()},
+                shape=f"n={n} beta_pad={beta} Q={q} d={d} L={cfg.n_levels}")
+
+
+def _times_fused(torch, dev, sl, errs, smi, inputs, other):
+    from repro_torch.kernels import fused_query
+
+    gi, cfg, st, _ = inputs
+    f = _fused_passes(torch, dev, inputs, st.points,
+                      f"times check (group {gi}, the main path's inputs)")
+    errs = _max_err(errs, f["err"])
     say(f"times {_occupancy_line(fused_query, cfg.c, cfg.n_levels)}; "
         f"{_ptxas_summary('fused_query.cu')} [{smi}]")
     table = []
     for name in ("fused_query_hist", "fused_query_scores"):
-        bound = _bound(in_bytes + out_bytes[name], ops_ms)
-        say(f"times {name} (group {gi}: n={n} beta_pad={beta} Q={q} d={d} "
-            f"L={cfg.n_levels}): kernel {t_k[name]:.3f} ms, plain "
-            f"{t_p[name]:.3f} ms, bound {bound[0]:.3f} ms by {bound[1]} "
-            f"({tests} level tests, {flops} flops, "
-            f"{in_bytes + out_bytes[name]} bytes) [{smi}]")
+        bound = f["bound"][name]
+        say(f"times {name} (group {gi}: {f['shape']}): kernel "
+            f"{f['t_k'][name]:.3f} ms, plain {f['t_p'][name]:.3f} ms, bound "
+            f"{bound[0]:.3f} ms by {bound[1]} ({f['tests']} level tests, "
+            f"{f['flops']} flops, {f['bytes'][name]} bytes) [{smi}]")
         # launches: the slice leg's main path and the stream, obs, bf16,
-        # shard and sentinel legs'
+        # shard, lm and sentinel legs'
         table.append(_row(name, sl["launches"][name] + other[name],
-                          errs[name], t_k[name], t_p[name], bound))
-    _times_fused_bf16(torch, dev, smi, inputs, t_k)
-    return table
-
-
-def _times_fused_bf16(torch, dev, smi, inputs, t_f32):
-    """Both fused passes at the widest group on its rows rounded to
-    bfloat16 (what a bfloat16 state stores), beside the float32 times."""
-    from repro_torch.kernels import fused_query, ref
-
-    gi, cfg, st, inp = inputs
-    n, beta = st.codes.shape
-    q, d = inp["queries"].shape
-    kw = dict(boff=0, n_valid=st.n_valid, c=cfg.c, n_levels=cfg.n_levels,
-              p=cfg.p)
-    row_ok = torch.arange(n, device=dev) < st.n_valid
-    bf = dict(inp, points=st.points.to(torch.bfloat16))
-    tests = int(inp["beta_q"].clamp_max(beta).sum()) * n
-    ops_ms = 1e3 * max(tests / INT32_OPS, 4 * q * n * d / F32_FLOPS)
-    in_bytes = 4 * (n * beta + q * beta + 2 * q * d + 4 * q) + 2 * n * d
-    out_bytes = {"fused_query_hist": 2 * 4 * q * (cfg.n_levels + 3),
-                 "fused_query_scores": 4 * q * n}
-    out_k, out_p, t_k, t_p = [], [], {}, {}
-    for name, which in (("fused_query_hist", "hist"),
-                        ("fused_query_scores", "scores")):
-        kern = getattr(fused_query, name)
-        plain = getattr(ref, name + "_ref")
-        args = _pass_args(bf, which)
-        out = kern(*args, **kw)
-        out_k += list(out) if which == "hist" else [out]
-        t_k[name] = _time_ms(lambda: kern(*args, **kw), torch, reps=5)
-        t_p[name] = _time_ms(lambda: out_p.append(plain(
-            *args, row_ok, c=cfg.c, n_levels=cfg.n_levels, p=cfg.p)),
-            torch, reps=1)
-    out_p = [*out_p[0], out_p[1]]
-    _hold(torch, bf, cfg.p, out_k, out_p,
-          f"times bf16 check (group {gi}, bfloat16 rows)", zone_edge=BF16_ZONE)
+                          errs[name], f["t_k"][name], f["t_p"][name], bound))
+    # the group's rows rounded to bfloat16 (what a bfloat16 state stores)
+    b = _fused_passes(torch, dev, inputs, st.points.to(torch.bfloat16),
+                      f"times bf16 check (group {gi}, bfloat16 rows)",
+                      zone_edge=BF16_ZONE)
     for name in ("fused_query_hist", "fused_query_scores"):
-        bound = _bound(in_bytes + out_bytes[name], ops_ms)
-        say(f"times {name} bfloat16 rows (group {gi}: n={n} beta_pad={beta}"
-            f" Q={q} d={d}): kernel {t_k[name]:.3f} ms (float32 rows "
-            f"{t_f32[name]:.3f} ms), plain {t_p[name]:.3f} ms, bound "
-            f"{bound[0]:.3f} ms by {bound[1]} "
-            f"({in_bytes + out_bytes[name]} bytes) [{smi}]")
+        bound = b["bound"][name]
+        say(f"times {name} bfloat16 rows (group {gi}: {b['shape']}): kernel "
+            f"{b['t_k'][name]:.3f} ms (float32 rows {f['t_k'][name]:.3f} ms),"
+            f" plain {b['t_p'][name]:.3f} ms, bound {bound[0]:.3f} ms by "
+            f"{bound[1]} ({b['bytes'][name]} bytes) [{smi}]")
+    return table
 
 
 def _times_hash_encode(torch, dev, errs, smi, inputs, launches):
@@ -2918,6 +3397,7 @@ def phase_times(torch, dev, sl, legs, errs, smi):
     stream, shard = legs["stream"]["launches"], legs["shard"]["launches"]
     other = {k: stream[k] + legs["obs"]["launches"][k]
              + legs["bf16"]["launches"][k] + shard.get(k, 0)
+             + legs["lm"]["launches"][k]
              + legs["sentinel"]["launches"][k] for k in stream}
     errs = _max_err(errs, legs["bf16"]["err"])
     errs = _max_err(errs, legs["shard"]["err"])
@@ -2960,10 +3440,12 @@ def main(argv=None) -> int:
     smi = phase_device(torch)
     if "build" in phases:
         phase_build()
+    sl, legs = None, {}
+    if "sentinel" in phases:  # first: see the module docstring
+        legs["sentinel"] = phase_sentinel(torch, dev, smi)
     errs = None
     if "kernels" in phases:
         errs = phase_kernels(torch, dev)
-    sl, legs = None, {}
     if "slice" in phases:
         sl = phase_slice(torch, dev)
     for leg, fn in (("encode", phase_encode), ("unfused", phase_unfused),
@@ -2997,10 +3479,11 @@ def main(argv=None) -> int:
         if sl is None:
             raise SystemExit("the search phase needs the slice phase")
         legs["search"] = phase_search(torch, dev, sl, smi)
-    if "sentinel" in phases:
-        legs["sentinel"] = phase_sentinel(torch, dev, smi)
+    if "lm" in phases:
+        legs["lm"] = phase_lm(torch, dev, smi)
     if "times" in phases:
-        if sl is None or errs is None or set(legs) != set(PHASES[4:-1]):
+        want = set(PHASES) - {"device", "build", "kernels", "slice", "times"}
+        if sl is None or errs is None or set(legs) != want:
             raise SystemExit("the times phase needs every other phase")
         table = phase_times(torch, dev, sl, legs, errs, smi)
     say(f"chip_smoke: {len(phases)} phases in {time.time() - t_main:.1f}s "

@@ -1,0 +1,124 @@
+"""Declarative parameter definitions (the port's copy of the JAX
+package's ``models/params.py``).
+
+A module describes its parameters once as ``ParamDef``s (shape + logical
+dim names + init); from that single source we derive:
+
+  * init_params(defs, generator, device) — materialized params
+  * abstract_params(defs)                — meta-device tensors (no
+                                           allocation)
+
+Stacked layers prepend a ("layers", L) dim with ``stack_defs``.  A
+parameter tree is nested dicts of tensors keyed as the JAX package's, so
+a JAX tree (as numpy arrays) carries across leaf by leaf.  The logical dim
+names feed the JAX package's sharding rules, which the port has no
+counterpart for yet; they are kept so the defs stay the same.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..kernels.platform import resolve_device
+
+__all__ = [
+    "ParamDef",
+    "pdef",
+    "stack_defs",
+    "init_params",
+    "abstract_params",
+    "tree_map",
+    "tree_leaves",
+    "tree_bytes",
+    "count_params",
+    "torch_dtype",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    names: tuple[str | None, ...]
+    init: str = "normal"  # normal | zeros | ones | scaled (fan-in)
+    scale: float = 0.02
+    dtype: str = "float32"
+
+
+def pdef(shape, names, init="normal", scale=0.02, dtype="float32") -> ParamDef:
+    assert len(shape) == len(names), (shape, names)
+    return ParamDef(tuple(shape), tuple(names), init, scale, dtype)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config dtype name ("bfloat16", "float8_e4m3fn",
+    ...)."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a tree of nested dicts, keys in
+    sorted order (as JAX flattens a dict)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of nested dicts, keys in sorted order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def stack_defs(defs, n_layers: int):
+    return tree_map(
+        lambda d: ParamDef((n_layers, *d.shape), ("layers", *d.names),
+                           d.init, d.scale, d.dtype),
+        defs,
+    )
+
+
+def _init_one(d: ParamDef, generator, dev) -> torch.Tensor:
+    dt = torch_dtype(d.dtype)
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dt, device=dev)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dt, device=dev)
+    x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=dev)
+    if d.init == "scaled":
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        return (x / math.sqrt(fan_in)).to(dt)
+    return (x * d.scale).to(dt)
+
+
+def init_params(defs, generator: torch.Generator, device="cuda"):
+    """Materialized params drawn from ``generator`` (which must live on
+    ``device``), leaf by leaf in sorted key order.  The init kinds are the
+    JAX package's; the random bits are torch's, not JAX's PRNG."""
+    dev = resolve_device(device)
+    return tree_map(lambda d: _init_one(d, generator, dev), defs)
+
+
+def abstract_params(defs):
+    """Meta-device tensors of the params' shapes and dtypes."""
+    return tree_map(
+        lambda d: torch.empty(d.shape, dtype=torch_dtype(d.dtype),
+                              device="meta"),
+        defs,
+    )
+
+
+def count_params(defs) -> int:
+    return sum(math.prod(d.shape) for d in tree_leaves(defs))
+
+
+def tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
+               if isinstance(x, torch.Tensor))

@@ -1,0 +1,271 @@
+"""Decoder stacks for every assigned family, on one device (the port of
+the JAX package's ``models/transformer.py``):
+
+  * per-family blocks: dense (GQA/SWA + SwiGLU), MoE (with leading dense
+    layers), Mamba2 (SSD), and the Zamba2-style hybrid (Mamba2 backbone +
+    one *shared* attention+MLP block applied every k layers through a
+    concat-projection, weights reused);
+  * a Python loop over the stacked layer dimension where the reference
+    scans (``lax.scan`` / ``lax.cond`` become ``for`` / ``if``);
+  * decode steps with KV/SSM caches updated in place (the torch analogue
+    of the reference's donated cache; a ring buffer for SWA).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import layers as L
+from .moe import moe_block, moe_defs
+from .params import pdef, stack_defs, torch_dtype, tree_map
+from .ssm import mamba2_block, mamba2_decode_step, ssm_defs, ssm_state_shape
+
+__all__ = ["Model", "RunFlags"]
+
+
+@dataclasses.dataclass(frozen=True)
+class RunFlags:
+    """Run flags: ``causal_block_skip`` skips the kv blocks above the
+    diagonal in ``blockwise_attention``.  The JAX package's other flags
+    (rematerialization, sequence sharding, unrolled scans) shape training
+    and compiled programs, which the port does not have yet."""
+
+    causal_block_skip: bool = False
+
+
+def _block_defs(cfg: ModelConfig):
+    fam = cfg.family
+    if fam in ("dense", "audio", "vlm"):
+        return {
+            "ln1": L.norm_defs(cfg),
+            "attn": L.attn_defs(cfg),
+            "ln2": L.norm_defs(cfg),
+            "mlp": L.mlp_defs(cfg),
+        }
+    if fam == "moe":
+        return {
+            "ln1": L.norm_defs(cfg),
+            "attn": L.attn_defs(cfg),
+            "ln2": L.norm_defs(cfg),
+            "moe": moe_defs(cfg),
+        }
+    if fam in ("ssm", "hybrid"):
+        return {"ln1": L.norm_defs(cfg), "ssm": ssm_defs(cfg)}
+    raise ValueError(fam)
+
+
+def _shared_block_defs(cfg: ModelConfig):
+    return {
+        "proj": pdef((2 * cfg.d_model, cfg.d_model), ("fsdp", None),
+                     init="scaled"),
+        "ln1": L.norm_defs(cfg),
+        "attn": L.attn_defs(cfg),
+        "ln2": L.norm_defs(cfg),
+        "mlp": L.mlp_defs(cfg),
+    }
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
+    return tree_map(lambda a: a[i], tree)
+
+
+class Model:
+    """Built once per (config, flags); exposes defs + step functions.
+
+    Parameters are nested dicts of tensors keyed as the JAX package's
+    tree (``init_params(model.defs(), ...)``, or a JAX tree carried across).
+    The KV cache stores ``n_kv_heads`` heads: the reference replicates
+    them only to shard over a mesh's "model" axis (``_kv_repeat`` is 1
+    without a mesh).
+    """
+
+    def __init__(self, cfg: ModelConfig, flags: RunFlags = RunFlags()):
+        self.cfg = cfg
+        self.flags = flags
+        self.n_scan = cfg.n_layers - cfg.first_dense_layers
+
+    # ------------------------------------------------------------------ defs
+
+    def defs(self):
+        cfg = self.cfg
+        out: dict[str, Any] = {"embed": L.embed_defs(cfg)}
+        out["blocks"] = stack_defs(_block_defs(cfg), self.n_scan)
+        if cfg.first_dense_layers:
+            dense_cfg = dataclasses.replace(cfg, d_ff=cfg.dense_ff)
+            out["first"] = stack_defs(
+                {
+                    "ln1": L.norm_defs(cfg),
+                    "attn": L.attn_defs(cfg),
+                    "ln2": L.norm_defs(cfg),
+                    "mlp": L.mlp_defs(dense_cfg),
+                },
+                cfg.first_dense_layers,
+            )
+        if cfg.family == "hybrid":
+            out["shared"] = _shared_block_defs(cfg)
+        out["final_norm"] = L.norm_defs(cfg)
+        return out
+
+    # ------------------------------------------------------------ fwd blocks
+
+    def _dense_block(self, p, x, positions):
+        cfg = self.cfg
+        x = x + L.attention(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg,
+                            positions,
+                            causal_block_skip=self.flags.causal_block_skip)
+        return x + L.mlp(p["mlp"], L.apply_norm(p["ln2"], x, cfg))
+
+    def _moe_layer(self, p, x, positions):
+        cfg = self.cfg
+        x = x + L.attention(p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg,
+                            positions,
+                            causal_block_skip=self.flags.causal_block_skip)
+        return x + moe_block(p["moe"], L.apply_norm(p["ln2"], x, cfg), cfg)
+
+    def _ssm_layer(self, p, x):
+        h, _ = mamba2_block(p["ssm"], L.apply_norm(p["ln1"], x, self.cfg),
+                            self.cfg)
+        return x + h
+
+    def _shared_block(self, p, x, x0, positions):
+        h = torch.cat([x, x0], dim=-1) @ p["proj"].to(x.dtype)
+        return x + self._dense_block(p, h, positions)
+
+    # ------------------------------------------------------------- forward
+
+    def hidden_states(self, params, batch):
+        """Full-sequence forward -> final hidden states (B, S, d)."""
+        cfg = self.cfg
+        if cfg.input_mode == "embeddings":
+            x = batch["embeddings"].to(torch_dtype(cfg.dtype))
+        else:
+            x = L.embed(params["embed"], batch["tokens"], cfg)
+        B, S, _ = x.shape
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        x0 = x
+
+        for i in range(cfg.first_dense_layers):
+            x = self._dense_block(_layer(params["first"], i), x, positions)
+
+        fam = cfg.family
+        for i in range(self.n_scan):
+            p = _layer(params["blocks"], i)
+            if fam in ("dense", "audio", "vlm"):
+                x = self._dense_block(p, x, positions)
+            elif fam == "moe":
+                x = self._moe_layer(p, x, positions)
+            else:  # ssm, hybrid
+                x = self._ssm_layer(p, x)
+                if fam == "hybrid" and (i + 1) % cfg.shared_block_every == 0:
+                    x = self._shared_block(params["shared"], x, x0,
+                                           positions)
+        return L.apply_norm(params["final_norm"], x, cfg)
+
+    def prefill(self, params, batch):
+        """Forward + final-position logits."""
+        x = self.hidden_states(params, batch)
+        W = L.unembed_matrix(params["embed"], self.cfg).to(x.dtype)
+        return x[:, -1, :] @ W
+
+    # ------------------------------------------------------------- decode
+
+    def cache_shapes(self, batch: int, cache_len: int):
+        """Meta-device tensors of the decode cache's leaves."""
+        cfg = self.cfg
+        fam = cfg.family
+        dt = torch_dtype(cfg.dtype)
+        kdt = torch_dtype(cfg.kv_dtype_)
+        kvh, dh = cfg.n_kv_heads, cfg.head_dim_
+
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        out = {}
+        if fam in ("dense", "audio", "vlm", "moe"):
+            eff = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+                   else cache_len)
+            out["k"] = meta((cfg.n_layers, batch, eff, kvh, dh), kdt)
+            out["v"] = meta((cfg.n_layers, batch, eff, kvh, dh), kdt)
+        if fam in ("ssm", "hybrid"):
+            st = ssm_state_shape(cfg, batch)
+            out["ssm"] = meta((self.n_scan, *st["ssm"]), torch.float32)
+            out["conv"] = meta((self.n_scan, *st["conv"]), dt)
+        if fam == "hybrid":
+            n_inv = cfg.n_layers // cfg.shared_block_every
+            out["k"] = meta((n_inv, batch, cache_len, kvh, dh), kdt)
+            out["v"] = meta((n_inv, batch, cache_len, kvh, dh), kdt)
+        return out
+
+    def init_cache(self, batch: int, cache_len: int, device):
+        """A zeroed decode cache on ``device``."""
+        return {name: torch.zeros(s.shape, dtype=s.dtype, device=device)
+                for name, s in self.cache_shapes(batch, cache_len).items()}
+
+    def _cache_slot(self, position: int) -> int:
+        if self.cfg.sliding_window:
+            return position % self.cfg.sliding_window
+        return position
+
+    def decode_step(self, params, cache, tokens, position: int):
+        """One-token decode: tokens (B,), position -> (logits, cache).
+
+        ``cache`` is updated in place and returned.
+        """
+        cfg = self.cfg
+        fam = cfg.family
+        dt = torch_dtype(cfg.dtype)
+        x = params["embed"]["tok"][tokens.long()].to(dt)
+        x0 = x
+        slot = self._cache_slot(position)
+
+        if fam in ("dense", "audio", "vlm", "moe"):
+            for i in range(cfg.first_dense_layers):
+                x = self._decode_attn_layer(_layer(params["first"], i), x,
+                                            cache, i, position, slot)
+            for i in range(self.n_scan):
+                x = self._decode_attn_layer(
+                    _layer(params["blocks"], i), x, cache,
+                    cfg.first_dense_layers + i, position, slot)
+        else:  # ssm, hybrid
+            inv = 0
+            for i in range(self.n_scan):
+                p = _layer(params["blocks"], i)
+                xn = L.apply_norm(p["ln1"], x, cfg)
+                y, st = mamba2_decode_step(
+                    p["ssm"], xn, cfg,
+                    {"ssm": cache["ssm"][i], "conv": cache["conv"][i]})
+                cache["ssm"][i] = st["ssm"]
+                cache["conv"][i] = st["conv"]
+                x = x + y
+                if fam == "hybrid" and (i + 1) % cfg.shared_block_every == 0:
+                    p_s = params["shared"]
+                    h = torch.cat([x, x0], dim=-1) @ p_s["proj"].to(dt)
+                    h = self._decode_attn_layer(p_s, h, cache, inv,
+                                                position, slot)
+                    x = x + h
+                    inv += 1
+
+        x = L.apply_norm(params["final_norm"], x, cfg)
+        W = L.unembed_matrix(params["embed"], cfg).to(dt)
+        return x @ W, cache
+
+    def _decode_attn_layer(self, p, x, cache, li: int, position: int,
+                           slot: int):
+        """Attention against cache layer ``li`` (written at ``slot``) and
+        the layer's MLP or MoE; x (B, d)."""
+        cfg = self.cfg
+        ck, cv = cache["k"][li], cache["v"][li]
+        y, k_new, v_new = L.decode_attention(
+            p["attn"], L.apply_norm(p["ln1"], x, cfg), cfg, ck, cv, position)
+        ck[:, slot] = k_new.to(ck.dtype)
+        cv[:, slot] = v_new.to(cv.dtype)
+        x = x + y
+        xn = L.apply_norm(p["ln2"], x, cfg)[:, None, :]
+        if "moe" in p:
+            return x + moe_block(p["moe"], xn, cfg)[:, 0]
+        return x + L.mlp(p["mlp"], xn)[:, 0]

@@ -4,8 +4,8 @@ Sync and async weight-routed frontends over a shared batching core,
 group states paged through a budgeted ``StateCache``, a real-time
 ``ServiceDriver`` with predictive prefetch and cost-aware eviction, and
 multi-tenant QoS (admission control, weighted-fair dequeue, SLO-aware
-(c, k) degradation), and streaming inserts, deletes and compaction
-(``DeltaIndex``).  The LM decode loop is not ported yet.
+(c, k) degradation), streaming inserts, deletes and compaction
+(``DeltaIndex``), plus the LM decode loop and samplers.
 """
 
 from .async_service import (
@@ -24,6 +24,7 @@ from .batching import (
     pad_take,
     run_plans,
 )
+from .decode import SamplerConfig, generate, make_serve_step
 from .delta import DeltaIndex, DeltaStats
 from .qos import (
     DEFAULT_TENANT,
@@ -86,12 +87,15 @@ __all__ = [
     "RestoreCostModel",
     "RetrievalResult",
     "RetrievalService",
+    "SamplerConfig",
     "ServiceConfig",
     "ServiceDriver",
     "StateCache",
     "TenantStats",
     "TokenBucket",
     "coalesce",
+    "generate",
+    "make_serve_step",
     "merge_topk",
     "pad_take",
     "replay_open_loop",

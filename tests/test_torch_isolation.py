@@ -33,8 +33,11 @@ from repro_torch.core.params import PlanConfig
 from repro_torch.core.wlsh import WLSHIndex
 from repro_torch.index import IndexConfig, build_group_state
 from repro_torch.kernels.platform import resolve_device
+from repro_torch.configs import get_config, reduced
 from repro_torch.launch import retrieval as launch
-from repro_torch.serving import RetrievalService, ServiceConfig
+from repro_torch.launch import serve as lm_serve
+from repro_torch.models import build_model, init_params
+from repro_torch.serving import RetrievalService, ServiceConfig, generate
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -66,6 +69,11 @@ def test_every_module_imports_without_jax_or_repro():
         assert f"benchmarks_torch.{name}" in mods
     for name in ("trace", "profile", "recall", "health"):
         assert f"repro_torch.obs.{name}" in mods
+    for name in ("configs.olmo_1b", "configs.wlsh_index", "models.params",
+                 "models.layers", "models.moe", "models.ssm",
+                 "models.transformer", "models.model", "serving.decode",
+                 "launch.serve"):
+        assert f"repro_torch.{name}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -94,6 +102,8 @@ def test_sources_never_import_jax_or_repro():
              + sorted((ROOT / "examples").glob("*_torch.py")))
     assert len(files) > 10
     assert ROOT / "examples" / "quickstart_torch.py" in files
+    assert ROOT / "examples" / "serve_retrieval_torch.py" in files
+    assert PKG / "models" / "transformer.py" in files
     assert BENCH / "sentinel.py" in files
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
@@ -156,6 +166,19 @@ def test_entry_points_default_to_cuda(tiny):
     assert cfg.use_kernels == "on"
     args = launch.parse_args(["--n", "64"])
     assert args.device == "cuda"
+
+
+def test_lm_entry_points_default_to_cuda():
+    lm_cfg = reduced(get_config("olmo_1b"))
+    model = build_model(lm_cfg)
+    gen = torch.Generator()
+    _raises_without_cuda(lambda: init_params(model.defs(), gen))
+    params = init_params(model.defs(), gen, device="cpu")
+    if not torch.cuda.is_available():  # on a card these run on the card
+        prompts = np.zeros((1, 2), np.int32)
+        _raises_without_cuda(lambda: generate(model, params, prompts, 1, 4))
+        _raises_without_cuda(lambda: lm_serve.main(["--reduced"]))
+    assert lm_serve.parse_args([]).device == "cuda"
 
 
 def test_cpu_runs_only_when_asked(tiny):
