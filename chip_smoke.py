@@ -165,7 +165,33 @@ non-zero:
                queries vs search_dense, the source docs found, top-k
                overlap with exact brute force, p50 / p95 and q/s, and the
                example's open-loop replay bit-exact with sync
- 16. times   — each kernel on the main path's inputs for the widest
+ 16. train   — the LM substrate's training side (repro_torch.training,
+               launch/train.py): the 10 reduced archs' float32 loss and
+               every gradient leaf on the card held to the port's CPU run
+               of the same parameters, MoE routing integers equal, AdamW
+               on the same state and gradients held to the CPU for
+               float32, bfloat16 and int8 moments, and one bfloat16 train
+               step each, finite; olmo-1b at full width in float32 (1 x
+               64 tokens): the loss and the gradients of embed/tok and
+               the first and last layer's attn/wq and mlp leaves held to
+               the CPU's (a TF32 control must fall outside); olmo-1b at
+               full width trained through the launcher, given bfloat16
+               master (stochastic rounding), int8 moments and
+               update_chunk 4 by ``train(args, optimizer=...)`` (bfloat16
+               compute, 8 x 512 tokens on the markov stream, 20 steps,
+               checkpoints every 10 into a directory under build/ removed
+               afterwards): a failure injected after step 12, one restart
+               from step 10, the resumed losses held to an uninterrupted
+               twin's, the last 5 below the first; the launcher as
+               shipped (float32 master and moments), 6 steps, finite,
+               with its ms a step and peak memory; ms a step (the
+               launcher's CUDA events), tokens/s, model FLOP/s against the bfloat16
+               peak, the state's bytes, peak memory, checkpoint save and
+               load GB/s, one profiled step's idle share and top kernels;
+               and examples/train_lm_torch.py on the card with its own
+               assertions, in a child process beside the first two
+               checks.  No retrieval kernel is launched
+ 17. times   — each kernel on the main path's inputs for the widest
                group: held to its plain version there (the rules of
                phase 3), its time, its plain version's time, the time of
                one PyTorch call that computes the same function where
@@ -179,8 +205,9 @@ printing any result.  ``--phases`` runs a subset (e.g. ``device,build,
 kernels``) for a short check; the full run needs all of them.  ``obs``
 and ``bf16`` need only ``slice`` (``--phases device,build,slice,obs,bf16``),
 as does ``shard`` (``--phases device,build,slice,shard``) and ``search``
-(``--phases device,build,slice,search``); ``lm`` and ``sentinel`` need
-only ``device`` and ``build`` (``--phases device,build,lm``).
+(``--phases device,build,slice,search``); ``lm``, ``train`` and
+``sentinel`` need only ``device`` and ``build`` (``--phases
+device,build,lm`` or ``device,build,train``).
 """
 
 from __future__ import annotations
@@ -202,7 +229,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "sentinel", "kernels", "slice", "encode",
           "unfused", "paged", "async", "obs", "bf16", "stream", "shard",
-          "search", "lm", "times")
+          "search", "lm", "train", "times")
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
 # float32 outside the tensor cores (F32_FLOPS counts an FMA as two flops;
@@ -307,6 +334,29 @@ LM_DECODE_REL = 0.05
 # proportion to its length, and the d = 400 rule is ~17 ulps of the
 # expansion's terms.
 LM_ZONE = 0.1
+# the train leg: the reduced families' batch and sequence; olmo-1b at full
+# width: the float32 gradient hold's tokens; the launcher's run (global
+# batch x sequence, steps, checkpoint interval, the step an injected
+# failure follows, learning rate), the resumed losses' limit against the
+# uninterrupted twin's, the profiled steps, the example's time limit, the
+# steps of the launcher run as shipped
+TRAIN = dict(family_batch=2, family_seq=32, hold_seq=64, batch=8, seq=512,
+             steps=20, ckpt_every=10, fail_at=12, lr=1e-3, resume_rtol=1e-3,
+             profile_calls=2, example_timeout_s=300, default_steps=6)
+# the launcher's optimizer fields for the timed run (``train(args,
+# optimizer=...)``): bfloat16 master, int8 moments, the leaves stacked 16
+# deep updated 4 slices at a time
+TRAIN_OPT = dict(master_dtype="bfloat16", moment_dtype="int8",
+                 update_chunk=4)
+# olmo-1b's float32 gradients card vs CPU, each leaf over its largest
+# magnitude (a TF32 control must fall outside); AdamW on the same state and
+# gradients card vs CPU (atol that x a leaf's largest value); int8 codes
+# and bfloat16 moments differ only at rounding ties, in at most this share
+TRAIN_FULL_TOL = dict(rtol=1e-4, atol=1e-4)
+TRAIN_ADAMW_RTOL = 1e-6
+TRAIN_TIE_SHARE = 1e-3
+# H100 SXM dense bfloat16 tensor-core peak (NVIDIA data sheet)
+BF16_PEAK_FLOPS = 989e12
 
 
 def say(msg: str) -> None:
@@ -3186,6 +3236,497 @@ def phase_lm(torch, dev, smi):
     return out
 
 
+# --------------------------------------------------------------- train leg
+
+
+def _train_batch(torch, cfg, rng, b: int, s: int):
+    """Seeded inputs of ``b`` x ``s`` with next-token labels, on the CPU."""
+    batch = _lm_batch(torch, cfg, rng, torch.device("cpu"), b, s)
+    batch["labels"] = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (b, s)).astype(np.int32))
+    return batch
+
+
+def _train_grads(torch, model, params, batch, wanted=None):
+    """(loss, {key: grad}) of ``model.loss``: the gradients of every leaf,
+    or of the leaves whose ``keystr`` keys are in ``wanted``."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.training.checkpoint import _leaf_keys
+
+    keys = iter(_leaf_keys(params))
+    tracked = {}
+
+    def track(t):
+        key, t = next(keys), t.detach()
+        if wanted is None or key in wanted:
+            tracked[key] = t.requires_grad_()
+        return t
+
+    loss = model.loss(tree_map(track, params), batch)
+    grads = torch.autograd.grad(loss, list(tracked.values()),
+                                materialize_grads=True)
+    return loss.detach(), dict(zip(tracked, grads))
+
+
+def _ties(torch, got, want, label) -> float:
+    """int8 codes or bfloat16 moments of two devices: equal but at rounding
+    ties (each by one code or bfloat16 ulp, a share of at most
+    ``TRAIN_TIE_SHARE``); returns the differing share."""
+    if want.dtype == torch.bfloat16:
+        got, want = got.view(torch.int16), want.view(torch.int16)
+    diff = (got.cpu().long() - want.long()).abs()
+    share = float((diff != 0).double().mean())
+    _need(int(diff.max()) <= 1 and share <= TRAIN_TIE_SHARE,
+          f"{label}: codes differ by up to {int(diff.max())} on a share "
+          f"{share:.3g}")
+    return share
+
+
+def _close_scaled(torch, got, want, rtol, label) -> float:
+    """Max abs error of ``got`` against ``want`` within rtol and an atol of
+    rtol x ``want``'s largest magnitude (a leaf's values near zero carry
+    the rounding of its large ones)."""
+    scale = max(_top(want.abs()), 1e-30)
+    return _lm_err(torch, got, want, dict(rtol=rtol, atol=rtol * scale),
+                   label)
+
+
+def _leaf_err(torch, got, want, tol, label) -> float:
+    """A gradient leaf held on its own scale: ``got`` and ``want`` over
+    ``want``'s largest magnitude within ``tol``; returns that max abs
+    error."""
+    scale = max(_top(want.abs()), 1e-30)
+    return _lm_err(torch, got / scale, want / scale, tol, label)
+
+
+def _train_adamw(torch, dev, p_cpu, grads, arch):
+    """``adamw_update`` on the same state and gradients on the card and the
+    CPU, float32 master, for every moment dtype, two steps (each from the
+    CPU's state): master to ``TRAIN_ADAMW_RTOL``, moments likewise (codes
+    and bfloat16 moments by ``_ties``).  Returns the largest errors."""
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.training import AdamWConfig, adamw_init, adamw_update
+
+    errs = {}
+    g_dev = tree_map(lambda t: t.to(dev), grads)
+    for md in ("float32", "bfloat16", "int8"):
+        ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                           moment_dtype=md)
+        cpu = adamw_init(p_cpu, ocfg)
+        err = share = 0.0
+        for step in range(2):
+            card = tree_map(lambda t: t.to(dev, copy=True), cpu)
+            card, mc = adamw_update(g_dev, card, ocfg)
+            cpu, mh = adamw_update(grads, cpu, ocfg)
+            err = max(err, _close_scaled(
+                torch, mc["grad_norm"], mh["grad_norm"], TRAIN_ADAMW_RTOL,
+                f"train {arch} adamw {md} grad norm"))
+            for got, want in zip(tree_leaves(card["master"]),
+                                 tree_leaves(cpu["master"])):
+                err = max(err, _close_scaled(torch, got, want,
+                                             TRAIN_ADAMW_RTOL,
+                                             f"train {arch} adamw {md} "
+                                             f"master, step {step + 1}"))
+            for got, want in zip(tree_leaves(card["moments"]),
+                                 tree_leaves(cpu["moments"])):
+                if want.dtype in (torch.int8, torch.bfloat16):
+                    share = max(share, _ties(torch, got, want,
+                                             f"train {arch} adamw {md}"))
+                else:
+                    err = max(err, _close_scaled(
+                        torch, got, want, TRAIN_ADAMW_RTOL,
+                        f"train {arch} adamw {md} moments"))
+        errs[md] = (err, share)
+    return errs
+
+
+def _train_families(torch, dev, smi):
+    """Every LM family's reduced arch: float32 loss and gradients on the
+    card held to the CPU's, MoE routing integers equal, AdamW held to the
+    CPU for each moment dtype, and one bfloat16 train step, finite."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS, get_config, reduced
+    from repro_torch.models import build_model, init_params, moe
+    from repro_torch.models.params import tree_leaves, tree_map
+    from repro_torch.training import (AdamWConfig, init_train_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import _global_norm
+
+    t0 = time.time()
+    cpu = torch.device("cpu")
+    archs = [a for a in ARCHS if a != "wlsh_index"]
+    route = moe._route
+    for i, arch in enumerate(archs):
+        base = reduced(get_config(arch))
+        model = build_model(dataclasses.replace(base, dtype="float32"))
+        p_cpu = init_params(model.defs(),
+                            torch.Generator().manual_seed(200 + i),
+                            device="cpu")
+        p_dev = tree_map(lambda t: t.to(dev), p_cpu)
+        batch = _train_batch(torch, base, np.random.default_rng(200 + i),
+                             TRAIN["family_batch"], TRAIN["family_seq"])
+        routes = []
+
+        def recorded(*a, **kw):
+            out = route(*a, **kw)
+            routes.append([t.cpu() for t in (out[0], out[1], out[3])])
+            return out
+
+        moe._route = recorded
+        try:
+            loss_c, g_c = _train_grads(torch, model, p_cpu, batch)
+            n_routes = len(routes)
+            loss_d, g_d = _train_grads(
+                torch, model, p_dev, {k: v.to(dev) for k, v in batch.items()})
+        finally:
+            moe._route = route
+        _need(len(routes) == 2 * n_routes and all(
+            torch.equal(a, b) for rc, rd in zip(routes[:n_routes],
+                                                routes[n_routes:])
+            for a, b in zip(rc, rd)),
+            f"train {arch}: MoE routing integers differ card vs CPU")
+        errs = [_lm_err(torch, loss_d, loss_c, LM_F32_TOL,
+                        f"train {arch} loss"),
+                _lm_err(torch, _global_norm(g_d), _global_norm(g_c),
+                        LM_F32_TOL, f"train {arch} grad norm")]
+        # most of a reduced arch's gradient entries are ~1e-4 or smaller
+        errs += [_leaf_err(torch, g_d[k], g_c[k], LM_F32_TOL,
+                           f"train {arch} grad {k}") for k in g_c]
+        it = iter(g_c.values())  # the CPU gradients, as a tree
+        grads = tree_map(lambda _: next(it), p_cpu)
+        adamw = _train_adamw(torch, dev, p_cpu, grads, arch)
+        bf = build_model(base)  # the config's own bfloat16 compute
+        ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+        state = init_train_state(bf.defs(), p_dev, ocfg)
+        state, m = make_train_step(bf, ocfg)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        finite = (bool(torch.isfinite(m["loss"])) and bool(
+            torch.isfinite(m["grad_norm"])) and all(
+            bool(torch.isfinite(t.float()).all())
+            for t in tree_leaves(state["opt"]["master"])))
+        _need(finite, f"train {arch}: bfloat16 train step not finite")
+        say(f"train family {arch} ({base.family}): card vs CPU float32 loss "
+            f"{loss_c.item():.5f} (max abs err {errs[0]:.3g}), grad norm "
+            f"{_global_norm(g_c).item():.5f} ({errs[1]:.3g}), "
+            f"{len(g_c)} gradient leaves max abs err over the leaf's largest "
+            f"magnitude {max(errs[2:]):.3g}; "
+            f"{n_routes // 2 if n_routes else 0} MoE routings equal; adamw "
+            + ", ".join(f"{md} moments max abs err {e:.3g}"
+                        + (f" (ties {sh:.2g})" if md != "float32" else "")
+                        for md, (e, sh) in adamw.items())
+            + f"; bfloat16 train step loss {m['loss'].item():.4f}, finite")
+    say(f"train families: {len(archs)} archs held to rtol "
+        f"{LM_F32_TOL['rtol']:g}, atol {LM_F32_TOL['atol']:g} (gradients "
+        f"over each leaf's largest magnitude); adamw to "
+        f"rtol {TRAIN_ADAMW_RTOL:g} (atol that x the leaf's largest value), "
+        f"codes at ties at most {TRAIN_TIE_SHARE:g}; "
+        f"{time.time() - t0:.1f}s [{smi}]")
+
+
+def _train_hold(torch, dev, smi):
+    """olmo-1b at full width, float32: the loss and the gradients of
+    embed/tok and of the first and last layer's attn/wq and mlp leaves on
+    the card held to the CPU's; a TF32 control must fall outside."""
+    import dataclasses
+
+    from repro_torch.models import build_model, init_params
+    from repro_torch.models.params import tree_map
+
+    t0 = time.time()
+    cfg = dataclasses.replace(_lm_full_config(), dtype="float32")
+    model = build_model(cfg)
+    params = init_params(model.defs(),
+                         torch.Generator(device=dev).manual_seed(3),
+                         device=dev)
+    batch = _train_batch(torch, cfg, np.random.default_rng(13), 1,
+                         TRAIN["hold_seq"])
+    wanted = {"['embed']['tok']", "['blocks']['attn']['wq']",
+              "['blocks']['mlp']['wd']", "['blocks']['mlp']['wg']",
+              "['blocks']['mlp']['wu']"}
+    b_dev = {k: v.to(dev) for k, v in batch.items()}
+    loss_d, g_d = _train_grads(torch, model, params, b_dev, wanted)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        loss_t, g_t = _train_grads(torch, model, params, b_dev, wanted)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    p_cpu = tree_map(lambda t: t.cpu(), params)
+    del params
+    loss_c, g_c = _train_grads(torch, model, p_cpu, batch, wanted)
+    del p_cpu
+
+    def held(g):
+        """The held slices: embed/tok whole, the stacked leaves' first and
+        last layer."""
+        out = {}
+        for k, v in g.items():
+            if v.dim() == 3:
+                out[f"{k}[0]"], out[f"{k}[-1]"] = v[0], v[-1]
+            else:
+                out[k] = v
+        return out
+
+    h_d, h_t, h_c = held(g_d), held(g_t), held(g_c)
+    tol = TRAIN_FULL_TOL
+    err_loss = _lm_err(torch, loss_d, loss_c, tol, "train hold loss")
+    errs, outside, total = {}, 0, 0
+    for k, want in h_c.items():
+        errs[k] = _leaf_err(torch, h_d[k], want, tol, f"train hold grad {k}")
+        scale = max(_top(want.abs()), 1e-30)
+        g, w = (h_t[k].cpu() / scale).double(), (want / scale).double()
+        outside += int(((g - w).abs() > tol["atol"]
+                        + tol["rtol"] * w.abs()).sum())
+        total += w.numel()
+    tf32_loss = abs(loss_t.item() - loss_c.item())
+    say(f"train hold: {cfg.name} full width float32, 1 x {TRAIN['hold_seq']}"
+        f" tokens, card vs CPU: loss {loss_c.item():.6f} (max abs err "
+        f"{err_loss:.3g}); gradients scaled by each leaf's largest "
+        f"magnitude, max abs err " + ", ".join(
+            f"{k} {e:.3g}" for k, e in errs.items())
+        + f", within rtol {tol['rtol']:g}, atol {tol['atol']:g}; control "
+        f"with TF32 matmuls: loss err {tf32_loss:.3g}, {outside} of {total} "
+        f"gradient values outside ({time.time() - t0:.1f}s) [{smi}]")
+    _need(outside > 0, "train hold: the TF32 control passes the float32 "
+          "tolerance, which then cannot tell TF32 matmuls from float32")
+    _release(torch)
+
+
+def _train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of a train step (6 N T over the matrix products'
+    parameters, the tied unembedding included, plus the attention scores
+    and values at full 512-blocks: 12 L S d a token, forward and
+    backward); rematerialization's recompute is not counted."""
+    d, L = cfg.d_model, cfg.n_layers
+    attn = d * cfg.head_dim_ * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    mlp = 3 * d * cfg.d_ff
+    n = L * (attn + mlp) + d * cfg.vocab
+    return 6.0 * n * tokens + 12.0 * L * seq * cfg.n_heads * (
+        cfg.head_dim_) * tokens
+
+
+def _train_launch(torch, dev, steps, ckpt=None, fail_at=None,
+                  optimizer=None):
+    """``launch/train.py::train`` on olmo-1b at full width: ``optimizer``
+    holds the ``AdamWConfig`` fields that replace the launcher's (None runs
+    it as shipped: float32 master and moments); returns (report, per step
+    (CUDA-event ms, loss, optimizer step)) from the launcher's own
+    report."""
+    import repro_torch.launch.train as T
+
+    argv = ["--arch", LM["arch"], "--steps", str(steps), "--global-batch",
+            str(TRAIN["batch"]), "--seq-len", str(TRAIN["seq"]), "--lr",
+            str(TRAIN["lr"]), "--log-every", "5", "--device", str(dev)]
+    if ckpt is not None:
+        argv += ["--ckpt-dir", ckpt, "--ckpt-every", str(TRAIN["ckpt_every"])]
+    if fail_at is not None:
+        argv += ["--fail-at", str(fail_at)]
+    out = T.train(T.parse_args(argv), cfg=_lm_full_config(),
+                  optimizer=optimizer)
+    return out, [(r["ms"], r["loss"], r["opt_step"]) for r in out["steps"]]
+
+
+def _train_default(torch, dev, smi):
+    """The launcher as a user runs it from the command line (float32
+    master and moments) at full width, a few steps: finite losses, ms a
+    step, the state's bytes and peak memory."""
+    from repro_torch.models import abstract_params, build_model, tree_bytes
+    from repro_torch.training import AdamWConfig, train_state_defs
+
+    cfg = _lm_full_config()
+    _reset_peak(torch, dev)
+    t0 = time.time()
+    out, run = _train_launch(torch, dev, TRAIN["default_steps"])
+    peak = _peak(torch, dev)
+    losses = [loss for _, loss, _ in run]
+    _need(out["restarts"] == 0 and bool(np.isfinite(losses).all()),
+          f"train default: restarts {out['restarts']}, losses {losses}")
+    ms = np.array([m for m, _, _ in run[1:]])  # the first step warms
+    state_bytes = tree_bytes(abstract_params(train_state_defs(
+        build_model(cfg).defs(), AdamWConfig())))
+    say(f"train default: {cfg.name} full width through launch/train.py as "
+        f"shipped (bfloat16 compute, float32 master and moments), "
+        f"{TRAIN['batch']} x {TRAIN['seq']} tokens, {len(run)} steps, "
+        f"losses " + " ".join(f"{x:.4f}" for x in losses) + f"; per step "
+        f"(CUDA events, steps 1-{len(run) - 1}) p50 "
+        f"{np.percentile(ms, 50):.2f} ms, max {ms.max():.2f} ms; train "
+        f"state {state_bytes} bytes; peak device memory {peak} bytes; "
+        f"{time.time() - t0:.1f}s [{smi}]")
+    _release(torch)
+    return dict(step_ms=ms.tolist(), peak=peak, state_bytes=state_bytes)
+
+
+def _train_run(torch, dev, smi):
+    """olmo-1b at full width trained through the launcher: an injected
+    failure and one restart from the last checkpoint, then an
+    uninterrupted twin; checkpoint save and load timed; one step
+    profiled."""
+    import shutil
+    import tempfile
+
+    from repro_torch.models import abstract_params, build_model, tree_bytes
+    from repro_torch.training import (AdamWConfig, DataConfig,
+                                      SyntheticStream, load_checkpoint,
+                                      make_train_step, save_checkpoint,
+                                      train_state_defs)
+
+    cfg = _lm_full_config()
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    dirs = [tempfile.mkdtemp(prefix="chip_smoke_train_", dir=build)
+            for _ in range(3)]
+    steps, every, fail = TRAIN["steps"], TRAIN["ckpt_every"], TRAIN["fail_at"]
+    try:
+        _reset_peak(torch, dev)
+        t0 = time.time()
+        out, run = _train_launch(torch, dev, steps, dirs[0], fail, TRAIN_OPT)
+        peak = _peak(torch, dev)
+        t_run = time.time() - t0
+        t0 = time.time()
+        twin_out, twin = _train_launch(torch, dev, steps, dirs[1],
+                                       optimizer=TRAIN_OPT)
+        t_twin = time.time() - t0
+
+        resumed = (fail // every) * every
+        want_steps = (list(range(1, fail + 2))
+                      + list(range(resumed + 1, steps + 1)))
+        got_steps = [s for _, _, s in run]
+        _need(out["restarts"] == 1 and got_steps == want_steps,
+              f"train run: restarts {out['restarts']}, optimizer steps "
+              f"{got_steps} (want {want_steps})")
+        _need(twin_out["restarts"] == 0
+              and [s for _, _, s in twin] == list(range(1, steps + 1)),
+              "train twin: not one uninterrupted run")
+        losses = [loss for _, loss, _ in run]
+        twin_l = np.array([loss for _, loss, _ in twin])
+        _need(bool(np.isfinite(losses).all() and np.isfinite(twin_l).all()),
+              "train run: a loss is not finite")
+        after = np.array(losses[fail + 1:])  # steps resumed .. steps - 1
+        ref = twin_l[resumed:]
+        rel = float(np.max(np.abs(after - ref) / np.abs(ref)))
+        bit = bool(np.array_equal(after, ref))
+        _need(rel <= TRAIN["resume_rtol"],
+              f"train resume: losses after the restart differ from the "
+              f"twin's by {rel:.3g} (relative)")
+        first, last5 = losses[0], float(np.mean(after[-5:]))
+        _need(last5 < first, f"train run: mean of the last 5 losses "
+              f"{last5:.4f} not below the first {first:.4f}")
+        say(f"train run: {cfg.name} full width ({TRAIN['batch']} x "
+            f"{TRAIN['seq']} tokens a step, bfloat16 compute and master, "
+            f"int8 moments, update_chunk {TRAIN_OPT['update_chunk']}, lr "
+            f"{TRAIN['lr']:g}), {steps} steps, checkpoints every {every}, "
+            f"failure injected at step {fail}: restarts {out['restarts']}, "
+            f"resumed at step {resumed}; losses " + " ".join(
+                f"{x:.4f}" for x in losses) + f"; {t_run:.1f}s [{smi}]")
+        say(f"train resume: steps {resumed}-{steps - 1} after the restart vs "
+            f"the uninterrupted twin: max relative difference {rel:.3g} "
+            f"(limit {TRAIN['resume_rtol']:g}), bit-equal {bit} "
+            f"(torch.use_deterministic_algorithms "
+            f"{torch.are_deterministic_algorithms_enabled()}); first loss "
+            f"{first:.4f}, mean of the last 5 {last5:.4f}; twin "
+            f"{t_twin:.1f}s [{smi}]")
+
+        ms = np.array([m for m, _, _ in twin[1:]])  # the first step warms
+        tokens = TRAIN["batch"] * TRAIN["seq"]
+        p50 = float(np.percentile(ms, 50))
+        flops = _train_flops(cfg, tokens, TRAIN["seq"])
+        ocfg = AdamWConfig(lr=TRAIN["lr"], warmup_steps=10, total_steps=steps,
+                           **TRAIN_OPT)
+        model = build_model(cfg)
+        template = abstract_params(train_state_defs(model.defs(), ocfg))
+        state_bytes = tree_bytes(template)
+        say(f"train step: {cfg.name} {tokens} tokens a step, per step (CUDA "
+            f"events, twin steps 1-{steps - 1}) p50 {p50:.2f} ms, p95 "
+            f"{np.percentile(ms, 95):.2f} ms, first {twin[0][0]:.2f} ms; "
+            f"{tokens / (p50 / 1e3):.0f} tokens/s at p50 "
+            f"({steps * tokens / twin_out['wall_s']:.0f} over the twin's "
+            f"wall, checkpoints and data included); model FLOPs "
+            f"{flops / 1e12:.2f} T a step (6 N T + attention, no recompute) "
+            f"= {flops / (p50 / 1e3) / 1e12:.1f} TFLOP/s, "
+            f"{flops / (p50 / 1e3) / BF16_PEAK_FLOPS:.1%} of the bfloat16 "
+            f"dense peak; train state {state_bytes} bytes; peak device "
+            f"memory {peak} bytes [{smi}]")
+
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        _, state, _ = load_checkpoint(dirs[1], template, device=dev)
+        _sync(torch, dev)
+        t_load = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        save_checkpoint(dirs[2], steps, state)
+        t_save = time.perf_counter() - t0
+        say(f"train checkpoint: {state_bytes} bytes, save (device to host, "
+            f"np.save, rename) {t_save:.2f}s = "
+            f"{state_bytes / t_save / 1e9:.2f} GB/s, load (np.load, to the "
+            f"card) {t_load:.2f}s = {state_bytes / t_load / 1e9:.2f} GB/s "
+            f"[{smi}]")
+
+        stream = SyntheticStream(DataConfig(
+            vocab=cfg.vocab, seq_len=TRAIN["seq"],
+            global_batch=TRAIN["batch"], mode="markov"))
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in stream.global_batch(steps).items()}
+        step = make_train_step(model, ocfg)
+        prof = _lm_profile(torch, dev, lambda: step(state, batch),
+                           f"train step ({TRAIN['batch']} x {TRAIN['seq']})",
+                           smi, calls=TRAIN["profile_calls"])
+        del state
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    _release(torch)
+    return dict(step_ms=ms.tolist(), tok_s=tokens / (p50 / 1e3), peak=peak,
+                state_bytes=state_bytes, save_s=t_save, load_s=t_load,
+                mfu=flops / (p50 / 1e3) / BF16_PEAK_FLOPS, prof=prof,
+                losses=losses, resume_rel=rel, resume_bit=bit)
+
+
+def _train_example_start():
+    """examples/train_lm_torch.py's quick mode on the card, in a process of
+    its own (it runs beside the families and the hold, which time
+    nothing)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples", "train_lm_torch.py")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+
+
+def _train_example_finish(proc, t0: float, smi) -> None:
+    """Wait for the example and hold it to its own assertions."""
+    out, err = proc.communicate(timeout=TRAIN["example_timeout_s"])
+    last = out.strip().splitlines()[-1:] or [""]
+    _need(proc.returncode == 0 and last[0].startswith("ok:"),
+          f"train example exit {proc.returncode}: {err[-2000:]}")
+    say(f"train example: examples/train_lm_torch.py on the card, "
+        f"{time.time() - t0:.1f}s: {last[0]} [{smi}]")
+
+
+def phase_train(torch, dev, smi):
+    """The LM substrate's training side on the card (see the module
+    docstring); it launches none of the retrieval kernels."""
+    from repro_torch.kernels import _cuda
+
+    t0 = time.time()
+    _release(torch)
+    _cuda.reset_launch_counts()
+    proc = _train_example_start()
+    try:
+        _train_families(torch, dev, smi)
+        _train_hold(torch, dev, smi)
+        _train_example_finish(proc, t0, smi)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out = _train_run(torch, dev, smi)
+    out["default"] = _train_default(torch, dev, smi)
+    _need_launches(_cuda.launch_counts(), dict.fromkeys(KERNELS, 0), "train")
+    say(f"train phase: {time.time() - t0:.1f}s [{smi}]")
+    return out
+
+
 def _bound(bytes_, ops_ms: float):
     """(bound ms, what bounds it) from bytes and the operations' time."""
     bytes_ms = 1e3 * bytes_ / HBM_BYTES_PER_S
@@ -3481,6 +4022,8 @@ def main(argv=None) -> int:
         legs["search"] = phase_search(torch, dev, sl, smi)
     if "lm" in phases:
         legs["lm"] = phase_lm(torch, dev, smi)
+    if "train" in phases:
+        legs["train"] = phase_train(torch, dev, smi)
     if "times" in phases:
         want = set(PHASES) - {"device", "build", "kernels", "slice", "times"}
         if sl is None or errs is None or set(legs) != want:

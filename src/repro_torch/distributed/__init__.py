@@ -1,5 +1,7 @@
-"""One table group's rows sharded across devices, driven by one process."""
+"""One table group's rows sharded across devices, driven by one process;
+the training fault stack (preemption, stragglers, restarts)."""
 
+from .fault import PreemptionHandler, RestartSupervisor, StragglerMonitor
 from .group_sharding import (
     HostShardedState,
     ShardedQueryState,
@@ -13,7 +15,10 @@ from .group_sharding import (
 
 __all__ = [
     "HostShardedState",
+    "PreemptionHandler",
+    "RestartSupervisor",
     "ShardedQueryState",
+    "StragglerMonitor",
     "build_group_state_per_host",
     "host_row_ranges",
     "merge_histograms",

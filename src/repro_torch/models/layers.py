@@ -1,6 +1,6 @@
 """Transformer building blocks: norms, rotary, GQA attention (blockwise
 online-softmax for prefill, cache attention for decode), SwiGLU MLP,
-embeddings.
+embeddings and the chunked cross-entropy loss.
 
 The port's counterpart of the JAX package's ``models/layers.py`` on one
 device: plain torch functions on tensors.  Where the reference asks XLA
@@ -18,6 +18,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .params import pdef, torch_dtype
@@ -38,6 +39,7 @@ __all__ = [
     "embed_defs",
     "embed",
     "unembed_matrix",
+    "chunked_ce_loss",
 ]
 
 
@@ -286,3 +288,34 @@ def unembed_matrix(params, cfg: ModelConfig):
     if cfg.tie_embeddings:
         return params["tok"].T
     return params["unembed"]
+
+
+def _ce_chunk(logits, labels):
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+
+
+def _ce_body(xb, lb, W):
+    return _ce_chunk(xb @ W, lb).sum()
+
+
+def chunked_ce_loss(params, x, labels, cfg: ModelConfig, chunk: int = 512):
+    """Cross-entropy with the (B,S,V) logits computed seq-chunk at a time.
+
+    Each chunk's body is rematerialized (``checkpoint``, the counterpart
+    of the reference's ``nothing_saveable`` policy): autograd keeps no
+    chunk's float32 logits for the backward pass, which recomputes them
+    with one extra (B,chunk,D)x(D,V) product.
+    """
+    B, S, D = x.shape
+    W = unembed_matrix(params, cfg).to(x.dtype)
+    chunk = min(chunk, S)
+    nc = S // chunk
+    xc = x.reshape(B, nc, chunk, D)
+    lc = labels.reshape(B, nc, chunk)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nc):
+        total = total + checkpoint(_ce_body, xc[:, i], lc[:, i], W,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total / (B * S)

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
@@ -18,10 +20,23 @@ def build_model(cfg: ModelConfig, flags: RunFlags | None = None) -> Model:
     return Model(cfg, flags=flags)
 
 
+def _best_group(n: int) -> int:
+    """Divisor of n closest to sqrt(n): balances boundary count (n/g)
+    against live recompute window (g) under nested remat."""
+    target = max(1, math.isqrt(n))
+    divisors = [d for d in range(1, n + 1) if n % d == 0]
+    return min(divisors, key=lambda d: abs(d - target))
+
+
 def default_flags(cfg: ModelConfig) -> RunFlags:
-    """The flags ``build_model`` uses when given none (the same for every
-    config: ``RunFlags`` holds nothing that depends on one)."""
-    return RunFlags()
+    """The flags ``build_model`` uses when given none: layers rematerialized
+    in nested groups for very wide stacks (llama3-405b, chameleon-34b), whose
+    saved layer boundaries at full width would fill the device."""
+    groups = 1
+    n_scan = cfg.n_layers - cfg.first_dense_layers
+    if cfg.d_model >= 8192 and n_scan > 8:
+        groups = _best_group(n_scan)
+    return RunFlags(layer_groups=groups)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:

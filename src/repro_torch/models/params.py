@@ -10,7 +10,7 @@ dim names + init); from that single source we derive:
 
 Stacked layers prepend a ("layers", L) dim with ``stack_defs``.  A
 parameter tree is nested dicts of tensors keyed as the JAX package's, so
-a JAX tree (as numpy arrays) carries across leaf by leaf.  The logical dim
+a JAX tree (as numpy arrays) carries across leaf by leaf (``from_numpy``).  The logical dim
 names feed the JAX package's sharding rules, which the port has no
 counterpart for yet; they are kept so the defs stay the same.
 """
@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ..kernels.platform import resolve_device
@@ -35,6 +36,7 @@ __all__ = [
     "tree_bytes",
     "count_params",
     "torch_dtype",
+    "from_numpy",
 ]
 
 
@@ -122,3 +124,36 @@ def count_params(defs) -> int:
 def tree_bytes(tree) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
                if isinstance(x, torch.Tensor))
+
+
+# dtypes numpy has no type of its own for, and the unsigned integer type
+# of their width: their payloads cross as raw bits
+_BITS = {"bfloat16": np.uint16}
+
+
+def _leaf_from_numpy(a, name: str | None) -> torch.Tensor:
+    a = np.asarray(a)
+    # torch.from_numpy shares the buffer (np.ascontiguousarray would turn
+    # a 0-d array into a 1-d one)
+    if not (a.flags.c_contiguous and a.flags.writeable):
+        a = a.copy()
+    name = name or a.dtype.name
+    bits = _BITS.get(name)
+    if bits is None:
+        return torch.from_numpy(a)
+    # ml_dtypes' type, or a |V2 / uint16 payload: the raw bits, retyped
+    return torch.from_numpy(a.view(bits)).view(torch_dtype(name))
+
+
+def from_numpy(tree, dtypes=None):
+    """CPU tensors of a tree of numpy arrays, under the same keys.
+
+    ``dtypes`` (optional) is a tree of the same keys naming each leaf's
+    dtype; it is needed where an array carries a payload numpy cannot
+    name: a bfloat16 leaf read back by ``np.load`` is ``|V2``, and a
+    ``uint16`` array may hold bfloat16 bits.  Without it a leaf keeps its
+    array's dtype, ``ml_dtypes.bfloat16`` (a JAX array's) included."""
+    if isinstance(tree, dict):
+        return {k: from_numpy(tree[k], None if dtypes is None else dtypes[k])
+                for k in sorted(tree)}
+    return _leaf_from_numpy(tree, dtypes)

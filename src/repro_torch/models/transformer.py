@@ -6,7 +6,10 @@ the JAX package's ``models/transformer.py``):
     one *shared* attention+MLP block applied every k layers through a
     concat-projection, weights reused);
   * a Python loop over the stacked layer dimension where the reference
-    scans (``lax.scan`` / ``lax.cond`` become ``for`` / ``if``);
+    scans (``lax.scan`` / ``lax.cond`` become ``for`` / ``if``), each layer
+    (or nested group of layers) rematerialized under autograd as the
+    reference's ``jax.checkpoint`` does;
+  * the training loss (``Model.loss``: the chunked cross-entropy);
   * decode steps with KV/SSM caches updated in place (the torch analogue
     of the reference's donated cache; a ring buffer for SWA).
 """
@@ -17,6 +20,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import layers as L
@@ -29,12 +33,30 @@ __all__ = ["Model", "RunFlags"]
 
 @dataclasses.dataclass(frozen=True)
 class RunFlags:
-    """Run flags: ``causal_block_skip`` skips the kv blocks above the
-    diagonal in ``blockwise_attention``.  The JAX package's other flags
-    (rematerialization, sequence sharding, unrolled scans) shape training
-    and compiled programs, which the port does not have yet."""
+    """Run flags.
 
+    While autograd records, every layer is rematerialized (only its input
+    is kept for the backward pass, the reference's ``remat="full"``, the
+    only setting its launchers use).  ``layer_groups`` > 1 nests it: each
+    group of ``n_scan / layer_groups`` layers is one more checkpoint, so
+    only group boundaries stay alive between the passes.
+    ``causal_block_skip`` skips the kv blocks above the diagonal in
+    ``blockwise_attention``.  The JAX package's sequence-sharding and
+    unrolled-scan flags shape compiled programs on a mesh, which the port
+    has no counterpart for."""
+
+    layer_groups: int = 1
     causal_block_skip: bool = False
+
+
+def _remat(fn):
+    """``fn`` under activation checkpointing while autograd records
+    (``jax.checkpoint`` with ``nothing_saveable``); ``fn`` itself
+    otherwise."""
+    if not torch.is_grad_enabled():
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
 
 
 def _block_defs(cfg: ModelConfig):
@@ -69,9 +91,14 @@ def _shared_block_defs(cfg: ModelConfig):
     }
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked parameter tree (views, no copies)."""
-    return tree_map(lambda a: a[i], tree)
+def _layers(tree, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree (views, no copies).
+
+    One ``unbind`` a leaf: under autograd its backward stacks the layers'
+    gradients once, where indexing each layer would add a zero tensor the
+    size of the whole stacked leaf per layer."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda p, i=i: p[i], parts) for i in range(n)]
 
 
 class Model:
@@ -88,6 +115,10 @@ class Model:
         self.cfg = cfg
         self.flags = flags
         self.n_scan = cfg.n_layers - cfg.first_dense_layers
+        g = flags.layer_groups
+        if g > 1 and self.n_scan % g != 0:
+            g = 1
+        self.groups = g
 
     # ------------------------------------------------------------------ defs
 
@@ -149,22 +180,43 @@ class Model:
         positions = torch.arange(S, device=x.device).expand(B, S)
         x0 = x
 
-        for i in range(cfg.first_dense_layers):
-            x = self._dense_block(_layer(params["first"], i), x, positions)
+        if cfg.first_dense_layers:
+            for p in _layers(params["first"], cfg.first_dense_layers):
+                x = self._dense_block(p, x, positions)
 
         fam = cfg.family
-        for i in range(self.n_scan):
-            p = _layer(params["blocks"], i)
+        every = cfg.shared_block_every
+
+        def layer_fn(x, p, i: int):
             if fam in ("dense", "audio", "vlm"):
-                x = self._dense_block(p, x, positions)
-            elif fam == "moe":
-                x = self._moe_layer(p, x, positions)
-            else:  # ssm, hybrid
-                x = self._ssm_layer(p, x)
-                if fam == "hybrid" and (i + 1) % cfg.shared_block_every == 0:
-                    x = self._shared_block(params["shared"], x, x0,
-                                           positions)
+                return self._dense_block(p, x, positions)
+            if fam == "moe":
+                return self._moe_layer(p, x, positions)
+            x = self._ssm_layer(p, x)  # ssm, hybrid
+            if fam == "hybrid" and (i + 1) % every == 0:
+                x = self._shared_block(params["shared"], x, x0, positions)
+            return x
+
+        layer_fn = _remat(layer_fn)
+        layers = _layers(params["blocks"], self.n_scan)
+        per = self.n_scan // self.groups
+
+        def group_fn(x, g: int):
+            for i in range(g * per, (g + 1) * per):
+                x = layer_fn(x, layers[i], i)
+            return x
+
+        if self.groups > 1:
+            group_fn = _remat(group_fn)
+        for g in range(self.groups):
+            x = group_fn(x, g)
         return L.apply_norm(params["final_norm"], x, cfg)
+
+    def loss(self, params, batch):
+        """Mean next-token cross-entropy of ``batch["labels"]``."""
+        x = self.hidden_states(params, batch)
+        return L.chunked_ce_loss(params["embed"], x, batch["labels"],
+                                 self.cfg)
 
     def prefill(self, params, batch):
         """Forward + final-position logits."""
@@ -224,17 +276,17 @@ class Model:
         slot = self._cache_slot(position)
 
         if fam in ("dense", "audio", "vlm", "moe"):
-            for i in range(cfg.first_dense_layers):
-                x = self._decode_attn_layer(_layer(params["first"], i), x,
-                                            cache, i, position, slot)
-            for i in range(self.n_scan):
-                x = self._decode_attn_layer(
-                    _layer(params["blocks"], i), x, cache,
-                    cfg.first_dense_layers + i, position, slot)
+            nf = cfg.first_dense_layers
+            if nf:
+                for i, p in enumerate(_layers(params["first"], nf)):
+                    x = self._decode_attn_layer(p, x, cache, i, position,
+                                                slot)
+            for i, p in enumerate(_layers(params["blocks"], self.n_scan)):
+                x = self._decode_attn_layer(p, x, cache, nf + i, position,
+                                            slot)
         else:  # ssm, hybrid
             inv = 0
-            for i in range(self.n_scan):
-                p = _layer(params["blocks"], i)
+            for i, p in enumerate(_layers(params["blocks"], self.n_scan)):
                 xn = L.apply_norm(p["ln1"], x, cfg)
                 y, st = mamba2_decode_step(
                     p["ssm"], xn, cfg,

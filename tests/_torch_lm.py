@@ -28,7 +28,7 @@ from repro.models import build_model as jax_build_model
 from repro.models import init_params as jax_init_params
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.models import build_model
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import from_numpy
 
 LM_ARCHS = [a for a in ARCHS if a != "wlsh_index"]
 MOE_ARCHS = [a for a in LM_ARCHS if get_config(a).family == "moe"]
@@ -52,8 +52,8 @@ def lm_configs(arch: str, dtype: str | None = None):
 
 def from_jax_params(tree):
     """The port's parameter tree of a JAX one: every leaf as a CPU tensor
-    under the same keys."""
-    return tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+    under the same keys (``repro_torch.models.params.from_numpy``)."""
+    return from_numpy(jax.tree.map(np.asarray, tree))
 
 
 def lm_pair(arch: str, dtype: str | None = None):

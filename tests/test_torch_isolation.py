@@ -36,6 +36,7 @@ from repro_torch.kernels.platform import resolve_device
 from repro_torch.configs import get_config, reduced
 from repro_torch.launch import retrieval as launch
 from repro_torch.launch import serve as lm_serve
+from repro_torch.launch import train as lm_train
 from repro_torch.models import build_model, init_params
 from repro_torch.serving import RetrievalService, ServiceConfig, generate
 
@@ -72,7 +73,9 @@ def test_every_module_imports_without_jax_or_repro():
     for name in ("configs.olmo_1b", "configs.wlsh_index", "models.params",
                  "models.layers", "models.moe", "models.ssm",
                  "models.transformer", "models.model", "serving.decode",
-                 "launch.serve"):
+                 "launch.serve", "training.optimizer", "training.train_loop",
+                 "training.checkpoint", "training.data", "distributed.fault",
+                 "launch.train"):
         assert f"repro_torch.{name}" in mods
     code = (
         "import sys\n"
@@ -103,6 +106,7 @@ def test_sources_never_import_jax_or_repro():
     assert len(files) > 10
     assert ROOT / "examples" / "quickstart_torch.py" in files
     assert ROOT / "examples" / "serve_retrieval_torch.py" in files
+    assert ROOT / "examples" / "train_lm_torch.py" in files
     assert PKG / "models" / "transformer.py" in files
     assert BENCH / "sentinel.py" in files
     for f in files:
@@ -178,7 +182,10 @@ def test_lm_entry_points_default_to_cuda():
         prompts = np.zeros((1, 2), np.int32)
         _raises_without_cuda(lambda: generate(model, params, prompts, 1, 4))
         _raises_without_cuda(lambda: lm_serve.main(["--reduced"]))
+        _raises_without_cuda(lambda: lm_train.main(["--reduced",
+                                                    "--steps", "1"]))
     assert lm_serve.parse_args([]).device == "cuda"
+    assert lm_train.parse_args([]).device == "cuda"
 
 
 def test_cpu_runs_only_when_asked(tiny):
