@@ -1,9 +1,10 @@
-"""Render the EXPERIMENTS.md §Roofline table from experiments/dryrun/*.json.
+"""Render the EXPERIMENTS.md §Roofline table from experiments/dryrun_torch/*.json.
 
     PYTHONPATH=src python -m benchmarks_torch.render_tables   # prints markdown
 
-Reads the dry-run artifacts (plain JSON, one per architecture, shape and
-mesh) and prints the same markdown as the JAX package's renderer.
+Reads the port's dry-run artifacts (``python -m repro_torch.launch.dryrun``:
+plain JSON, one per architecture, shape and mesh, in the JAX package's
+layout) and prints the same markdown as the JAX package's renderer.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import os
 
 DRYRUN_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "experiments", "dryrun",
+    "experiments", "dryrun_torch",
 )
 
 _SHAPE_ORDER = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]

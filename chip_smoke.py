@@ -191,7 +191,30 @@ non-zero:
                and examples/train_lm_torch.py on the card with its own
                assertions, in a child process beside the first two
                checks.  No retrieval kernel is launched
- 17. times   — each kernel on the main path's inputs for the widest
+ 17. mesh    — the LM substrate on a device mesh (repro_torch.distributed.
+               sharding, launch/{dryrun,roofline,estimate}.py): the dry-run
+               of olmo-1b and olmoe-1b-7b train_4k on the single pod's
+               (16, 16) mesh in child processes (a fake process group of
+               256 ranks, meta DTensors, the two-point depth
+               extrapolation): status ok, per-device state bytes equal to
+               the local shards of train_state_shardings, GB a device,
+               FLOPs, collective bytes by kind, the three roofline terms
+               and the trace's seconds; the train leg's configuration
+               (olmo-1b, 8 x 512 tokens, bfloat16 master, int8 moments,
+               update_chunk 4) traced on a one-rank mesh: its state bytes
+               equal the train leg's, its FLOP count equal to
+               FlopCounterMode on the real step on the card, its roofline
+               step and predicted peak beside the train leg's measured ms
+               and max_memory_allocated; a one-rank NCCL group on the card:
+               every family's reduced arch one train step through
+               train_state_shardings / batch_shardings (bfloat16 master,
+               int8 moments, update_chunk 1) with loss, every gradient and
+               the new state bit-equal to the step without a mesh, and
+               _moe_block_ep bit-equal to _moe_block_global; olmo-1b at
+               full width through launch/train.py as shipped, 6 steps
+               without a mesh and with --mesh 1,1 (ms a step: DTensor's
+               dispatch).  No retrieval kernel is launched
+ 18. times   — each kernel on the main path's inputs for the widest
                group: held to its plain version there (the rules of
                phase 3), its time, its plain version's time, the time of
                one PyTorch call that computes the same function where
@@ -207,7 +230,9 @@ and ``bf16`` need only ``slice`` (``--phases device,build,slice,obs,bf16``),
 as does ``shard`` (``--phases device,build,slice,shard``) and ``search``
 (``--phases device,build,slice,search``); ``lm``, ``train`` and
 ``sentinel`` need only ``device`` and ``build`` (``--phases
-device,build,lm`` or ``device,build,train``).
+device,build,lm`` or ``device,build,train``); ``mesh`` needs only
+``device`` (``--phases device,mesh``, ~40 s of command; after ``train``
+it also sets the train leg's ms and peak beside the analysis).
 """
 
 from __future__ import annotations
@@ -229,7 +254,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PHASES = ("device", "build", "sentinel", "kernels", "slice", "encode",
           "unfused", "paged", "async", "obs", "bf16", "stream", "shard",
-          "search", "lm", "train", "times")
+          "search", "lm", "train", "mesh", "times")
 
 # H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
 # float32 outside the tensor cores (F32_FLOPS counts an FMA as two flops;
@@ -3727,6 +3752,320 @@ def phase_train(torch, dev, smi):
     return out
 
 
+# the mesh leg: the production dry-run's cells (arch, shape) on the single
+# pod's (16, 16) mesh, the children's time limit, the reduced families'
+# train step (batch x sequence) and optimizer, and the launcher's steps
+# with and without a (1, 1) mesh
+MESH = dict(dryrun=(("olmo-1b", "train_4k"), ("olmoe-1b-7b", "train_4k")),
+            child_timeout_s=400, family_batch=2, family_seq=32,
+            launch_steps=6)
+MESH_OPT = dict(master_dtype="bfloat16", moment_dtype="int8", update_chunk=1)
+
+# the analysis child: the train leg's configuration traced on a one-rank
+# (1, 1) mesh of meta tensors; its counts as JSON on the last line
+_LEG_TRACE = """
+import json, sys
+from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch import dryrun
+from repro_torch.models import build_model
+from repro_torch.training import AdamWConfig
+cfg, b, s, opt = json.loads(sys.argv[1])
+model = build_model(get_config(cfg), mesh=dryrun._mesh("one", "cuda"))
+r = dryrun.trace_train(model, ShapeConfig("leg", s, b, "train"),
+                       AdamWConfig(**opt))
+print(json.dumps(r))
+"""
+
+
+def _mesh_children():
+    """Start the dry-run cells and the train leg's analysis, each in a
+    process of its own (a fake process group cannot share one with the
+    card's)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    shutil.rmtree(out, ignore_errors=True)
+    procs = {}
+    for arch, shape in MESH["dryrun"]:
+        procs[(arch, shape)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", out,
+             "--force"], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env, cwd=ROOT)
+    leg = json.dumps([LM["arch"], TRAIN["batch"], TRAIN["seq"], TRAIN_OPT])
+    procs["leg"] = subprocess.Popen(
+        [sys.executable, "-c", _LEG_TRACE, leg], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    return procs, out
+
+
+def _mesh_wait(proc, what: str) -> str:
+    out, err = proc.communicate(timeout=MESH["child_timeout_s"])
+    _need(proc.returncode == 0, f"mesh {what}: exit {proc.returncode}: "
+          f"{err[-3000:]}")
+    return out
+
+
+def _mesh_dryrun(procs, out_dir, smi) -> None:
+    """Each dry-run cell: status ok, its per-device state bytes equal to
+    the local shard bytes of ``train_state_shardings`` on the (16, 16)
+    mesh, and its numbers."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.models.params import torch_dtype, tree_leaves
+    from repro_torch.training import train_state_defs, train_state_shardings
+
+    pod = types.SimpleNamespace(axis_names=("data", "model"),
+                                shape={"data": 16, "model": 16})
+    for arch, shape in MESH["dryrun"]:
+        t0 = time.time()
+        line = _mesh_wait(procs[(arch, shape)], f"dryrun {arch} {shape}")
+        name = arch.replace("-", "_")
+        with open(os.path.join(out_dir, f"{name}__{shape}__single.json")) as f:
+            r = json.load(f)
+        _need(r["status"] == "ok", f"mesh dryrun {arch} {shape}: "
+              f"{r.get('error')}\n{r.get('traceback', '')[-2000:]}")
+        cfg = get_config(arch)
+        ocfg = dryrun._opt_cfg(name)
+        sdefs = train_state_defs(build_model(cfg).defs(), ocfg)
+        want = sum(
+            int(np.prod(sh.shard_shape(d.shape)))
+            * torch_dtype(d.dtype).itemsize
+            for d, sh in zip(tree_leaves(sdefs), tree_leaves(
+                train_state_shardings(build_model(cfg).defs(), ocfg, pod))))
+        got = r["memory"]["state_bytes"]
+        _need(got == want, f"mesh dryrun {arch}: state bytes a device {got}"
+              f", the local shards of train_state_shardings {want}")
+        c = r["coll_detail"]["bytes"]
+        say(f"mesh dryrun {arch} {shape} on (16, 16) = {r['chips']} cards "
+            f"(fake group, meta tensors, {r['analysis_method']}): "
+            f"{r['hbm_gb']} GB a device (fits 80 GB: {r['fits_hbm']}; state "
+            f"{got} bytes = the local shards of train_state_shardings), "
+            f"{r['hlo_flops_per_chip']:.4g} FLOPs a device (model "
+            f"{r['model_flops']:.4g} over all, useful "
+            f"{r['useful_fraction']:.3f}), {r['hlo_bytes_per_chip']:.4g} "
+            f"bytes a device, collectives {r['coll_bytes_per_chip']:.4g} "
+            f"bytes a device (by kind: {c['by_kind']}; "
+            f"{c['per_layer_bytes']:.4g} a layer); terms compute "
+            f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+            f"collective {r['collective_s']:.4g} s -> {r['bottleneck']}; "
+            f"traced in {r['compile_s']} s, waited {time.time() - t0:.1f}s; "
+            f"{line.strip().splitlines()[-1][:60]!r} [{smi}]")
+
+
+def _mesh_analysis(torch, dev, proc, train, smi) -> None:
+    """The train leg's configuration traced on a one-rank mesh: its state
+    bytes equal to the train leg's, its FLOP count equal to
+    ``FlopCounterMode`` on the real step on the card; its roofline step
+    and predicted peak beside the train leg's measured ones."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.roofline import HW
+    from repro_torch.models import (abstract_params, build_model,
+                                    init_params, tree_bytes)
+    from repro_torch.training import (AdamWConfig, DataConfig,
+                                      SyntheticStream, init_train_state,
+                                      make_train_step, train_state_defs)
+
+    cfg = _lm_full_config()
+    ocfg = AdamWConfig(lr=TRAIN["lr"], **TRAIN_OPT)
+    model = build_model(cfg)
+    state_bytes = tree_bytes(abstract_params(train_state_defs(model.defs(),
+                                                              ocfg)))
+    params = init_params(model.defs(), torch.Generator(device=dev)
+                         .manual_seed(0), device=dev)
+    state = init_train_state(model.defs(), params, ocfg)
+    del params
+    stream = SyntheticStream(DataConfig(
+        vocab=cfg.vocab, seq_len=TRAIN["seq"], global_batch=TRAIN["batch"],
+        mode="markov"))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.global_batch(0).items()}
+    step = make_train_step(model, ocfg)
+    with FlopCounterMode(display=False) as fc:
+        step(state, batch)
+    _sync(torch, dev)
+    card_flops = fc.get_total_flops()
+    del state
+    _release(torch)
+
+    r = json.loads(_mesh_wait(proc, "analysis").strip().splitlines()[-1])
+    mem = r["memory"]
+    _need(mem["state_bytes"] == state_bytes, f"mesh analysis: state bytes "
+          f"{mem['state_bytes']}, the train leg's {state_bytes}")
+    _need(int(r["flops"]) == int(card_flops), f"mesh analysis: FLOPs "
+          f"{r['flops']}, FlopCounterMode on the card {card_flops}")
+    hw = HW()
+    terms = dict(compute=r["flops"] / hw.peak_flops,
+                 memory=r["bytes"] / hw.hbm_bw,
+                 collective=r["coll"] / hw.link_bw)
+    roof_ms = 1e3 * max(terms.values())
+    if train is not None:
+        ms = float(np.percentile(train["step_ms"], 50))
+        peak = train["peak"]
+        vs = (f"measured p50 {ms:.2f} ms a step (train leg) = "
+              f"{ms / roof_ms:.2f}x the roofline; predicted peak "
+              f"{mem['total_bytes']} bytes vs max_memory_allocated {peak} "
+              f"= {mem['total_bytes'] / peak:.3f}")
+    else:
+        vs = "the train leg's ms and peak not measured in this call"
+    say(f"mesh analysis: {cfg.name} {TRAIN['batch']} x {TRAIN['seq']} tokens"
+        f", {TRAIN_OPT} on a (1, 1) mesh of meta tensors: state "
+        f"{mem['state_bytes']} bytes (= the train leg's), FLOPs "
+        f"{r['flops']:.6g} (= FlopCounterMode on the card's step), bytes "
+        f"{r['bytes']:.4g}, predicted peak {mem['total_bytes']} bytes; "
+        f"roofline terms " + ", ".join(
+            f"{k} {1e3 * v:.3f} ms" for k, v in terms.items())
+        + f" -> {roof_ms:.3f} ms ({hw.name}); {vs} [{smi}]")
+
+
+def _mesh_group(torch, dev):
+    """A one-rank NCCL group on the card and a (1, 1) mesh over it."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    return init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+
+def _mesh_families(torch, dev, mesh, smi) -> None:
+    """Every family's reduced arch: one train step through
+    ``train_state_shardings`` / ``batch_shardings`` on the (1, 1) mesh,
+    loss, every gradient and the new state bit-equal to the step without
+    a mesh; ``_moe_block_ep`` bit-equal to ``_moe_block_global``."""
+    from repro_torch.configs import ARCHS, ShapeConfig, get_config, reduced
+    from repro_torch.distributed.sharding import NamedSharding
+    from repro_torch.models import build_model, init_params, make_batch
+    from repro_torch.models.moe import _moe_block_ep, _moe_block_global
+    from repro_torch.models.params import distribute, tree_leaves, tree_map
+    from repro_torch.training import (AdamWConfig, batch_shardings,
+                                      init_train_state, make_train_step,
+                                      train_state_shardings)
+    from repro_torch.training.train_loop import _cast_compute, _value_and_grad
+
+    t0 = time.time()
+    ocfg = AdamWConfig(**MESH_OPT)
+    shape = ShapeConfig("mesh", MESH["family_seq"], MESH["family_batch"],
+                        "train")
+    n_leaves, moe_eq = 0, []
+    for i, arch in enumerate(a for a in ARCHS if a != "wlsh_index"):
+        cfg = reduced(get_config(arch))
+        m0, m1 = build_model(cfg), build_model(cfg, mesh=mesh)
+        defs = m0.defs()
+        params = init_params(defs, torch.Generator(device=dev).manual_seed(i),
+                             device=dev)
+        st0 = init_train_state(defs, params, ocfg, seed=i)
+        st1 = distribute(tree_map(lambda t: t.clone(), st0),
+                         train_state_shardings(defs, ocfg, mesh))
+        b0 = make_batch(cfg, shape, seed=i, device=dev)
+        b1 = distribute(b0, batch_shardings(mesh, b0))
+        with torch.no_grad():
+            c0 = _cast_compute(st0["opt"]["master"])
+            c1 = _cast_compute(st1["opt"]["master"])
+        l0, g0 = _value_and_grad(m0, c0, b0)
+        l1, g1 = _value_and_grad(m1, c1, b1)
+        bad = [k for k, (a, b) in enumerate(zip(tree_leaves(g0),
+                                                tree_leaves(g1)))
+               if not torch.equal(a, b.full_tensor())]
+        _need(torch.equal(l0, l1) and not bad, f"mesh {arch}: loss "
+              f"{float(l0)} vs {float(l1)}, gradient leaves {bad} differ")
+        st0, met0 = make_train_step(m0, ocfg)(st0, b0)
+        st1, met1 = make_train_step(m1, ocfg)(st1, b1)
+        bad = [k for k, (a, b) in enumerate(zip(tree_leaves(st0),
+                                                tree_leaves(st1)))
+               if not torch.equal(a, b.full_tensor())]
+        _need(torch.equal(met0["loss"], met1["loss"]) and not bad,
+              f"mesh {arch}: step loss or state leaves {bad} differ")
+        n_leaves += len(tree_leaves(st0))
+        if cfg.n_experts:
+            p = {k: v[0] for k, v in params["blocks"]["moe"].items()
+                 if k != "shared"}
+            x = torch.randn(MESH["family_batch"], MESH["family_seq"],
+                            cfg.d_model, generator=torch.Generator(
+                                device=dev).manual_seed(i), device=dev
+                            ).to(torch.bfloat16)
+            rep = {k: distribute(v, NamedSharding(mesh, (None,) * v.ndim))
+                   for k, v in p.items()}
+            y_ep = _moe_block_ep(rep, distribute(
+                x, NamedSharding(mesh, (None,) * 3)), cfg, mesh)
+            eq = torch.equal(_moe_block_global(p, x, cfg), y_ep.full_tensor())
+            _need(eq, f"mesh {arch}: _moe_block_ep differs from "
+                  "_moe_block_global on one data shard")
+            moe_eq.append(arch)
+    say(f"mesh families: 10 reduced archs, one train step each ({MESH_OPT}, "
+        f"{shape.global_batch} x {shape.seq_len} tokens) on a (1, 1) mesh "
+        f"of a one-rank NCCL group vs no mesh: loss, every gradient and "
+        f"the {n_leaves} state leaves bit-equal; _moe_block_ep == "
+        f"_moe_block_global bit for bit on {moe_eq}; "
+        f"{time.time() - t0:.1f}s [{smi}]")
+
+
+def _mesh_launcher(torch, dev, smi) -> None:
+    """olmo-1b at full width through ``launch/train.py`` as shipped, 6
+    steps without a mesh and with ``--mesh 1,1``: DTensor's dispatch
+    cost a step."""
+    import repro_torch.launch.train as T
+
+    runs = {}
+    for spec in ("", "1,1"):
+        argv = ["--arch", LM["arch"], "--steps", str(MESH["launch_steps"]),
+                "--global-batch", str(TRAIN["batch"]), "--seq-len",
+                str(TRAIN["seq"]), "--lr", str(TRAIN["lr"]), "--log-every",
+                "100", "--device", str(dev), "--mesh", spec]
+        out = T.train(T.parse_args(argv), cfg=_lm_full_config())
+        ms = np.array([r["ms"] for r in out["steps"][1:]])
+        losses = [r["loss"] for r in out["steps"]]
+        _need(bool(np.isfinite(losses).all()), f"mesh launcher "
+              f"--mesh {spec!r}: losses {losses}")
+        runs[spec] = (float(np.percentile(ms, 50)), losses)
+        _release(torch)
+    (p0, l0), (p1, l1) = runs[""], runs["1,1"]
+    say(f"mesh launcher: {LM['arch']} full width through launch/train.py as "
+        f"shipped, {TRAIN['batch']} x {TRAIN['seq']} tokens, "
+        f"{MESH['launch_steps']} steps: p50 {p0:.2f} ms a step without a "
+        f"mesh, {p1:.2f} ms with --mesh 1,1 ({p1 - p0:+.2f} ms, "
+        f"{p1 / p0:.3f}x: DTensor's dispatch on one rank); losses equal "
+        f"{l0 == l1} [{smi}]")
+
+
+def phase_mesh(torch, dev, smi, train=None):
+    """The LM substrate on a device mesh (see the module docstring); it
+    launches none of the retrieval kernels."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _cuda
+
+    t0 = time.time()
+    _release(torch)
+    _cuda.reset_launch_counts()
+    procs, out_dir = _mesh_children()
+    try:
+        mesh = _mesh_group(torch, dev)
+        try:
+            _mesh_families(torch, dev, mesh, smi)
+            _mesh_launcher(torch, dev, smi)
+        finally:
+            dist.destroy_process_group()
+        _mesh_analysis(torch, dev, procs.pop("leg"), train, smi)
+        _mesh_dryrun(procs, out_dir, smi)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    _need_launches(_cuda.launch_counts(), dict.fromkeys(KERNELS, 0), "mesh")
+    say(f"mesh phase: {time.time() - t0:.1f}s [{smi}]")
+    return {}
+
+
 def _bound(bytes_, ops_ms: float):
     """(bound ms, what bounds it) from bytes and the operations' time."""
     bytes_ms = 1e3 * bytes_ / HBM_BYTES_PER_S
@@ -4024,6 +4363,8 @@ def main(argv=None) -> int:
         legs["lm"] = phase_lm(torch, dev, smi)
     if "train" in phases:
         legs["train"] = phase_train(torch, dev, smi)
+    if "mesh" in phases:
+        legs["mesh"] = phase_mesh(torch, dev, smi, legs.get("train"))
     if "times" in phases:
         want = set(PHASES) - {"device", "build", "kernels", "slice", "times"}
         if sl is None or errs is None or set(legs) != want:

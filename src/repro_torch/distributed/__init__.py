@@ -1,5 +1,6 @@
-"""One table group's rows sharded across devices, driven by one process;
-the training fault stack (preemption, stragglers, restarts)."""
+"""Logical-axis sharding rules over ``torch.distributed.tensor``; one
+table group's rows sharded across devices, driven by one process; the
+training fault stack (preemption, stragglers, restarts)."""
 
 from .fault import PreemptionHandler, RestartSupervisor, StragglerMonitor
 from .group_sharding import (
@@ -12,6 +13,7 @@ from .group_sharding import (
     offload_state_sharded,
     serving_devices,
 )
+from .sharding import named_sharding, shard, spec, with_rules
 
 __all__ = [
     "HostShardedState",
@@ -23,6 +25,10 @@ __all__ = [
     "host_row_ranges",
     "merge_histograms",
     "merge_shard_topk",
+    "named_sharding",
     "offload_state_sharded",
     "serving_devices",
+    "shard",
+    "spec",
+    "with_rules",
 ]

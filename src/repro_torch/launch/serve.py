@@ -31,7 +31,7 @@ def serve(args) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
-    model = build_model(cfg)
+    model = build_model(cfg, mesh=None)
     params = init_params(model.defs(),
                          torch.Generator(device=dev).manual_seed(args.seed),
                          device=dev)

@@ -14,10 +14,13 @@ from .transformer import Model, RunFlags
 __all__ = ["build_model", "default_flags", "input_specs", "make_batch"]
 
 
-def build_model(cfg: ModelConfig, flags: RunFlags | None = None) -> Model:
+def build_model(cfg: ModelConfig, mesh=None,
+                flags: RunFlags | None = None) -> Model:
+    """The model of ``cfg``; ``mesh`` (a ``DeviceMesh`` with the reference's
+    axis names) puts its steps on DTensor parameters."""
     if flags is None:
         flags = default_flags(cfg)
-    return Model(cfg, flags=flags)
+    return Model(cfg, mesh=mesh, flags=flags)
 
 
 def _best_group(n: int) -> int:

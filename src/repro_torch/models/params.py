@@ -7,12 +7,16 @@ dim names + init); from that single source we derive:
   * init_params(defs, generator, device) — materialized params
   * abstract_params(defs)                — meta-device tensors (no
                                            allocation)
+  * param_specs(defs, mesh)              — PartitionSpec entries from the
+                                           logical dim names (the rules of
+                                           ``distributed.sharding``)
 
 Stacked layers prepend a ("layers", L) dim with ``stack_defs``.  A
 parameter tree is nested dicts of tensors keyed as the JAX package's, so
-a JAX tree (as numpy arrays) carries across leaf by leaf (``from_numpy``).  The logical dim
-names feed the JAX package's sharding rules, which the port has no
-counterpart for yet; they are kept so the defs stay the same.
+a JAX tree (as numpy arrays) carries across leaf by leaf (``from_numpy``).
+``distribute`` places a tree on a ``DeviceMesh`` by its shardings (the
+reference's ``jax.device_put`` with a ``NamedSharding``), real tensors and
+meta tensors alike.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from ..distributed.sharding import NamedSharding, local_box, spec
 from ..kernels.platform import resolve_device
 
 __all__ = [
@@ -31,6 +36,9 @@ __all__ = [
     "stack_defs",
     "init_params",
     "abstract_params",
+    "param_specs",
+    "param_shardings",
+    "distribute",
     "tree_map",
     "tree_leaves",
     "tree_bytes",
@@ -117,13 +125,48 @@ def abstract_params(defs):
     )
 
 
+def param_specs(defs, mesh):
+    """The PartitionSpec entries of every leaf of ``defs`` on ``mesh``."""
+    return tree_map(lambda d: spec(mesh, d.names, d.shape), defs)
+
+
+def param_shardings(defs, mesh):
+    """``NamedSharding``s of every leaf of ``defs`` on ``mesh``."""
+    return tree_map(lambda sp: NamedSharding(mesh, sp),
+                    param_specs(defs, mesh))
+
+
+def _distribute_one(x: torch.Tensor, sh: NamedSharding):
+    from torch.distributed.tensor import DTensor
+
+    placements = sh.placements
+    offs, size = local_box(tuple(x.shape), sh.mesh, placements)
+    local = x[tuple(slice(o, o + n) for o, n in zip(offs, size))]
+    return DTensor.from_local(local.clone(), sh.mesh, placements,
+                              run_check=False)
+
+
+def distribute(tree, shardings):
+    """``DTensor``s of a tree of whole tensors (the same on every rank),
+    laid out by a tree of ``NamedSharding``s under the same keys: each rank
+    keeps a copy of its own shard.  Meta tensors give meta shards."""
+    if isinstance(tree, dict):
+        return {k: distribute(tree[k], shardings[k]) for k in sorted(tree)}
+    return _distribute_one(tree, shardings)
+
+
 def count_params(defs) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(defs))
 
 
+def _local(x):
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
 def tree_bytes(tree) -> int:
-    return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
-               if isinstance(x, torch.Tensor))
+    """Bytes of a tree's tensors; of a ``DTensor``, this rank's shard."""
+    return sum(_local(x).numel() * x.element_size()
+               for x in tree_leaves(tree) if isinstance(x, torch.Tensor))
 
 
 # dtypes numpy has no type of its own for, and the unsigned integer type

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.sharding import shard, spec, to_placements
+from .layers import seq_whole
 from .params import pdef
 
 __all__ = ["ssm_defs", "mamba2_block", "mamba2_decode_step", "ssm_state_shape"]
@@ -97,26 +99,15 @@ def _gated_norm(y, z, scale, eps: float = 1e-6):
     return y * torch.rsqrt(ms + eps) * scale
 
 
-def mamba2_block(params, x, cfg: ModelConfig, initial_state=None):
-    """x: (B, S, d) -> ((B, S, d), final state (B, H, N, P) f32); S must be
-    a multiple of ssm_chunk."""
-    B, S, d = x.shape
-    di, H, P, N, G = _dims(cfg)
-    Q = min(cfg.ssm_chunk, S)
+def _ssd(xs, Bm, Cm, dt, A, initial_state, Q: int):
+    """The chunked SSD scan: xs (B,S,H,P), Bm / Cm (B,S,N) f32, dt (B,S,H)
+    f32, A (H,) f32 -> (y (B,S,H,P) f32 without the D skip, the final
+    state (B,H,N,P) f32).  Each head is independent of the others."""
+    B, S, H, P = xs.shape
+    N = Bm.shape[-1]
     nc = S // Q
-    dt_ = x.dtype
-    dev = x.device
+    dev = xs.device
     f32 = torch.float32
-
-    proj = x @ params["in_proj"].to(dt_)
-    z, xBC, dtt = _split_proj(cfg, proj)
-    xBC, _ = _causal_conv(xBC, params["conv_w"].to(dt_),
-                          params["conv_b"].to(dt_))
-    xs = xBC[..., :di].reshape(B, S, H, P)
-    Bm = xBC[..., di : di + G * N].reshape(B, S, N).float()
-    Cm = xBC[..., di + G * N :].reshape(B, S, N).float()
-    dt = _softplus(dtt.float() + params["dt_bias"].float())  # (B,S,H)
-    A = -torch.exp(params["A_log"].float())  # (H,) negative
 
     # chunked SSD ------------------------------------------------------------
     xs_c = xs.reshape(B, nc, Q, H, P).float()
@@ -158,14 +149,104 @@ def mamba2_block(params, x, cfg: ModelConfig, initial_state=None):
     # inter-chunk output: y_j += exp(cum_j) C_j . s_in
     y_inter = torch.einsum("bcjh,bcjn,bchnp->bcjhp", torch.exp(cum), C_c,
                            s_in)
-    y = (y_intra + y_inter).reshape(B, S, H, P)
+    return (y_intra + y_inter).reshape(B, S, H, P), s
+
+
+def _ssd_sharded(xs, Bm, Cm, dt, A, initial_state, Q: int, mesh):
+    """``_ssd`` on a mesh: batch over the data axes and heads over
+    "model", each device's heads scanned where they lie (``local_map``;
+    the heads need no collective, and DTensor's einsum views would have to
+    flatten a head-sharded dim).  B and C feed every head: with the heads
+    sharded, their gradients are partial sums over "model"; A feeds every
+    sequence: with the batch sharded, its gradient is a partial sum over
+    the data axes."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    xs = shard(xs, mesh, "batch", "seq", "heads", None)
+    Bm = shard(Bm, mesh, "batch", "seq", None)
+    Cm = shard(Cm, mesh, "batch", "seq", None)
+    dt = shard(dt, mesh, "batch", "seq", "heads")
+    A = shard(A, mesh, "heads")
+    st = (None if initial_state is None
+          else shard(initial_state, mesh, "batch", "heads", None, None))
+    st_p = to_placements(mesh, spec(mesh, ("batch", "heads", None, None),
+                                    (xs.shape[0], xs.shape[2], Bm.shape[-1],
+                                     xs.shape[3])))
+    bc_grad = [Partial() if p == Shard(2) else q
+               for p, q in zip(xs.placements, Bm.placements)]
+    a_grad = [Partial() if p == Shard(0) else q
+              for p, q in zip(xs.placements, A.placements)]
+    ins = (xs, Bm, Cm, dt, A, st)
+    fn = local_map(
+        lambda *a: _ssd(*a, Q), out_placements=(list(xs.placements), st_p),
+        in_placements=tuple(None if t is None else list(t.placements)
+                            for t in ins),
+        in_grad_placements=tuple(
+            bc_grad if i in (1, 2) else a_grad if i == 4 else None
+            if t is None else list(t.placements) for i, t in enumerate(ins)),
+        device_mesh=mesh, redistribute_inputs=True)
+    return fn(xs, Bm, Cm, dt, A, st)
+
+
+def mamba2_block(params, x, cfg: ModelConfig, mesh=None,
+                 initial_state=None):
+    """x: (B, S, d) -> ((B, S, d), final state (B, H, N, P) f32); S must be
+    a multiple of ssm_chunk."""
+    x = seq_whole(x, mesh)
+    B, S, d = x.shape
+    di, H, P, N, G = _dims(cfg)
+    Q = min(cfg.ssm_chunk, S)
+    dt_ = x.dtype
+
+    proj = x @ params["in_proj"].to(dt_)
+    z, xBC, dtt = _split_proj(cfg, proj)
+    xBC, _ = _causal_conv(xBC, params["conv_w"].to(dt_),
+                          params["conv_b"].to(dt_))
+    xs = xBC[..., :di].reshape(B, S, H, P)
+    Bm = xBC[..., di : di + G * N].reshape(B, S, N).float()
+    Cm = xBC[..., di + G * N :].reshape(B, S, N).float()
+    dt = _softplus(dtt.float() + params["dt_bias"].float())  # (B,S,H)
+    A = -torch.exp(params["A_log"].float())  # (H,) negative
+    xs = shard(xs, mesh, "batch", "seq", "heads", None)
+
+    if mesh is None:
+        y, s = _ssd(xs, Bm, Cm, dt, A, initial_state, Q)
+    else:
+        y, s = _ssd_sharded(xs, Bm, Cm, dt, A, initial_state, Q, mesh)
     y = y + params["D"].float()[None, None, :, None] * xs.float()
     y = _gated_norm(y.reshape(B, S, di), z, params["norm_scale"].float())
     out = y.to(dt_) @ params["out_proj"].to(dt_)
-    return out, s
+    return shard(out, mesh, "batch", "seq", None), s
 
 
-def mamba2_decode_step(params, x, cfg: ModelConfig, state):
+def _ssd_step(xs, Bm, Cm, dt, A, s):
+    """One token's SSM recurrence: xs (B,H,P), Bm / Cm (B,N), dt (B,H), A
+    (H,), the state s (B,H,N,P) -> (y (B,H,P) without the D skip, the new
+    state)."""
+    g = torch.exp(dt * A[None, :])  # (B,H)
+    s_new = g[:, :, None, None] * s + torch.einsum("bh,bn,bhp->bhnp", dt, Bm,
+                                                   xs)
+    return torch.einsum("bn,bhnp->bhp", Cm, s_new), s_new
+
+
+def _ssd_step_sharded(xs, Bm, Cm, dt, A, s, mesh):
+    """``_ssd_step`` on a mesh, each device's (batch, heads) block where it
+    lies (``local_map``, as ``_ssd_sharded``)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    args = (shard(xs, mesh, "batch", "heads", None),
+            shard(Bm, mesh, "batch", None), shard(Cm, mesh, "batch", None),
+            shard(dt, mesh, "batch", "heads"), shard(A, mesh, "heads"),
+            shard(s, mesh, "batch", "heads", None, None))
+    fn = local_map(_ssd_step, out_placements=(list(args[0].placements),
+                                              list(args[5].placements)),
+                   in_placements=tuple(list(t.placements) for t in args),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(*args)
+
+
+def mamba2_decode_step(params, x, cfg: ModelConfig, state, mesh=None):
     """x: (B, d) single token; state dict {ssm (B,H,N,P), conv (B,K-1,Cd)}.
     Returns (y (B, d), the new state dict)."""
     B, d = x.shape
@@ -183,12 +264,13 @@ def mamba2_decode_step(params, x, cfg: ModelConfig, state):
     Cm = xBC[..., di + G * N :].float()
     dt = _softplus(dtt.float() + params["dt_bias"].float())  # (B,H)
     A = -torch.exp(params["A_log"].float())
-    g = torch.exp(dt * A[None, :])  # (B,H)
     s = state["ssm"].float()
-    s_new = g[:, :, None, None] * s + torch.einsum("bh,bn,bhp->bhnp", dt, Bm,
-                                                   xs)
-    y = torch.einsum("bn,bhnp->bhp", Cm, s_new)
+    if mesh is None:
+        y, s_new = _ssd_step(xs, Bm, Cm, dt, A, s)
+    else:
+        y, s_new = _ssd_step_sharded(xs, Bm, Cm, dt, A, s, mesh)
     y = y + params["D"].float()[None, :, None] * xs
     y = _gated_norm(y.reshape(B, di), z, params["norm_scale"].float())
     out = y.to(dt_) @ params["out_proj"].to(dt_)
-    return out, {"ssm": s_new.to(state["ssm"].dtype), "conv": new_conv}
+    return (shard(out, mesh, "batch", None),
+            {"ssm": s_new.to(state["ssm"].dtype), "conv": new_conv})

@@ -20,6 +20,10 @@ Properties:
     crash mid-save never corrupts the latest checkpoint;
   * device-independent: leaves are whole host arrays; ``load_checkpoint``
     puts them on any ``device``;
+  * elastic: a ``DTensor`` leaf is gathered whole (``full_tensor``, a
+    collective every rank joins) and rank 0 writes; ``load_checkpoint(...,
+    shardings=)`` lays each leaf out on any mesh, so a run saved under one
+    mesh resumes under another;
   * keep-last-k pruning + find-latest for automatic restart;
   * async: every leaf is copied to host memory before ``save_checkpoint``
     returns (so a later in-place step cannot race the writer), and the
@@ -37,8 +41,9 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..models.params import from_numpy, tree_leaves, tree_map
+from ..models.params import distribute, from_numpy, tree_leaves, tree_map
 
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step",
            "CheckpointManager"]
@@ -60,6 +65,8 @@ def _to_host(v) -> tuple[np.ndarray, str]:
     if not isinstance(v, torch.Tensor):
         a = np.array(v)
         return a, str(a.dtype)
+    if hasattr(v, "full_tensor"):  # a DTensor: every rank gathers it
+        v = v.full_tensor()
     # a copy even on the CPU, where .numpy() would share the tensor's
     # memory with the next in-place step
     t = v.detach().to("cpu", copy=True)
@@ -71,9 +78,11 @@ def _to_host(v) -> tuple[np.ndarray, str]:
 
 def save_checkpoint(root: str, step: int, tree, keep: int = 3,
                     extra: dict | None = None, async_write: bool = False):
-    os.makedirs(root, exist_ok=True)
     keys = _leaf_keys(tree)
     host = [_to_host(v) for v in tree_leaves(tree)]
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None  # rank 0 writes the gathered leaves
+    os.makedirs(root, exist_ok=True)
     tmp = os.path.join(root, f".tmp_{step:09d}")
     final = os.path.join(root, f"step_{step:09d}")
 
@@ -125,13 +134,15 @@ def latest_step(root: str) -> int | None:
 
 
 def load_checkpoint(root: str, template, step: int | None = None,
-                    device=None):
+                    device=None, shardings=None):
     """Restore into the structure of ``template`` (values ignored; meta
     tensors do).
 
     Leaves come back as CPU tensors, or on ``device`` when given; the
-    checkpoint may have been written from any device, or by the JAX
-    package.  Returns (step, tree, extra).
+    checkpoint may have been written from any device or mesh, or by the
+    JAX package.  ``shardings`` (a tree of ``NamedSharding``s under the
+    template's keys) lays the leaves out as ``DTensor``s on their mesh —
+    the elastic path.  Returns (step, tree, extra).
     """
     if step is None:
         step = latest_step(root)
@@ -153,6 +164,8 @@ def load_checkpoint(root: str, template, step: int | None = None,
                       tree_map(lambda _: next(names), template))
     if device is not None:
         tree = tree_map(lambda t: t.to(device), tree)
+    if shardings is not None:
+        tree = distribute(tree, shardings)
     return step, tree, manifest.get("extra", {})
 
 
@@ -181,8 +194,9 @@ class CheckpointManager:
             self._pending.join()
             self._pending = None
 
-    def restore_or_none(self, template, device=None):
+    def restore_or_none(self, template, device=None, shardings=None):
         try:
-            return load_checkpoint(self.root, template, device=device)
+            return load_checkpoint(self.root, template, device=device,
+                                   shardings=shardings)
         except FileNotFoundError:
             return None

@@ -1,5 +1,5 @@
 """AdamW with memory-footprint controls (the port of the JAX package's
-``training/optimizer.py``, on one device):
+``training/optimizer.py``), on one device or on a ``DeviceMesh``:
 
   * moment quantization — m/v stored bfloat16 or *blockwise int8* (256-wide
     blocks on the last dim, per-block float32 scales): 8 -> 2 bytes/param
@@ -16,6 +16,15 @@ from JAX's threefry (``_sr_cast_bf16`` takes the bits as a tensor, so a
 test can feed it JAX's), and ``adamw_update`` writes the state's tensors
 in place (the counterpart of the reference's donated state) and returns
 no bfloat16 compute copy of them.
+
+On a mesh the state's leaves are ``DTensor``s.  Each leaf's update runs on
+its local shard, in the leaf's own layout, except that int8 moments need
+whole 256-wide blocks: where the last dim is sharded and a shard does not
+hold whole blocks, that dim is gathered for the update and sliced back
+after it.  The stochastic-rounding bits of a piece are drawn whole from the
+leaf's generator on every rank and each rank takes its slice, so a mesh
+update equals the one-device update bit for bit given the same gradients
+and global norm.
 """
 
 from __future__ import annotations
@@ -163,7 +172,10 @@ def _moment_load(stored, shape, dtype: str, kind: str = "m"):
 
 def _sr_bits(shape, generator: torch.Generator, device) -> torch.Tensor:
     """16 random bits an element (int32 in [0, 0xFFFF]) from
-    ``generator``."""
+    ``generator`` (uninitialized on the meta device, which a dry-run
+    traces and which has no generator)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=torch.int32, device=device)
     return torch.randint(0, 1 << 16, tuple(shape), generator=generator,
                          dtype=torch.int32, device=device)
 
@@ -182,6 +194,8 @@ def _sr_cast_bf16(x, rnd):
 def _leaf_generator(rng, step: int, leaf: int, device) -> torch.Generator:
     """The stochastic-rounding generator of one leaf at one step: seeded
     from (rng, step, leaf index), so a restart repeats its bits."""
+    if torch.device(device).type == "meta":
+        return None
     seq = np.random.SeedSequence([int(rng[0]), int(rng[1]), step, leaf])
     seed = int(seq.generate_state(1, np.uint64)[0])
     return torch.Generator(device=device).manual_seed(seed)
@@ -219,9 +233,10 @@ def _global_norm(grads):
                           for g in tree_leaves(grads)))
 
 
-def _leaf_update(g, p, st, rnd_gen, scale, lr, bc1, bc2, cfg: AdamWConfig):
+def _leaf_update(g, p, st, rnd, scale, lr, bc1, bc2, cfg: AdamWConfig):
     """One leaf (or one chunk of its leading slices): updates ``p`` and the
-    stored moments ``st`` in place."""
+    stored moments ``st`` in place; ``rnd`` holds the stochastic-rounding
+    bits of a bfloat16 master."""
     g = g.to(torch.float32) * scale
     m = _moment_load(st["m"], g.shape, cfg.moment_dtype, "m")
     v = _moment_load(st["v"], g.shape, cfg.moment_dtype, "v")
@@ -231,7 +246,7 @@ def _leaf_update(g, p, st, rnd_gen, scale, lr, bc1, bc2, cfg: AdamWConfig):
     pf = p.to(torch.float32)
     pf = pf - lr * (upd + cfg.weight_decay * pf)
     if cfg.master_dtype == "bfloat16":
-        p.copy_(_sr_cast_bf16(pf, _sr_bits(pf.shape, rnd_gen, pf.device)))
+        p.copy_(_sr_cast_bf16(pf, rnd))
     else:
         p.copy_(pf)
     for kind in ("m", "v"):
@@ -241,6 +256,83 @@ def _leaf_update(g, p, st, rnd_gen, scale, lr, bc1, bc2, cfg: AdamWConfig):
             st[kind]["s"].copy_(new["s"])
         else:
             st[kind].copy_(new)
+
+
+def _pieces(shape, cfg: AdamWConfig):
+    """The [lo, hi) ranges of the leading dim that a leaf's update runs in
+    turn: one for the whole leaf, or with ``update_chunk`` a stacked-layers
+    leaf piece by piece, so the float32 dequantize/update transients stay
+    piece-sized; a piece is `chunk` slices, or the fewest multiples of it
+    that keep to _MAX_PIECES (the embedding's vocab axis).  ``None`` stands
+    for the whole of a leaf that is not cut."""
+    chunk = cfg.update_chunk
+    lead = shape[0] if shape else 0
+    if not (chunk and len(shape) >= 2 and lead > chunk and lead % chunk == 0):
+        return [None]
+    size = chunk * -(-lead // (chunk * _MAX_PIECES))
+    return [(lo, min(lo + size, lead)) for lo in range(0, lead, size)]
+
+
+def _local(x):
+    return x.to_local() if hasattr(x, "to_local") else x
+
+
+def _update_layout(p, cfg: AdamWConfig) -> list:
+    """The placements a sharded leaf's update runs in: the leaf's own, but
+    with its last dim gathered where int8 blocks would straddle shards."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, last = p.device_mesh, p.ndim - 1
+    out = list(p.placements)
+    on_last = [i for i, pl in enumerate(out)
+               if isinstance(pl, Shard) and pl.dim % p.ndim == last]
+    n = math.prod(mesh.size(i) for i in on_last)
+    if cfg.moment_dtype == "int8" and p.shape[-1] % (n * _QBLOCK):
+        for i in on_last:
+            out[i] = Replicate()
+    return out
+
+
+def _sharded_leaf(g, p, st, gen, scale, lr, bc1, bc2, cfg: AdamWConfig):
+    """``_leaf_update`` of a ``DTensor`` leaf on this rank's shard (see the
+    module docstring); the pieces and their bits are the one-device ones."""
+    from torch.distributed.tensor import DTensor
+
+    from ..distributed.sharding import local_box
+
+    mesh = p.device_mesh
+    lay = _update_layout(p, cfg)
+
+    def to_lay(t):
+        return t.redistribute(mesh, lay).to_local()
+
+    gl, pl = to_lay(g), to_lay(p)
+    stl = tree_map(to_lay, st)
+    offs, size = local_box(tuple(p.shape), mesh, lay)
+    box = tuple(slice(o, o + n) for o, n in zip(offs, size))
+    scalars = [_local(x) for x in (scale, lr, bc1, bc2)]
+    sr = cfg.master_dtype == "bfloat16"
+    for piece in _pieces(tuple(p.shape), cfg):
+        rnd = None  # a piece's bits go before the next piece's are drawn
+        if piece is None:  # the whole leaf
+            rnd = _sr_bits(p.shape, gen, pl.device)[box] if sr else None
+            _leaf_update(gl, pl, stl, rnd, *scalars, cfg)
+            continue
+        lo, hi = piece  # leading (stacked-layers) rows
+        rnd = _sr_bits((hi - lo, *p.shape[1:]), gen, pl.device) if sr \
+            else None
+        a, b = max(lo, offs[0]), min(hi, offs[0] + size[0])
+        if a >= b:
+            continue
+        r = slice(a - offs[0], b - offs[0])
+        if rnd is not None:
+            rnd = rnd[(slice(a - lo, b - lo), *box[1:])]
+        _leaf_update(gl[r], pl[r], tree_map(lambda t: t[r], stl), rnd,
+                     *scalars, cfg)
+    for stored, new in zip([p, *tree_leaves(st)], [pl, *tree_leaves(stl)]):
+        back = DTensor.from_local(new, mesh, lay, run_check=False)
+        stored.to_local().copy_(
+            back.redistribute(mesh, stored.placements).to_local())
 
 
 def _each_up_to(fn, tree, *others):
@@ -283,26 +375,30 @@ def adamw_update(grads, opt_state, cfg: AdamWConfig, rng=None):
 
     sr = cfg.master_dtype == "bfloat16"
     if sr:
-        key = [0, 0] if rng is None else rng.cpu().tolist()
-        step = int(step_t)
+        # a mesh's step and rng are replicated: each rank reads its copy
+        # (a dry-run's meta tensors hold no values and draw no bits)
+        meta = step_t.device.type == "meta"
+        key = ([0, 0] if rng is None or meta
+               else _local(rng).cpu().tolist())
+        step = 0 if meta else int(_local(step_t))
     leaf = itertools.count()
 
     def one(g, p, st):
         gen = _leaf_generator(key, step, next(leaf), p.device) if sr else None
-        chunk = cfg.update_chunk
-        lead = g.shape[0] if g.ndim else 0
-        if not (chunk and g.ndim >= 2 and lead > chunk and lead % chunk == 0):
-            _leaf_update(g, p, st, gen, scale, lr, bc1, bc2, cfg)
+        if hasattr(p, "device_mesh"):
+            _sharded_leaf(g, p, st, gen, scale, lr, bc1, bc2, cfg)
             return
-        # stacked-layers leaf: the update runs piece by piece over leading
-        # slices so the float32 dequantize/update transients stay
-        # piece-sized; a piece is `chunk` slices, or the fewest multiples
-        # of it that keep to _MAX_PIECES (the embedding's vocab axis)
-        size = chunk * -(-lead // (chunk * _MAX_PIECES))
-        for lo in range(0, lead, size):
-            hi = lo + size
+        for piece in _pieces(tuple(g.shape), cfg):
+            rnd = None  # a piece's bits go before the next piece's are drawn
+            if piece is None:
+                rnd = _sr_bits(g.shape, gen, p.device) if sr else None
+                _leaf_update(g, p, st, rnd, scale, lr, bc1, bc2, cfg)
+                continue
+            lo, hi = piece
+            rnd = _sr_bits((hi - lo, *g.shape[1:]), gen, p.device) if sr \
+                else None
             _leaf_update(g[lo:hi], p[lo:hi], tree_map(lambda a: a[lo:hi], st),
-                         gen, scale, lr, bc1, bc2, cfg)
+                         rnd, scale, lr, bc1, bc2, cfg)
 
     _each_up_to(one, grads, opt_state["master"], opt_state["moments"])
     return opt_state, {"grad_norm": gnorm, "lr": lr}

@@ -1,6 +1,6 @@
 """Train step assembly: mixed precision, microbatch accumulation, the train
-state (the port of the JAX package's ``training/train_loop.py``, on one
-device).
+state and its shardings (the port of the JAX package's
+``training/train_loop.py``), on one device or on a ``DeviceMesh``.
 
 Flow per step (bfloat16 compute / float32-or-bfloat16-SR master):
 
@@ -8,9 +8,14 @@ Flow per step (bfloat16 compute / float32-or-bfloat16-SR master):
     grads   = grad(loss)(compute, batch)   # torch.autograd.grad
     opt     = adamw_update(grads, opt)     # float32 math, quantized storage
 
-The state's tensors are updated in place (see ``adamw_update``).  The
-reference's ``train_state_shardings`` and ``batch_shardings`` place the
-state on a mesh, which the port has no counterpart for.
+The state's tensors are updated in place (see ``adamw_update``).  On a
+mesh (``model.mesh``) the state is a tree of ``DTensor``s laid out by
+``train_state_shardings`` (FSDP over the data axes, tensor parallel over
+"model", step and rng replicated) and the batch by ``batch_shardings``
+(``models.params.distribute`` places both).  The gradients are brought to
+their master leaves' layout (a reduce-scatter of the data-parallel partial
+sums) before the update, and the step's metrics come back as plain
+tensors.
 """
 
 from __future__ import annotations
@@ -19,13 +24,17 @@ import dataclasses
 
 import torch
 
-from ..models.params import pdef, torch_dtype, tree_leaves, tree_map
+from ..distributed.sharding import NamedSharding, shard
+from ..models.params import (param_shardings, pdef, torch_dtype,
+                             tree_leaves, tree_map)
 from .optimizer import AdamWConfig, adamw_init, adamw_update, moment_defs
 
 __all__ = [
     "make_train_step",
     "train_state_defs",
     "init_train_state",
+    "train_state_shardings",
+    "batch_shardings",
 ]
 
 
@@ -38,12 +47,26 @@ def _cast_compute(master):
 
 def _value_and_grad(model, compute, batch):
     """(loss, grads) of ``model.loss`` at the tree ``compute`` (zeros for a
-    leaf the loss does not read, as ``jax.grad`` gives)."""
+    leaf the loss does not read, as ``jax.grad`` gives).  On a mesh each
+    gradient comes back in its leaf's layout and the loss as a plain
+    tensor."""
     params = tree_map(lambda p: p.detach().requires_grad_(), compute)
-    loss = model.loss(params, batch)
-    grads = iter(torch.autograd.grad(loss, tree_leaves(params),
-                                     materialize_grads=True))
+    with model.replicating():
+        loss = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(params),
+                                    materialize_grads=True)
+    if model.mesh is not None:
+        with torch.no_grad():
+            grads = [g.redistribute(p.device_mesh, p.placements)
+                     for g, p in zip(grads, tree_leaves(params))]
+        loss = loss.full_tensor()
+    grads = iter(grads)
     return loss.detach(), tree_map(lambda _: next(grads), params)
+
+
+def _plain(x):
+    """A replicated ``DTensor``'s value as a plain tensor."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
 
 
 def make_train_step(model, ocfg: AdamWConfig, microbatches: int = 1):
@@ -63,13 +86,23 @@ def make_train_step(model, ocfg: AdamWConfig, microbatches: int = 1):
             loss, grads = _value_and_grad(model, compute, batch)
         else:
             acc_dt = torch_dtype(ocfg.acc_dtype)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                                   device=p.device), compute)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dt),
+                             compute)
             loss = 0.0
+            whole = batch
+            if model.mesh is not None:
+                # microbatch i is rows [i B/m, (i+1) B/m) of the whole
+                # batch, as on one device: gather the (integer) batch, cut
+                # it, and split each microbatch over the data axes again
+                whole = {k: shard(x, model.mesh, *(None,) * x.ndim)
+                         for k, x in batch.items()}
             for i in range(microbatches):
                 mb = {k: x.reshape(microbatches, x.shape[0] // microbatches,
                                    *x.shape[1:])[i] if x.ndim >= 1 else x
-                      for k, x in batch.items()}
+                      for k, x in whole.items()}
+                if model.mesh is not None:
+                    mb = {k: shard(x, model.mesh, "batch") if x.ndim
+                          else x for k, x in mb.items()}
                 loss_i, g_i = _value_and_grad(model, compute, mb)
                 with torch.no_grad():
                     for a, g in zip(tree_leaves(grads), tree_leaves(g_i)):
@@ -85,7 +118,7 @@ def make_train_step(model, ocfg: AdamWConfig, microbatches: int = 1):
         state["opt"] = opt
         # a copy: the state's counter moves on with the next step
         metrics = dict(metrics, loss=loss, step=opt["step"].clone())
-        return state, metrics
+        return state, {k: _plain(v) for k, v in metrics.items()}
 
     return step_fn
 
@@ -113,6 +146,19 @@ def train_state_defs(model_defs, ocfg: AdamWConfig):
         },
         "rng": pdef((2,), (None,), init="zeros", dtype="uint32"),
     }
+
+
+def train_state_shardings(model_defs, ocfg: AdamWConfig, mesh):
+    """``NamedSharding``s of the train state's leaves on ``mesh``."""
+    return param_shardings(train_state_defs(model_defs, ocfg), mesh)
+
+
+def batch_shardings(mesh, batch_tree):
+    """A batch's leaves split over the data axes by their leading dim
+    (scalars replicated)."""
+    dp = ("pod", "data") if "pod" in mesh.mesh_dim_names else "data"
+    return {k: NamedSharding(mesh, (dp,) if x.ndim >= 1 else ())
+            for k, x in batch_tree.items()}
 
 
 def init_train_state(model_defs, params, ocfg: AdamWConfig, seed: int = 0):

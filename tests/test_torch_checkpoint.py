@@ -317,7 +317,9 @@ def test_train_launcher_takes_optimizer_fields_and_records_steps(tmp_path):
 def test_train_launcher_refuses_a_mesh_and_a_missing_card():
     from repro_torch.launch.train import parse_args, train
 
-    with pytest.raises(ValueError, match="A8c"):
+    # without torchrun the launcher starts a group of one process: a mesh
+    # of 8 devices is refused
+    with pytest.raises(ValueError, match="has 8 devices"):
         train(parse_args(["--reduced", "--mesh", "4,2", "--device", "cpu"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -101,7 +101,7 @@ def test_remat_changes_no_number(arch, monkeypatch):
     with monkeypatch.context() as m:  # no checkpoint: every activation kept
         m.setattr(transformer, "_remat", lambda fn: fn)
         runs = [_loss_and_grads(build_model(cfg), params, pb)]
-    runs += [_loss_and_grads(build_model(cfg, RunFlags(layer_groups=g)),
+    runs += [_loss_and_grads(build_model(cfg, flags=RunFlags(layer_groups=g)),
                              params, pb) for g in (1, 2)]
     for loss, grads in runs[1:]:
         assert torch.equal(loss, runs[0][0])
