@@ -213,13 +213,28 @@ non-zero:
                _moe_block_ep bit-equal to _moe_block_global; olmo-1b at
                full width through launch/train.py as shipped, 6 steps
                without a mesh and with --mesh 1,1 (ms a step: DTensor's
-               dispatch).  No retrieval kernel is launched
+               dispatch); the index's mesh steps on the same one-rank
+               mesh at the slice's widest group's shapes (n = 400,000,
+               d = 400, beta_pad = 512, Q = 64, L = 16; seeded rows on the
+               card): make_build_step's codes and vectors bit-equal to the
+               device encode (ops.hash_encode, as build_shards calls it),
+               make_query_step's answers bit-equal to the device-list
+               engine's query_step, the kernels launched exactly as the
+               steps need, the StepCounter's count of the real CUDA steps
+               equal to a meta trace's in a child process, each step's
+               measured ms over its roofline step; and the dry-run's four
+               wlsh_index cells (build and query on both production
+               meshes, a child process): ok, state bytes a device, GB,
+               terms and bottleneck
  18. times   — each kernel on the main path's inputs for the widest
                group: held to its plain version there (the rules of
                phase 3), its time, its plain version's time, the time of
                one PyTorch call that computes the same function where
-               there is one, and the bound from bytes and operations;
-               the fused passes also on the group's rows in bfloat16
+               there is one, and the bound from bytes and operations
+               (kernels/cost.py at launch/roofline.py's HW rates);
+               the fused passes also on the group's rows in bfloat16;
+               the host time of a call through a kernel's custom op
+               against its launch function
 
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -255,18 +270,6 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 PHASES = ("device", "build", "sentinel", "kernels", "slice", "encode",
           "unfused", "paged", "async", "obs", "bf16", "stream", "shard",
           "search", "lm", "train", "mesh", "times")
-
-# H100 SXM peaks (NVIDIA data sheet and Hopper white paper): HBM3 rate,
-# float32 outside the tensor cores (F32_FLOPS counts an FMA as two flops;
-# F32_OPS is one instruction a lane a clock, 128 lanes per SM x 132 SMs x
-# 1.98 GHz boost clock), int32 at 64 lanes per SM, and the
-# special-function units (sqrt, log2, exp2) at 16 results per SM per
-# clock.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-F32_OPS = 132 * 128 * 1.98e9
-INT32_OPS = 132 * 64 * 1.98e9
-SFU_OPS = 132 * 16 * 1.98e9
 
 # the slice configuration (paper Sec. 5.1 defaults, |S| cut to 24) and the
 # kernel-check row count
@@ -416,7 +419,7 @@ def _kernel_inputs(p: float, n_rows: int, seed: int, torch, dev,
     far = rng.uniform(0, 10_000, (q - q // 2, d))
     queries = np.concatenate([near, far]).astype(np.float32)
     wq = weights[rng.integers(0, len(weights), q)].astype(np.float32)
-    beta_q = rng.integers(440, 461, q).astype(np.int32)
+    beta_q = rng.integers(int(0.86 * beta), int(0.9 * beta) + 1, q).astype(np.int32)
     mu = np.array([rng.integers(b // 5, 3 * b // 5) for b in beta_q],
                   np.int32)
     rmin_q = wq.min(axis=1).astype(np.float32)
@@ -667,7 +670,7 @@ def _check_hash_encode(torch, dev) -> float:
     from repro_torch.core.datagen import make_dataset, make_weight_set
     from repro_torch.core.distances import radius_bounds
     from repro_torch.core.families import sample_lp_family
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.hash_encode import hash_encode
 
     err = 0.0
@@ -724,7 +727,7 @@ def _check_freq_level(torch, dev) -> float:
     """The kernel vs its plain version, exactly, for c in {2, 3}: at L = 16
     and Q = 64 on one input's codes read at both c, and at L = 24 (the
     wide c = 3 word test) with Q = 61 on real and on edge codes."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.freq_level import freq_level
 
     base = _kernel_inputs(1.0, CHECK_ROWS, seed=110, torch=torch, dev=dev)
@@ -3759,6 +3762,12 @@ def phase_train(torch, dev, smi):
 MESH = dict(dryrun=(("olmo-1b", "train_4k"), ("olmoe-1b-7b", "train_4k")),
             child_timeout_s=400, family_batch=2, family_seq=32,
             launch_steps=6)
+# the mesh leg's index steps: the slice's widest group's shapes (its
+# IndexConfig but float32 rows and n_shards 1: one rank), and the timed
+# runs of each step
+MESH_INDEX = dict(n=SLICE["n"], d=SLICE["d"], beta=512, q_batch=64,
+                  k=SLICE["k"], c=SLICE["c"], n_levels=16, p=SLICE["p"])
+MESH_INDEX_REPS = 5
 MESH_OPT = dict(master_dtype="bfloat16", moment_dtype="int8", update_chunk=1)
 
 # the analysis child: the train leg's configuration traced on a one-rank
@@ -3777,8 +3786,22 @@ print(json.dumps(r))
 """
 
 
+# the index child: the mesh leg's index steps traced on a one-rank (1, 1)
+# mesh of meta tensors; their counts as JSON on the last line
+_INDEX_TRACE = """
+import json, sys
+from repro_torch.index.config import IndexConfig
+from repro_torch.launch import dryrun
+icfg = IndexConfig(**json.loads(sys.argv[1]))
+mesh = dryrun._mesh("one", "cuda")
+print(json.dumps({k: dryrun.trace_index(icfg, k, mesh)
+                  for k in ("build", "query")}))
+"""
+
+
 def _mesh_children():
-    """Start the dry-run cells and the train leg's analysis, each in a
+    """Start the dry-run cells (the LM cells, the four wlsh_index cells),
+    the train leg's analysis and the index steps' meta trace, each in a
     process of its own (a fake process group cannot share one with the
     card's)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -3795,6 +3818,15 @@ def _mesh_children():
     procs["leg"] = subprocess.Popen(
         [sys.executable, "-c", _LEG_TRACE, leg], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    procs["index cells"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "wlsh-index", "--mesh", "both", "--out", out, "--force"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+    procs["index trace"] = subprocess.Popen(
+        [sys.executable, "-c", _INDEX_TRACE, json.dumps(MESH_INDEX)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
     return procs, out
 
 
@@ -3853,6 +3885,186 @@ def _mesh_dryrun(procs, out_dir, smi) -> None:
             f"collective {r['collective_s']:.4g} s -> {r['bottleneck']}; "
             f"traced in {r['compile_s']} s, waited {time.time() - t0:.1f}s; "
             f"{line.strip().splitlines()[-1][:60]!r} [{smi}]")
+
+
+def _mesh_index_cells(proc, out_dir, smi) -> None:
+    """The dry-run's wlsh_index cells: build (train_4k) and query
+    (prefill_32k) ok on both production meshes, the decode shapes
+    skipped; state bytes a device the local shard's, and their numbers."""
+    from repro_torch.index.config import IndexConfig
+
+    t0 = time.time()
+    _mesh_wait(proc, "index cells")
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        for mesh in ("single", "multi"):
+            with open(os.path.join(out_dir, f"wlsh_index__{shape}__{mesh}"
+                                   ".json")) as f:
+                r = json.load(f)
+            if shape.startswith(("decode", "long")):
+                _need(r["status"] == "skipped", f"mesh index {shape} {mesh}:"
+                      f" {r['status']}, expected skipped")
+                continue
+            _need(r["status"] == "ok", f"mesh index {shape} {mesh}: "
+                  f"{r.get('error')}\n{r.get('traceback', '')[-2000:]}")
+            icfg = IndexConfig(**r["index_cfg"])
+            mem, c = r["memory"], r["coll_detail"]
+            if shape == "prefill_32k":  # n_valid is a launch argument
+                _need(mem["state_bytes"] + 4 == icfg.state_nbytes,
+                      f"mesh index {mesh}: state {mem['state_bytes']} B, "
+                      f"state_nbytes {icfg.state_nbytes}")
+            ks = ", ".join(f"{k} {v['launches']} launch {1e3 * v['ops_s']:.3f}"
+                           f" ms" for k, v in r["kernels"].items())
+            say(f"mesh index cell {shape} {mesh} = {r['chips']} cards (meta, "
+                f"{r['analysis_method']}): {r['hbm_gb']} GB a device "
+                f"(arguments {mem['argument_bytes']} B, "
+                + (f"state {mem['state_bytes']}" if "state_bytes" in mem
+                   else f"rows {mem['points_bytes']}")
+                + f" B, temp {mem['temp_bytes']} B), "
+                f"{r['hlo_flops_per_chip']:.4g} "
+                f"FLOPs a device (useful {r['useful_fraction']:.3f}; kernels "
+                f"{ks}), {r['hlo_bytes_per_chip']:.4g} bytes, collectives "
+                f"{c['total']} B {c['counts']}; terms compute "
+                f"{r['compute_s']:.4g} s, memory {r['memory_s']:.4g} s, "
+                f"collective {r['collective_s']:.4g} s -> {r['bottleneck']} "
+                f"[{smi}]")
+    say(f"mesh index cells: 4 ok, 4 skipped; waited {time.time() - t0:.1f}s")
+
+
+def _mesh_index_state(torch, dev):
+    """Seeded rows, a p = 2 family and 64 queries near rows at the mesh
+    leg's index shapes, on the card."""
+    from repro_torch.core.distances import radius_bounds
+    from repro_torch.core.families import sample_lp_family
+
+    mi = MESH_INDEX
+    n, d, beta, q = mi["n"], mi["d"], mi["beta"], mi["q_batch"]
+    rng = np.random.default_rng(11)
+    w = rng.uniform(1.0, 10.0, d)  # the group's center weight
+    r_min, r_max = radius_bounds(w, 10_000.0, mi["p"])
+    fam = sample_lp_family(d, beta, mi["p"], r_min, w, r_max / r_min,
+                           mi["c"], seed=12)
+
+    def put(x, dt):
+        return torch.from_numpy(np.ascontiguousarray(x, dt)).to(dev)
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    points = torch.randint(0, 10_001, (n, d), generator=g, device=dev,
+                           dtype=torch.int32).float()
+    take = torch.randperm(n, generator=g, device=dev)[:q]
+    queries = points[take] + 3.0 * torch.randn((q, d), generator=g,
+                                               device=dev)
+    wq = w[None, :] * rng.uniform(0.8, 1.2, (q, d))
+    beta_q = rng.integers(int(0.86 * beta), int(0.9 * beta) + 1, q)
+    return dict(
+        proj=put(fam.proj.astype(np.float64) * fam.center_weight[:, None]
+                 / fam.width, np.float32),
+        b_int=put(fam.b_int, np.int32), b_frac=put(fam.b_frac, np.float32),
+        points=points, queries=queries, q_weight=put(wq, np.float32),
+        mu=put([rng.integers(b // 5, 3 * b // 5) for b in beta_q], np.int32),
+        beta_q=put(beta_q, np.int32), r_min=put(wq.min(axis=1), np.float32),
+        levels_q=put(np.full(q, mi["n_levels"]), np.int32))
+
+
+def _mesh_index(torch, dev, mesh, proc, smi):
+    """The index's mesh steps on the one-rank mesh (see the module
+    docstring).  Returns the launches of the steps' own run and every
+    launch the leg makes."""
+    from repro_torch.index.builder import make_build_step
+    from repro_torch.index.config import IndexConfig
+    from repro_torch.index.engine import (QueryState, encode_queries,
+                                          make_query_step, query_step)
+    from repro_torch.kernels import _cuda, ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import analyze
+
+    t0 = time.time()
+    icfg = IndexConfig(**MESH_INDEX)
+    x = _mesh_index_state(torch, dev)
+    before = _cuda.launch_counts()
+    # the main path: build the state, encode the queries, answer them
+    build = make_build_step(mesh, icfg)
+    codes, vecs = build(x["points"], x["proj"], x["b_int"], x["b_frac"])
+    fam = {k: x[k] for k in ("proj", "b_int", "b_frac")}
+    state = QueryState(codes=codes, points=vecs, width=torch.ones(
+        (), device=dev), n_valid=icfg.n, **fam)
+    local = QueryState(codes=codes.to_local(), points=vecs.to_local(),
+                       width=state.width, n_valid=icfg.n, **fam)
+    q_codes = encode_queries(local, x["queries"])
+    args = [x["queries"], q_codes, x["q_weight"], x["mu"], x["r_min"],
+            x["beta_q"], x["levels_q"]]
+    step = make_query_step(mesh, icfg)
+    got = [o.to_local() for o in step(state, *args)]
+    _sync(torch, dev)
+    now = _cuda.launch_counts()
+    main = {k: now[k] - before[k] for k in now}
+    _need_launches(main, {"fused_query_hist": 1, "fused_query_scores": 1,
+                          "hash_encode": 2, "freq_level": 0,
+                          "weighted_lp": 0}, "mesh index steps")
+
+    # held to the device-list engine and the device encode
+    ones = torch.ones(icfg.d, dtype=torch.float32, device=dev)
+    want_codes = ops.hash_encode(x["points"], ones, *fam.values(), 1.0)
+    _need(torch.equal(codes.to_local(), want_codes)
+          and torch.equal(vecs.to_local(), x["points"]),
+          "mesh index: make_build_step differs from the device encode")
+    want = query_step(local, *args, cfg=icfg)
+    same = [torch.equal(a.view(torch.int32), b.view(torch.int32))
+            for a, b in zip(got, want)]
+    _need(all(same), f"mesh index: make_query_step differs from query_step "
+          f"(dists, ids, stop, n_checked equal: {same})")
+
+    # the counter on the real CUDA steps against the meta trace
+    inputs = dict(query=dict(state=local, **dict(zip(
+        ("queries", "q_codes", "q_weight", "mu", "r_min", "beta_q",
+         "levels_q"), args))), build={k: x[k] for k in (
+            "points", "proj", "b_int", "b_frac")})
+    card = {k: dryrun.trace_index(icfg, k, mesh, v, device=dev)
+            for k, v in inputs.items()}
+    meta = json.loads(_mesh_wait(proc, "index trace").strip()
+                      .splitlines()[-1])
+    for kind in ("build", "query"):
+        a, b = card[kind], meta[kind]
+        diff = [k for k in ("flops", "bytes", "coll", "kernels", "memory",
+                            "kernel_flops", "kernel_s") if a[k] != b[k]]
+        _need(not diff, f"mesh index {kind}: the counter on the card and "
+              f"the meta trace differ in {diff}: {[a[k] for k in diff]} vs "
+              f"{[b[k] for k in diff]}")
+
+    # each step's measured time over its roofline step
+    reps = MESH_INDEX_REPS
+    ms = dict(
+        build=_time_ms(lambda: build(x["points"], x["proj"], x["b_int"],
+                                     x["b_frac"]), torch, reps),
+        query=_time_ms(lambda: step(state, *args), torch, reps))
+    ms_list = _time_ms(lambda: query_step(local, *args, cfg=icfg), torch,
+                       reps)
+    n, q, d = icfg.n, icfg.q_batch, icfg.d
+    useful = dict(build=2.0 * n * d * icfg.beta, query=4.0 * q * n * d)
+    for kind in ("build", "query"):
+        rr = analyze("wlsh_index", kind, "one", 1, card[kind], useful[kind])
+        roof = 1e3 * rr.step_time_s
+        ks = card[kind]["kernels"]
+        say(f"mesh index {kind} step (n={n} d={d} beta_pad={icfg.beta} "
+            f"Q={q} L={icfg.n_levels}, one-rank NCCL mesh): measured "
+            f"{ms[kind]:.3f} ms a step (mean of {reps}) over the roofline "
+            f"{roof:.3f} ms (compute {1e3 * rr.compute_s:.3f}, memory "
+            f"{1e3 * rr.memory_s:.3f} -> {rr.bottleneck}) = "
+            f"{ms[kind] / roof:.2f}x; the counter's FLOPs "
+            f"{rr.hlo_flops_per_chip:.6g}, bytes {rr.hlo_bytes_per_chip:.6g},"
+            f" kernels {sorted(ks)} (= the meta trace's); predicted peak "
+            f"{card[kind]['memory']['total_bytes']} B"
+            + (f"; the device-list engine {ms_list:.3f} ms" if kind ==
+               "query" else "") + f" [{smi}]")
+    stop, n_checked = got[2].float(), got[3].float()
+    say(f"mesh index: build and query steps bit-equal to the device encode "
+        f"and to query_step; mean stop {stop.mean():.2f}, mean n_checked "
+        f"{n_checked.mean():.1f}; {time.time() - t0:.1f}s [{smi}]")
+    # every launch of the leg: the steps' run, the holds, the counter's
+    # runs and the timed runs
+    total = dict(main, hash_encode=main["hash_encode"] + 2 + reps,
+                 fused_query_hist=main["fused_query_hist"] + 2 + 2 * reps,
+                 fused_query_scores=main["fused_query_scores"] + 2 + 2 * reps)
+    return main, total
 
 
 def _mesh_analysis(torch, dev, proc, train, smi) -> None:
@@ -4037,8 +4249,8 @@ def _mesh_launcher(torch, dev, smi) -> None:
 
 
 def phase_mesh(torch, dev, smi, train=None):
-    """The LM substrate on a device mesh (see the module docstring); it
-    launches none of the retrieval kernels."""
+    """The LM substrate and the index on a device mesh (see the module
+    docstring); only the index steps launch retrieval kernels."""
     import torch.distributed as dist
 
     from repro_torch.kernels import _cuda
@@ -4052,25 +4264,34 @@ def phase_mesh(torch, dev, smi, train=None):
         try:
             _mesh_families(torch, dev, mesh, smi)
             _mesh_launcher(torch, dev, smi)
+            _need_launches(_cuda.launch_counts(), dict.fromkeys(KERNELS, 0),
+                           "mesh LM legs")
+            main, total = _mesh_index(torch, dev, mesh,
+                                      procs.pop("index trace"), smi)
         finally:
             dist.destroy_process_group()
+        _release(torch)
         _mesh_analysis(torch, dev, procs.pop("leg"), train, smi)
+        _mesh_index_cells(procs.pop("index cells"), out_dir, smi)
         _mesh_dryrun(procs, out_dir, smi)
     finally:
         for proc in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
-    _need_launches(_cuda.launch_counts(), dict.fromkeys(KERNELS, 0), "mesh")
+    _need_launches(_cuda.launch_counts(), total, "mesh")
     say(f"mesh phase: {time.time() - t0:.1f}s [{smi}]")
-    return {}
+    return {"launches": main}
 
 
-def _bound(bytes_, ops_ms: float):
-    """(bound ms, what bounds it) from bytes and the operations' time."""
-    bytes_ms = 1e3 * bytes_ / HBM_BYTES_PER_S
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
+def _bound(c):
+    """(bound ms, what bounds it) of a ``kernels.cost.Cost`` at the H100's
+    peak rates (``launch.roofline.HW``: HBM3, and float32, int32 and the
+    special-function units on the CUDA cores)."""
+    from repro_torch.launch.roofline import HW
+
+    s, by = c.bound(HW())
+    return 1e3 * s, by
 
 
 def _row(name, launches, err, ms, plain_ms, bound, library_ms=None):
@@ -4087,7 +4308,7 @@ def _fused_passes(torch, dev, inputs, points, label, **hold_kw):
     (kernel: mean of 5 launches after a warm one; plain: one call), and
     the bound of each from the bytes it must move (each input read once,
     each output written once) and its level tests and p = 2 flops."""
-    from repro_torch.kernels import fused_query, ref
+    from repro_torch.kernels import cost, fused_query, ref
 
     gi, cfg, st, inp = inputs
     n, beta = st.codes.shape
@@ -4111,16 +4332,15 @@ def _fused_passes(torch, dev, inputs, points, label, **hold_kw):
     out_p = [*out_p[0], out_p[1]]
     err = _hold(torch, inp, cfg.p, out_k, out_p, label, **hold_kw)
     tests = int(inp["beta_q"].clamp_max(beta).sum()) * n  # level tests
-    flops = 4 * q * n * d  # p=2: cross and onorm multiply-adds
-    in_bytes = (4 * (n * beta + q * beta + 2 * q * d + 4 * q)
-                + points.element_size() * n * d)
-    out_bytes = {"fused_query_hist": 2 * 4 * q * (cfg.n_levels + 3),
-                 "fused_query_scores": 4 * q * n}
-    ops_ms = 1e3 * max(tests / INT32_OPS, flops / F32_FLOPS)
-    nbytes = {k: in_bytes + v for k, v in out_bytes.items()}
-    return dict(t_k=t_k, t_p=t_p, err=err, tests=tests, flops=flops,
-                bytes=nbytes, bound={k: _bound(b, ops_ms)
-                                     for k, b in nbytes.items()},
+    kw = dict(vec_bytes=points.element_size(), p=cfg.p, tests=tests)
+    costs = {"fused_query_hist": cost.fused_query_hist(n, beta, q, d,
+                                                       cfg.n_levels, **kw),
+             "fused_query_scores": cost.fused_query_scores(n, beta, q, d,
+                                                           **kw)}
+    return dict(t_k=t_k, t_p=t_p, err=err, tests=tests,
+                flops=int(costs["fused_query_hist"].flops),
+                bytes={k: c.bytes for k, c in costs.items()},
+                bound={k: _bound(c) for k, c in costs.items()},
                 shape=f"n={n} beta_pad={beta} Q={q} d={d} L={cfg.n_levels}")
 
 
@@ -4141,7 +4361,7 @@ def _times_fused(torch, dev, sl, errs, smi, inputs, other):
             f"{bound[0]:.3f} ms by {bound[1]} ({f['tests']} level tests, "
             f"{f['flops']} flops, {f['bytes'][name]} bytes) [{smi}]")
         # launches: the slice leg's main path and the stream, obs, bf16,
-        # shard, lm and sentinel legs'
+        # shard, lm, mesh and sentinel legs'
         table.append(_row(name, sl["launches"][name] + other[name],
                           errs[name], f["t_k"][name], f["t_p"][name], bound))
     # the group's rows rounded to bfloat16 (what a bfloat16 state stores)
@@ -4160,7 +4380,7 @@ def _times_fused(torch, dev, sl, errs, smi, inputs, other):
 def _times_hash_encode(torch, dev, errs, smi, inputs, launches):
     """The widest group's build: its 400,000 x 400 vectors through its
     folded projection."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.hash_encode import hash_encode
 
     gi, _, st, _ = inputs
@@ -4182,9 +4402,8 @@ def _times_hash_encode(torch, dev, errs, smi, inputs, launches):
     _need(miss == 0, "hash_encode: main-path codes outside the window")
     _need(differ == 0, "hash_encode: main-path codes differ from the plain "
           "version")
-    flops = 2 * n * d * beta
-    bytes_ = 4 * (n * d + d + d * beta + 2 * beta + n * beta)
-    bound = _bound(bytes_, 1e3 * flops / F32_FLOPS)
+    c = cost.hash_encode(n, d, beta)
+    flops, bytes_, bound = int(c.flops), c.bytes, _bound(c)
     say(f"times hash_encode (group {gi}'s build: n={n} d={d} beta_pad={beta}"
         f"): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul "
         f"(the product alone, TF32 off) {lib_ms:.3f} ms, bound "
@@ -4197,7 +4416,7 @@ def _times_hash_encode(torch, dev, errs, smi, inputs, launches):
 
 def _times_freq_level(torch, dev, errs, smi, inputs, launches):
     """One 64-query batch at the widest group."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels.freq_level import freq_level
 
     gi, cfg, st, inp = inputs
@@ -4214,8 +4433,8 @@ def _times_freq_level(torch, dev, errs, smi, inputs, launches):
     _need(torch.equal(got, plain[0]), "freq_level differs on the main "
           "path's inputs")
     tests = int(inp["beta_q"].clamp_max(beta).sum()) * n
-    bytes_ = 4 * (n * beta + q * beta + 2 * q + q * n)
-    bound = _bound(bytes_, 1e3 * tests / INT32_OPS)
+    c = cost.freq_level(n, beta, q, tests=tests)
+    bytes_, bound = c.bytes, _bound(c)
     say(f"times freq_level (group {gi}: n={n} beta_pad={beta} Q={q} "
         f"L={cfg.n_levels}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"bound {bound[0]:.3f} ms by {bound[1]} ({tests} level tests, "
@@ -4229,7 +4448,7 @@ def _times_freq_level(torch, dev, errs, smi, inputs, launches):
 def _times_weighted_lp(torch, dev, errs, smi, inputs, launches):
     """Q = 64 against the widest group's vectors under the first query's
     weight, p = 1 (the JSON row), 0.5 and 1.5."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import cost, ref
     from repro_torch.kernels import weighted_lp as wlp
 
     gi, _, st, inp = inputs
@@ -4254,11 +4473,8 @@ def _times_weighted_lp(torch, dev, errs, smi, inputs, launches):
         # a term is a subtract, a multiply and an add of |t|, three FP32
         # instructions that do not fuse without changing the rounding; p =
         # 0.5 adds a sqrt on the special-function units, other p a powf's
-        # log2 and exp2
-        sfu = {1.0: 0, 0.5: 1}.get(p, 2)
-        ops_ms = 1e3 * q * n * d * max(3 / F32_OPS, sfu / SFU_OPS)
-        bytes_ = 4 * (n * d + q * d + d + q * n)
-        bound = _bound(bytes_, ops_ms)
+        # log2 and exp2 (kernels/cost.py)
+        bound = _bound(cost.weighted_lp(q, n, d, p))
         occ = wlp.occupancy(p)
         say(f"times weighted_lp p={p} (group {gi}'s vectors: n={n} d={d} "
             f"Q={q}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -4272,22 +4488,54 @@ def _times_weighted_lp(torch, dev, errs, smi, inputs, launches):
     return _row("weighted_lp", launches, err, ms, plain_ms, bound, lib_ms)
 
 
+def _times_dispatch(torch, dev, smi, inputs, calls: int = 200) -> None:
+    """Host microseconds a call of pass 1 through its custom op
+    (``torch.ops.repro_torch.fused_query_hist``, the dispatcher picking
+    the CUDA version) and straight through the launch function the op
+    registers, on the widest group's first 128 rows (the kernels queue
+    faster than they run only for so small a launch)."""
+    from repro_torch.kernels import fused_query
+
+    gi, cfg, st, inp = inputs
+    args = _pass_args(dict(inp, codes_p=st.codes[:128].contiguous(),
+                           points=st.points[:128].contiguous()), "hist")
+    kw = dict(boff=0, n_valid=128, c=cfg.c, n_levels=cfg.n_levels, p=cfg.p)
+    us = {}
+    for name, fn in (("op", fused_query.fused_query_hist),
+                     ("direct", fused_query._hist_cuda)):
+        fn(*args, **kw)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args, **kw)
+        us[name] = 1e6 * (time.perf_counter() - t0) / calls
+        _sync(torch, dev)
+    say(f"times dispatch: fused_query_hist on 128 rows (Q={args[3].shape[0]}"
+        f"): {us['op']:.1f} us of host a call through the custom op, "
+        f"{us['direct']:.1f} us straight through its launch function: "
+        f"{us['op'] - us['direct']:+.1f} us a launch for the dispatcher "
+        f"({calls} calls each) [{smi}]")
+
+
 def phase_times(torch, dev, sl, legs, errs, smi):
     inputs = _slice_pass_inputs(sl, torch, dev)
     stream, shard = legs["stream"]["launches"], legs["shard"]["launches"]
+    mesh = legs["mesh"]["launches"]
     other = {k: stream[k] + legs["obs"]["launches"][k]
              + legs["bf16"]["launches"][k] + shard.get(k, 0)
-             + legs["lm"]["launches"][k]
+             + legs["lm"]["launches"][k] + mesh[k]
              + legs["sentinel"]["launches"][k] for k in stream}
     errs = _max_err(errs, legs["bf16"]["err"])
     errs = _max_err(errs, legs["shard"]["err"])
     table = _times_fused(torch, dev, sl, errs, smi, inputs, other)
     table.append(_times_hash_encode(
         torch, dev, errs, smi, inputs, legs["encode"]["launches"]
-        + stream["hash_encode"] + shard.get("hash_encode", 0)))
+        + stream["hash_encode"] + shard.get("hash_encode", 0)
+        + mesh["hash_encode"]))
     table.append(_times_freq_level(
         torch, dev, errs, smi, inputs, legs["unfused"]["launches"]
         + stream["freq_level"] + shard.get("freq_level", 0)))
+    _times_dispatch(torch, dev, smi, inputs)
     # on no serving path, as in the JAX package: each leg counted 0
     table.append(_times_weighted_lp(
         torch, dev, errs, smi, inputs, sl["launches"]["weighted_lp"]

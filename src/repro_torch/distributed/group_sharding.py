@@ -31,6 +31,19 @@ devices, the merges inside ``shard_map``):
               selection over them on the first device, ties to the lower
               gather position).
 
+On a ``DeviceMesh`` (one process a device, ``torchrun``) the same state
+is a ``QueryState`` of ``DTensor``s: ``state_shardings`` lays the rows
+over every mesh axis (strict: a capacity that does not divide the mesh
+raises) and replicates the family; rank r holds rows ``[r * n_loc, (r +
+1) * n_loc)`` (``shard_row_offset``: mesh-axis order, major to minor).
+The engine's ``make_query_step`` runs the per-shard body of the
+device-list engine on each rank and merges with collectives over all of
+the mesh's ranks: ``merge_histograms_mesh`` (one all-reduce of both
+histograms) and ``merge_shard_topk_mesh`` (one all-gather of the (Q, k)
+survivors, 8 bytes each, then the same selection in rank order).  The
+serving stack keeps the device list; the mesh steps are the counterparts
+of the JAX functions its dry-run lowers.
+
 Cross-device ordering: ``Tensor.to`` between two CUDA devices orders the
 copy after the current streams of both devices (PyTorch's peer copy
 records and waits on events on both), so a histogram reaches the first
@@ -42,6 +55,7 @@ card, shards that share it share its current stream.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Sequence
 
 import numpy as np
@@ -49,20 +63,26 @@ import torch
 
 from ..kernels import ops
 from ..kernels.platform import resolve_device
+from .sharding import named_sharding
 
 __all__ = [
     "HostShardedState",
     "ShardedQueryState",
     "build_group_state_per_host",
     "build_shards",
+    "distribute_state",
     "host_row_ranges",
     "merge_histograms",
+    "merge_histograms_mesh",
     "merge_shard_topk",
+    "merge_shard_topk_mesh",
     "offload_state_sharded",
     "restore_state_sharded",
     "serving_devices",
     "shard_devices_of",
+    "shard_row_offset",
     "sharded_state",
+    "state_shardings",
 ]
 
 
@@ -138,13 +158,112 @@ def merge_shard_topk(vals, idx, k: int, device: torch.device):
     shard, then the lower position inside it, as ``lax.top_k`` over the
     gathered pool breaks them; nothing is computed on the distances.
     """
-    from ..index.engine import _topk_rows  # deferred: engine imports this
-
     gv = torch.cat([v.to(device) for v in vals], dim=1)  # (Q, S*k)
     gi = torch.cat([i.to(device) for i in idx], dim=1)
+    return _select(gv, gi, k)
+
+
+def _select(gv, gi, k: int):
+    """The k smallest of a (Q, S*k) pool of survivors, ties to the lower
+    position, with their ids (-1 where missing)."""
+    from ..index.engine import _topk_rows  # deferred: engine imports this
+
     top, pos = _topk_rows(gv, k)
     ids = torch.gather(gi, 1, pos.clamp_min(0).long())
     return top, torch.where(pos < 0, -1, ids).to(gi.dtype)
+
+
+# ------------------------------------------------------------ on a mesh
+#
+# The same state on a ``DeviceMesh``, one process a device (the JAX
+# package's ``shard_map``): rows over every mesh axis, major to minor, so
+# rank r of the mesh's flattened order holds rows [r * n_loc, (r + 1) *
+# n_loc).  The merges are collectives over all of the mesh's ranks.
+
+
+def state_shardings(mesh, cfg):
+    """Strict per-field placements (``NamedSharding``s) of one group's
+    ``QueryState`` on ``mesh``: codes and points over every mesh axis
+    (the "rows" rule), the folded family and the scalars replicated.  A
+    capacity that does not divide the mesh raises instead of replicating
+    the state onto every device."""
+    from ..index.engine import QueryState  # deferred: engine imports us
+
+    rows = functools.partial(named_sharding, mesh, ("rows", None),
+                             strict=True)
+    return QueryState(
+        codes=rows(shape=(cfg.n, cfg.beta)),
+        points=rows(shape=(cfg.n, cfg.d)),
+        proj=named_sharding(mesh, (None, None)),
+        b_int=named_sharding(mesh, (None,)),
+        b_frac=named_sharding(mesh, (None,)),
+        width=named_sharding(mesh, ()),
+        n_valid=named_sharding(mesh, ()),
+    )
+
+
+def distribute_state(state, shardings):
+    """A ``QueryState`` of whole tensors (the same on every rank) as
+    ``DTensor``s laid out by ``shardings`` (``state_shardings``): each
+    rank keeps its own rows; ``n_valid`` stays the global count."""
+    from ..models.params import distribute
+
+    return dataclasses.replace(state, **{
+        f: distribute(getattr(state, f), getattr(shardings, f))
+        for f in ("codes", "points", "proj", "b_int", "b_frac", "width")})
+
+
+def _rows_mesh(mesh):
+    """The mesh's ranks as one dimension, in row order (major to minor)."""
+    return mesh._flatten() if mesh.ndim > 1 else mesh
+
+
+def shard_row_offset(mesh, n_loc: int) -> int:
+    """Global row id of this rank's first local row: its linearized mesh
+    coordinate (mesh-axis order, major to minor) times its slice length,
+    so a gather position orders like ascending global row."""
+    off = 0
+    for i, c in enumerate(mesh.get_coordinate()):
+        off = off * mesh.size(i) + c
+    return off * n_loc
+
+
+def merge_histograms_mesh(hist_f, hist_g, mesh):
+    """Sum every rank's int32 (Q, L+2) level histograms: one all-reduce
+    of both over all of the mesh's ranks (integers: exact in any
+    order)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    flat = _rows_mesh(mesh)
+    if flat.size() == 1:
+        return hist_f, hist_g
+    both = funcol.wait_tensor(funcol.all_reduce(
+        torch.stack([hist_f, hist_g]), "sum", flat.get_group()))
+    return both[0], both[1]
+
+
+def merge_shard_topk_mesh(vals, idx, k: int, mesh):
+    """The k smallest of every rank's (Q, k) survivors, on every rank.
+
+    One all-gather of each rank's distance bits and global ids (8 bytes
+    a survivor), laid out in rank order as ``merge_shard_topk``
+    concatenates the shards, then the same selection."""
+    from torch.distributed import _functional_collectives as funcol
+
+    flat = _rows_mesh(mesh)
+    s = flat.size()
+    if s == 1:
+        return _select(vals, idx, k)
+    q = vals.shape[0]
+    pair = torch.stack([vals.view(torch.int32), idx], -1)  # int32 ids
+    # all_gather_single is the newer name of all_gather_tensor
+    gather = getattr(funcol, "all_gather_single", None) or \
+        funcol.all_gather_tensor
+    g = funcol.wait_tensor(gather(pair, 0, flat.get_group())).view(
+        s, q, k, 2)
+    g = g.permute(1, 0, 2, 3).reshape(q, s * k, 2)
+    gv = g[..., 0].contiguous().view(torch.float32)
+    return _select(gv, g[..., 1].contiguous(), k)
 
 
 @dataclasses.dataclass(frozen=True)

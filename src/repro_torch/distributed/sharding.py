@@ -46,6 +46,7 @@ import torch
 __all__ = [
     "spec",
     "shard",
+    "as_dtensor",
     "shard_map_nocheck",
     "named_sharding",
     "NamedSharding",
@@ -265,7 +266,9 @@ def implicit_replication():
         disp._allow_implicit_replication = prev
 
 
-def _as_dtensor(x, mesh):
+def as_dtensor(x, mesh):
+    """``x`` as a ``DTensor`` on ``mesh``: a ``DTensor`` as it is, a plain
+    tensor as replicated (every rank holds the same whole tensor)."""
     from torch.distributed.tensor import DTensor, Replicate
 
     if isinstance(x, DTensor):
@@ -281,7 +284,7 @@ def shard(x, mesh, *names):
     replicated first."""
     if mesh is None:
         return x
-    x = _as_dtensor(x, mesh)
+    x = as_dtensor(x, mesh)
     return x.redistribute(mesh, to_placements(
         mesh, spec(mesh, tuple(names), tuple(x.shape))))
 
@@ -290,7 +293,8 @@ def shard_map_nocheck(f, mesh, in_specs, out_specs, in_grad_specs=None):
     """``shard_map`` with replication checking off: ``local_map`` of ``f``
     with its inputs redistributed to ``in_specs`` (PartitionSpec entries,
     or ``None`` for a non-tensor argument) and its outputs taken as
-    ``out_specs`` (one output).
+    ``out_specs``: one spec for one output, a list of specs for a tuple
+    of outputs (a list of placements is taken as it is).
 
     ``in_grad_specs`` gives, per input, the placements its gradient comes
     back in (default, or ``None``: the input's own).  JAX's transpose of a
@@ -303,11 +307,15 @@ def shard_map_nocheck(f, mesh, in_specs, out_specs, in_grad_specs=None):
     """
     from torch.distributed.tensor.experimental import local_map
 
+    from torch.distributed.tensor import Placement
+
     def place(s):
         if s is None:
             return None
-        if isinstance(s, list):  # placements given directly
-            return s
+        if isinstance(s, list):
+            if all(isinstance(e, Placement) for e in s):
+                return s  # placements given directly
+            return tuple(place(e) for e in s)  # one spec an output
         return to_placements(mesh, s)
 
     in_p = tuple(place(s) for s in in_specs)

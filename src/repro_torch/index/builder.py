@@ -27,7 +27,9 @@ restored state.
 A group sharded across devices (``cfg.n_shards > 1``) is built, written
 and paged shard by shard (``distributed.group_sharding``): each shard
 holds a contiguous row slice and equals that slice of the unsharded
-build, bit for bit.
+build, bit for bit.  ``make_build_step`` is the same device encode over
+a ``DeviceMesh``, one process a device, as the JAX package's sharded
+build step (which the dry-run traces).
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from ..distributed.group_sharding import (
     HostShardedState,
     ShardedQueryState,
 )
+from ..kernels import ops
 from ..kernels.platform import resolve_device
 from .config import VEC_DTYPES, IndexConfig
 from .engine import QueryState, encode_queries
@@ -52,6 +55,8 @@ __all__ = [
     "StatePager",
     "append_to_state",
     "build_group_state",
+    "build_input_specs",
+    "make_build_step",
     "offload_state",
     "pad_cols",
     "restore_state",
@@ -87,6 +92,57 @@ def pad_cols(x: np.ndarray, beta: int) -> np.ndarray:
         raise ValueError(f"group beta {have} exceeds padded config beta {beta}")
     pad = [(0, 0)] * (x.ndim - 1) + [(0, beta - have)]
     return np.pad(x, pad)
+
+
+def make_build_step(mesh, cfg: IndexConfig):
+    """The build step over a ``DeviceMesh`` (the JAX package's jit'd
+    sharded build): ``(points, proj, b_int, b_frac) -> (codes, vectors)``.
+
+    ``points`` (n, d) float32 has its rows over every mesh axis (a plain
+    tensor is taken as the whole corpus, the same on every rank, and each
+    rank keeps its rows); the folded family is replicated.  Each rank
+    encodes its rows through ``ops.hash_encode`` (the kernel on the card)
+    at unit weight and width and casts them to ``cfg.vec_dtype``; no
+    collective runs.  The encode is row-independent, so the codes are a
+    whole-corpus encode's.  Returns (n, beta) int32 codes and (n, d)
+    vectors, ``DTensor``s with their rows sharded.
+    """
+    from ..distributed.sharding import as_dtensor, shard_map_nocheck
+    from ..models.params import distribute
+
+    store = storage_dtype(cfg)
+    sh = group_sharding.state_shardings(mesh, cfg)
+    rows = sh.points
+
+    def body(points, proj, b_int, b_frac):
+        ones = torch.ones(points.shape[1], dtype=torch.float32,
+                          device=points.device)
+        codes = ops.hash_encode(points, ones, proj, b_int, b_frac, 1.0)
+        return codes, points.to(store)
+
+    mapped = shard_map_nocheck(
+        body, mesh, in_specs=tuple(getattr(sh, f).spec for f in (
+            "points", "proj", "b_int", "b_frac")),
+        out_specs=[rows.spec, rows.spec])
+
+    def step(points, proj, b_int, b_frac):
+        if not hasattr(points, "device_mesh"):
+            points = distribute(points, rows)
+        return mapped(points, *(as_dtensor(x, mesh)
+                                for x in (proj, b_int, b_frac)))
+
+    return step
+
+
+def build_input_specs(cfg: IndexConfig) -> dict:
+    """Meta tensors of the build step's arguments at their global shapes
+    (the dry-run's inputs; nothing is allocated)."""
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return dict(points=meta((cfg.n, cfg.d)), proj=meta((cfg.d, cfg.beta)),
+                b_int=meta((cfg.beta,), torch.int32),
+                b_frac=meta((cfg.beta,)))
 
 
 def build_group_state(

@@ -52,8 +52,9 @@ class IndexConfig:
     devices (``distributed.group_sharding``): ``n`` is the whole row
     capacity, ``state_nbytes`` prices one device's slice, and the shard
     count is part of ``shape_signature``.  The JAX package's
-    ``shard_axis`` has no counterpart: the port has no mesh axes, only
-    a list of devices.
+    ``shard_axis`` has no counterpart: the serving stack shards over a
+    list of devices, and the mesh steps (``make_query_step``,
+    ``make_build_step``) lay the rows over every axis of their mesh.
     """
 
     n: int = 1 << 20  # row capacity; state.n_valid masks the dead tail

@@ -42,6 +42,16 @@ exactly on its device, then ``group_sharding.merge_shard_topk``.  The
 fused passes and the re-rank score each row on its own, so the answers
 equal the unsharded step's bit for bit wherever the approximate and the
 exact order of the rank-k boundary agree.
+
+Every engine runs one per-shard body in two halves around the histogram
+merge: ``_pass1`` (pass 1 at the shard's row offset against the global
+``n_valid``) and ``_pass2`` (pass 2, the top-k rebased to global rows,
+the exact re-rank).  One device is one shard with nothing to merge; the
+device list merges on its first device; ``make_query_step`` runs the
+body on every rank of a ``DeviceMesh`` under ``shard_map_nocheck`` and
+merges with one all-reduce and one all-gather
+(``group_sharding.merge_*_mesh``), so the mesh step answers as the
+device list does, bit for bit.  The serving stack keeps the device list.
 """
 
 from __future__ import annotations
@@ -55,11 +65,15 @@ from torch.profiler import record_function
 
 from ..distributed import group_sharding
 from ..distributed.group_sharding import ShardedQueryState
+from ..distributed.sharding import (as_dtensor, named_sharding,
+                                    shard_map_nocheck)
 from ..kernels import ops, ref
 from ..kernels import platform as kplatform
 from .config import VEC_DTYPES, IndexConfig
 
-__all__ = ["QueryState", "QueryStepCache", "encode_queries", "query_step"]
+__all__ = ["QueryState", "QueryStepCache", "encode_queries",
+           "make_query_step", "query_input_specs", "query_step",
+           "shardings"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,6 +207,54 @@ def _n_checked(nf_cum, stop, cfg: IndexConfig):
     ).to(torch.int32)
 
 
+def _pass1(state, ins, boff: int, n_valid: int, cfg: IndexConfig, path):
+    """Pass 1 of one shard: its (hist_f, hist_g) (Q, L+2) level histograms.
+
+    ``state`` holds the global rows ``[boff, boff + n_loc)``; rows at or
+    past the global ``n_valid`` are dead.  ``ins`` is ``(codes_q, qf, wf,
+    mu, r_min, beta_q)`` on the shard's device.  With the stop rule over
+    the merged histograms and ``_pass2``, this is the per-shard body of
+    every engine: one device, a list of devices, a mesh.
+    """
+    codes_q, qf, wf, mu, r_min, beta_q = ins
+    if path.fused:
+        return ops.fused_query_block(
+            state.codes, state.points, codes_q, qf, wf, mu, r_min, beta_q,
+            boff=boff, n_valid=n_valid, c=cfg.c, n_levels=cfg.n_levels,
+            p=cfg.p)
+    return _unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q, cfg,
+                         None, boff=boff, n_valid=n_valid)
+
+
+def _pass2(state, ins, stop, boff: int, n_valid: int, cfg: IndexConfig,
+           path):
+    """Pass 2 of one shard after the stop rule: its k survivors, ``(vals
+    (Q, k), ids (Q, k))`` with global row ids (-1 where missing), each
+    distance re-ranked exactly on the shard's stored rows."""
+    codes_q, qf, wf, mu, r_min, beta_q = ins
+    if path.fused:
+        scores = ops.fused_query_block(
+            state.codes, state.points, codes_q, qf, wf, mu, r_min, beta_q,
+            boff=boff, n_valid=n_valid, c=cfg.c, n_levels=cfg.n_levels,
+            p=cfg.p, stop=stop)
+    else:
+        scores = _unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q,
+                               cfg, stop, boff=boff, n_valid=n_valid)
+    with record_function("wlsh_topk"):
+        vals, idx = _topk_rows(scores, cfg.k)
+        idx = torch.where(idx >= 0, idx + boff, idx)  # global rows
+    del scores
+    with record_function("wlsh_rerank"):
+        rows = (idx.long() - boff).clamp(0, state.codes.shape[0] - 1)
+        return _rerank(state.points, rows, qf, wf, vals, idx, cfg.p)
+
+
+def _check_vec_dtype(cfg: IndexConfig) -> None:
+    if cfg.vec_dtype not in VEC_DTYPES:
+        raise NotImplementedError(f"vec_dtype {cfg.vec_dtype!r}: vectors "
+                                  f"are stored as one of {VEC_DTYPES}")
+
+
 def query_step(state, queries, codes_q, q_weight, mu, r_min,
                beta_q, levels_q, *, cfg: IndexConfig):
     """Answer one query batch on ``state``'s device.
@@ -204,47 +266,15 @@ def query_step(state, queries, codes_q, q_weight, mu, r_min,
     ``cfg.n_shards`` equal to its shard count) is answered shard by
     shard (``_query_sharded``); the answers land on its first device.
     """
-    if cfg.vec_dtype not in VEC_DTYPES:
-        raise NotImplementedError(f"vec_dtype {cfg.vec_dtype!r}: vectors "
-                                  f"are stored as one of {VEC_DTYPES}")
+    _check_vec_dtype(cfg)
     if isinstance(state, ShardedQueryState) or cfg.n_shards != 1:
         return _query_sharded(state, queries, codes_q, q_weight, mu, r_min,
                               beta_q, levels_q, cfg=cfg)
-    k = cfg.k
-    dev = state.device
-    n = state.codes.shape[0]
-    qf = queries.float()
-    wf = q_weight.float()
-    path = kplatform.resolve(cfg.use_kernels, dev)
-    kw = dict(boff=0, n_valid=state.n_valid, c=cfg.c, n_levels=cfg.n_levels,
-              p=cfg.p)
-
-    # ---- pass 1: level histograms -> stop level ---------------------------
-    if path.fused:
-        hist_f, hist_g = ops.fused_query_block(
-            state.codes, state.points, codes_q, qf, wf, mu, r_min, beta_q,
-            **kw)
-    else:
-        hist_f, hist_g = _unfused_pass(state, codes_q, qf, wf, mu, r_min,
-                                       beta_q, cfg, None)
+    path = kplatform.resolve(cfg.use_kernels, state.device)
+    ins = (codes_q, queries.float(), q_weight.float(), mu, r_min, beta_q)
+    hist_f, hist_g = _pass1(state, ins, 0, state.n_valid, cfg, path)
     stop, nf_cum = _stop_levels(hist_f, hist_g, levels_q, cfg)
-
-    # ---- pass 2: masked distances -> top-k --------------------------------
-    if path.fused:
-        scores = ops.fused_query_block(
-            state.codes, state.points, codes_q, qf, wf, mu, r_min, beta_q,
-            stop=stop, **kw)
-    else:
-        scores = _unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q,
-                               cfg, stop)
-    with record_function("wlsh_topk"):
-        vals, idx = _topk_rows(scores, k)
-    del scores
-
-    # ---- exact re-rank of the k winners ------------------------------------
-    with record_function("wlsh_rerank"):
-        vals, idx = _rerank(state.points, idx.clamp(0, n - 1).long(), qf,
-                            wf, vals, idx, cfg.p)
+    vals, idx = _pass2(state, ins, stop, 0, state.n_valid, cfg, path)
     return vals, idx, stop, _n_checked(nf_cum, stop, cfg)
 
 
@@ -269,11 +299,8 @@ def _query_sharded(state, queries, codes_q, q_weight, mu, r_min, beta_q,
     if state.n_shards != cfg.n_shards:
         raise ValueError(f"state has {state.n_shards} shards, cfg.n_shards "
                          f"is {cfg.n_shards}")
-    k = cfg.k
     dev0 = state.device
     path = kplatform.resolve(cfg.use_kernels, dev0)
-    kw = dict(n_valid=state.n_valid, c=cfg.c, n_levels=cfg.n_levels,
-              p=cfg.p)
     shards = list(zip(state.shards, state.offsets))
     ins = [tuple(t.to(sh.device) for t in (codes_q, queries.float(),
                                            q_weight.float(), mu, r_min,
@@ -281,42 +308,113 @@ def _query_sharded(state, queries, codes_q, q_weight, mu, r_min, beta_q,
            for sh, _ in shards]
 
     # ---- pass 1 on every shard, histograms merged, stop rule once --------
-    hf, hg = [], []
-    for (sh, off), (cq, qf, wf, m, r, bq) in zip(shards, ins):
-        if path.fused:
-            f, g = ops.fused_query_block(sh.codes, sh.points, cq, qf, wf, m,
-                                         r, bq, boff=off, **kw)
-        else:
-            f, g = _unfused_pass(sh, cq, qf, wf, m, r, bq, cfg, None,
-                                 boff=off, n_valid=state.n_valid)
-        hf.append(f)
-        hg.append(g)
-    hist_f, hist_g = group_sharding.merge_histograms(hf, hg, dev0)
+    hists = [_pass1(sh, x, off, state.n_valid, cfg, path)
+             for (sh, off), x in zip(shards, ins)]
+    hist_f, hist_g = group_sharding.merge_histograms(
+        [h[0] for h in hists], [h[1] for h in hists], dev0)
     stop, nf_cum = _stop_levels(hist_f, hist_g, levels_q, cfg)
 
-    # ---- pass 2, top-k and exact re-rank on every shard -------------------
-    vals_s, idx_s = [], []
-    for (sh, off), (cq, qf, wf, m, r, bq) in zip(shards, ins):
-        st = stop.to(sh.device)
-        if path.fused:
-            scores = ops.fused_query_block(sh.codes, sh.points, cq, qf, wf,
-                                           m, r, bq, boff=off, stop=st, **kw)
-        else:
-            scores = _unfused_pass(sh, cq, qf, wf, m, r, bq, cfg, st,
-                                   boff=off, n_valid=state.n_valid)
-        with record_function("wlsh_topk"):
-            vals, idx = _topk_rows(scores, k)
-            idx = torch.where(idx >= 0, idx + off, idx)  # global rows
-        del scores
-        with record_function("wlsh_rerank"):
-            rows = (idx.long() - off).clamp(0, sh.codes.shape[0] - 1)
-            vals, idx = _rerank(sh.points, rows, qf, wf, vals, idx, cfg.p)
-        vals_s.append(vals)
-        idx_s.append(idx)
-
-    # ---- exact merge of the shards' survivors ------------------------------
-    vals, idx = group_sharding.merge_shard_topk(vals_s, idx_s, k, dev0)
+    # ---- pass 2, top-k and exact re-rank on every shard; exact merge ------
+    outs = [_pass2(sh, x, stop.to(sh.device), off, state.n_valid, cfg, path)
+            for (sh, off), x in zip(shards, ins)]
+    vals, idx = group_sharding.merge_shard_topk(
+        [o[0] for o in outs], [o[1] for o in outs], cfg.k, dev0)
     return vals, idx, stop, _n_checked(nf_cum, stop, cfg)
+
+
+# ------------------------------------------------------------ on a mesh
+
+
+def shardings(mesh) -> dict:
+    """Placements of the mesh query step's arguments and answers
+    (``NamedSharding``s): the state's rows over every mesh axis, its
+    family and scalars, the queries and the answers replicated."""
+    rows = named_sharding(mesh, ("rows", None))
+    rep2, rep1, rep0 = (named_sharding(mesh, (None,) * r) for r in (2, 1, 0))
+    return {
+        "state": QueryState(codes=rows, points=rows, proj=rep2, b_int=rep1,
+                            b_frac=rep1, width=rep0, n_valid=rep0),
+        "queries": rep2,
+        "q_meta": rep1,
+        "out": rep2,
+    }
+
+
+def make_query_step(mesh, cfg: IndexConfig):
+    """The query step over a ``DeviceMesh`` (the JAX package's jit'd
+    ``shard_map``):
+    ``(state, queries, q_codes, q_weight, mu, r_min, beta_q, levels_q) ->
+    (dists (Q, k), ids (Q, k), stop (Q,), n_checked (Q,))``, replicated
+    ``DTensor``s.
+
+    ``state`` is a ``QueryState`` of ``DTensor``s laid out by
+    ``group_sharding.state_shardings`` (rows over every mesh axis; a
+    capacity that does not divide the mesh raises) with the global
+    ``n_valid``; plain query tensors are taken as replicated.  Each rank
+    runs the per-shard body under ``shard_map_nocheck``: pass 1 at its
+    row offset (``shard_row_offset``), the histograms summed by one
+    all-reduce, the stop rule, pass 2 and the exact re-rank of its k
+    survivors, then one all-gather of every shard's survivors and the
+    k smallest of them (``merge_shard_topk_mesh``).  The body is the
+    device-list engine's, so both answer alike bit for bit.
+    """
+    _check_vec_dtype(cfg)
+    sh = shardings(mesh)
+    rows = group_sharding.state_shardings(mesh, cfg).codes.spec
+    rep2, rep1 = sh["queries"].spec, sh["q_meta"].spec
+
+    def body(codes, points, n_valid, queries, codes_q, q_weight, mu, r_min,
+             beta_q, levels_q):
+        n_loc = codes.shape[0]
+        local = QueryState(codes=codes, points=points, proj=None,
+                           b_int=None, b_frac=None, width=None,
+                           n_valid=n_valid)
+        off = group_sharding.shard_row_offset(mesh, n_loc)
+        path = kplatform.resolve(cfg.use_kernels, codes.device)
+        ins = (codes_q, queries.float(), q_weight.float(), mu, r_min, beta_q)
+        hist_f, hist_g = group_sharding.merge_histograms_mesh(
+            *_pass1(local, ins, off, n_valid, cfg, path), mesh)
+        stop, nf_cum = _stop_levels(hist_f, hist_g, levels_q, cfg)
+        vals, idx = group_sharding.merge_shard_topk_mesh(
+            *_pass2(local, ins, stop, off, n_valid, cfg, path), cfg.k, mesh)
+        return vals, idx, stop, _n_checked(nf_cum, stop, cfg)
+
+    mapped = shard_map_nocheck(
+        body, mesh,
+        in_specs=(rows, rows, None, rep2, rep2, rep2, rep1, rep1, rep1,
+                  rep1),
+        out_specs=[rep2, rep2, rep1, rep1])
+
+    def step(state, queries, q_codes, q_weight, mu, r_min, beta_q,
+             levels_q):
+        args = [as_dtensor(x, mesh) for x in (
+            queries, q_codes, q_weight, mu, r_min, beta_q, levels_q)]
+        return mapped(as_dtensor(state.codes, mesh),
+                      as_dtensor(state.points, mesh), int(state.n_valid),
+                      *args)
+
+    return step
+
+
+def query_input_specs(cfg: IndexConfig) -> dict:
+    """Meta tensors of the query step's arguments at their global shapes
+    (the dry-run's inputs; nothing is allocated), ``n_valid`` the whole
+    capacity."""
+    from .builder import storage_dtype
+
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    q, i32 = cfg.q_batch, torch.int32
+    state = QueryState(
+        codes=meta((cfg.n, cfg.beta), i32),
+        points=meta((cfg.n, cfg.d), storage_dtype(cfg)),
+        proj=meta((cfg.d, cfg.beta)), b_int=meta((cfg.beta,), i32),
+        b_frac=meta((cfg.beta,)), width=meta(()), n_valid=cfg.n)
+    return dict(state=state, queries=meta((q, cfg.d)),
+                q_codes=meta((q, cfg.beta), i32), q_weight=meta((q, cfg.d)),
+                mu=meta((q,), i32), r_min=meta((q,)), beta_q=meta((q,), i32),
+                levels_q=meta((q,), i32))
 
 
 class QueryStepCache:

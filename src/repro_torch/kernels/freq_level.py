@@ -8,10 +8,12 @@ matching (``csrc/level_match.cuh``): digit words for c = 2 and 3, the
 level walk for any other c.  Stage 1 of the engine's unfused route
 (``use_kernels="off"``) runs through it.
 
-For tensors on the CPU the wrapper takes the plain torch version
-(``ref.freq_level_ref``).  For CUDA tensors it checks device, dtype,
-contiguity and shape, allocates the output, launches on the current
-stream and raises if the launch fails; there is no fallback.  Integer
+The wrapper is the custom op ``repro_torch::freq_level``, so the
+dispatcher picks its version by device: the plain torch version
+(``ref.freq_level_ref``) for tensors on the CPU; for CUDA tensors the
+launch, which checks device, dtype, contiguity and shape, allocates the
+output, launches on the current stream and raises if the launch fails
+(there is no fallback); for meta tensors the output's shape and dtype.  Integer
 outputs equal the plain version's exactly.
 """
 
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch import Tensor
 
 from . import _cuda, ref
 
@@ -31,12 +34,18 @@ _ARGS = [_P] * 4 + [_I] * 5 + [_P, _P]
 _OCC_KEYS = ("smem_bytes", "blocks_per_sm", "registers")
 
 
-def freq_level(codes_p, codes_q, mu, beta_q, *, c: int, n_levels: int):
+@torch.library.custom_op("repro_torch::freq_level", mutates_args=(),
+                         device_types="cpu")
+def freq_level(codes_p: Tensor, codes_q: Tensor, mu: Tensor, beta_q: Tensor,
+               *, c: int, n_levels: int) -> Tensor:
     """(Q, n) int32 first-frequent levels of rows ``codes_p`` (n, beta)
     for queries ``codes_q`` (Q, beta) with per-query ``mu`` and ``beta_q``
     (Q,) int32."""
-    if codes_p.device.type == "cpu":
-        return ref.freq_level_ref(codes_p, codes_q, mu, c, n_levels, beta_q)
+    return ref.freq_level_ref(codes_p, codes_q, mu, c, n_levels, beta_q)
+
+
+@freq_level.register_kernel("cuda")
+def _freq_level_cuda(codes_p, codes_q, mu, beta_q, *, c, n_levels):
     dev = codes_p.device
     n, beta = codes_p.shape
     q = codes_q.shape[0]
@@ -55,6 +64,12 @@ def freq_level(codes_p, codes_q, mu, beta_q, *, c: int, n_levels: int):
                  out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _cuda.launched("freq_level", err, launch_counts)
     return out
+
+
+@freq_level.register_fake
+def _freq_level_fake(codes_p, codes_q, mu, beta_q, *, c, n_levels):
+    return codes_p.new_empty((codes_q.shape[0], codes_p.shape[0]),
+                             dtype=torch.int32)
 
 
 def occupancy(c: int, n_levels: int) -> dict:

@@ -6,10 +6,14 @@ over one table group's state (see the source note there for the design):
   pass 1  ``fused_query_hist``   -> (hist_f, hist_g), each (Q, L+3) int32
   pass 2  ``fused_query_scores`` -> (Q, B) float32 stop-masked distances
 
-Each wrapper takes the plain torch version (``ref.py``) for tensors on the
-CPU.  For CUDA tensors it checks device, dtype, contiguity and shape,
-allocates the outputs, launches on the current stream and raises if the
-launch fails; there is no fallback.  ``launch_counts`` counts kernel
+Each wrapper is a ``torch.library`` custom op (``repro_torch::<name>``),
+so the dispatcher picks its version by the tensors' device: the plain
+torch version (``ref.py``) for tensors on the CPU; for CUDA tensors the
+launch, which checks device, dtype, contiguity and shape, allocates the
+outputs, launches on the current stream and raises if the launch fails
+(there is no fallback); for meta tensors the output shapes and dtypes
+alone, so a dry-run traces the op without running it, and a dispatch
+mode (``launch.roofline.StepCounter``) sees one op per call.  ``launch_counts`` counts kernel
 launches per wrapper, so a run can show that its main path went through
 the kernels.  The kernels are built with the port's other CUDA sources
 (``_cuda.build``).
@@ -25,6 +29,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch import Tensor
 
 from . import _cuda, ref
 from ._cuda import reset_launch_counts
@@ -73,9 +78,13 @@ def _row_ok(b, boff, n_valid, dev):
     return (boff + torch.arange(b, device=dev)) < n_valid
 
 
-def fused_query_hist(codes_p, points, codes_q, queries, q_weight, mu, beta_q,
-                     r_min, *, boff: int, n_valid: int, c: int,
-                     n_levels: int, p: float):
+@torch.library.custom_op("repro_torch::fused_query_hist", mutates_args=(),
+                         device_types="cpu")
+def fused_query_hist(codes_p: Tensor, points: Tensor, codes_q: Tensor,
+                     queries: Tensor, q_weight: Tensor, mu: Tensor,
+                     beta_q: Tensor, r_min: Tensor, *, boff: int,
+                     n_valid: int, c: int, n_levels: int,
+                     p: float) -> tuple[Tensor, Tensor]:
     """Pass 1 over rows ``codes_p``/``points`` (float32 or bfloat16):
     (hist_f, hist_g) (Q, L+3).
 
@@ -83,11 +92,15 @@ def fused_query_hist(codes_p, points, codes_q, queries, q_weight, mu, beta_q,
     holds dead rows (``boff + row >= n_valid``); good levels above L+2
     fall outside every bin.
     """
-    if codes_p.device.type == "cpu":
-        row_ok = _row_ok(codes_p.shape[0], boff, n_valid, codes_p.device)
-        return ref.fused_query_hist_ref(
-            codes_p, points, codes_q, queries, q_weight, mu, beta_q, r_min,
-            row_ok, c=c, n_levels=n_levels, p=p)
+    row_ok = _row_ok(codes_p.shape[0], boff, n_valid, codes_p.device)
+    return ref.fused_query_hist_ref(
+        codes_p, points, codes_q, queries, q_weight, mu, beta_q, r_min,
+        row_ok, c=c, n_levels=n_levels, p=p)
+
+
+@fused_query_hist.register_kernel("cuda")
+def _hist_cuda(codes_p, points, codes_q, queries, q_weight, mu, beta_q,
+               r_min, *, boff, n_valid, c, n_levels, p):
     dev, b, beta, q, d = _check_inputs(
         codes_p, points, codes_q, queries, q_weight, mu, beta_q,
         r_min, "r_min", torch.float32)
@@ -106,20 +119,36 @@ def fused_query_hist(codes_p, points, codes_q, queries, q_weight, mu, beta_q,
     return hist_f, hist_g
 
 
-def fused_query_scores(codes_p, points, codes_q, queries, q_weight, mu,
-                       beta_q, stop, *, boff: int, n_valid: int, c: int,
-                       n_levels: int, p: float):
+@fused_query_hist.register_fake
+def _hist_fake(codes_p, points, codes_q, queries, q_weight, mu, beta_q,
+               r_min, *, boff, n_valid, c, n_levels, p):
+    shape = (queries.shape[0], n_levels + 3)
+    return (codes_p.new_empty(shape, dtype=torch.int32),
+            codes_p.new_empty(shape, dtype=torch.int32))
+
+
+@torch.library.custom_op("repro_torch::fused_query_scores", mutates_args=(),
+                         device_types="cpu")
+def fused_query_scores(codes_p: Tensor, points: Tensor, codes_q: Tensor,
+                       queries: Tensor, q_weight: Tensor, mu: Tensor,
+                       beta_q: Tensor, stop: Tensor, *, boff: int,
+                       n_valid: int, c: int, n_levels: int,
+                       p: float) -> Tensor:
     """Pass 2 over rows ``codes_p``/``points`` (float32 or bfloat16):
     (Q, B) float32 scores.
 
     The weighted distance where the row's first-frequent level is at most
     ``stop[q]`` and the row is live, +inf elsewhere.
     """
-    if codes_p.device.type == "cpu":
-        row_ok = _row_ok(codes_p.shape[0], boff, n_valid, codes_p.device)
-        return ref.fused_query_scores_ref(
-            codes_p, points, codes_q, queries, q_weight, mu, beta_q, stop,
-            row_ok, c=c, n_levels=n_levels, p=p)
+    row_ok = _row_ok(codes_p.shape[0], boff, n_valid, codes_p.device)
+    return ref.fused_query_scores_ref(
+        codes_p, points, codes_q, queries, q_weight, mu, beta_q, stop,
+        row_ok, c=c, n_levels=n_levels, p=p)
+
+
+@fused_query_scores.register_kernel("cuda")
+def _scores_cuda(codes_p, points, codes_q, queries, q_weight, mu, beta_q,
+                 stop, *, boff, n_valid, c, n_levels, p):
     dev, b, beta, q, d = _check_inputs(
         codes_p, points, codes_q, queries, q_weight, mu, beta_q,
         stop, "stop", torch.int32)
@@ -134,6 +163,13 @@ def fused_query_scores(codes_p, points, codes_q, queries, q_weight, mu,
             scores.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _cuda.launched("fused_query_scores", err, launch_counts)
     return scores
+
+
+@fused_query_scores.register_fake
+def _scores_fake(codes_p, points, codes_q, queries, q_weight, mu, beta_q,
+                 stop, *, boff, n_valid, c, n_levels, p):
+    return codes_p.new_empty((queries.shape[0], codes_p.shape[0]),
+                             dtype=torch.float32)
 
 
 def occupancy(which: str, c: int, n_levels: int) -> dict:

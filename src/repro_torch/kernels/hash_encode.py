@@ -6,12 +6,14 @@
 device-encode build and the query encode of a plan without host codes
 run through it.
 
-For tensors on the CPU the wrapper takes the plain torch version
-(``ref.hash_encode_ref``), which takes the kernel's fused multiply-adds
-in the kernel's order and rounds each once, so the two agree bit for
-bit.  For CUDA tensors it checks device, dtype, contiguity and shape,
-allocates the output, launches on the current stream and raises if the
-launch fails; there is no fallback.
+The wrapper is the custom op ``repro_torch::hash_encode``, so the
+dispatcher picks its version by device.  For tensors on the CPU it is
+the plain torch version (``ref.hash_encode_ref``), which takes the
+kernel's fused multiply-adds in the kernel's order and rounds each once,
+so the two agree bit for bit.  For CUDA tensors it checks device, dtype,
+contiguity and shape, allocates the output, launches on the current
+stream and raises if the launch fails; there is no fallback.  For meta
+tensors it gives the output's shape and dtype alone.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch import Tensor
 
 from . import _cuda, ref
 
@@ -29,13 +32,18 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = [_P] * 5 + [_F] + [_I] * 3 + [_P, _P]
 
 
-def hash_encode(points, weight, proj, b_int, b_frac, width: float):
+@torch.library.custom_op("repro_torch::hash_encode", mutates_args=(),
+                         device_types="cpu")
+def hash_encode(points: Tensor, weight: Tensor, proj: Tensor, b_int: Tensor,
+                b_frac: Tensor, width: float) -> Tensor:
     """(n, beta) int32 level-1 bucket codes of ``points`` (n, d) under
     ``weight`` (d,), ``proj`` (d, beta), ``b_int`` (beta,) int32,
     ``b_frac`` (beta,) and bucket width ``width``."""
-    if points.device.type == "cpu":
-        return ref.hash_encode_ref(points, proj, b_int, b_frac, weight,
-                                   width)
+    return ref.hash_encode_ref(points, proj, b_int, b_frac, weight, width)
+
+
+@hash_encode.register_kernel("cuda")
+def _hash_encode_cuda(points, weight, proj, b_int, b_frac, width):
     dev = points.device
     n, d = points.shape
     beta = proj.shape[1]
@@ -56,3 +64,9 @@ def hash_encode(points, weight, proj, b_int, b_frac, width: float):
                  torch.cuda.current_stream(dev).cuda_stream)
     _cuda.launched("hash_encode", err, launch_counts)
     return out
+
+
+@hash_encode.register_fake
+def _hash_encode_fake(points, weight, proj, b_int, b_frac, width):
+    return points.new_empty((points.shape[0], proj.shape[1]),
+                            dtype=torch.int32)

@@ -8,10 +8,12 @@ any other p).  As in the JAX package it serves no serving
 path: ``ops.weighted_lp_dist`` reaches it for p != 2, and p = 2 takes the
 norms expansion there instead, so this wrapper rejects p = 2 on the card.
 
-For tensors on the CPU the wrapper takes the plain torch version
-(``ref.weighted_lp_ref``).  For CUDA tensors it checks device, dtype,
-contiguity and shape, allocates the output, launches on the current
-stream and raises if the launch fails; there is no fallback.
+The wrapper is the custom op ``repro_torch::weighted_lp``, so the
+dispatcher picks its version by device: the plain torch version
+(``ref.weighted_lp_ref``) for tensors on the CPU; for CUDA tensors the
+launch, which checks device, dtype, contiguity and shape, allocates the
+output, launches on the current stream and raises if the launch fails
+(there is no fallback); for meta tensors the output's shape and dtype.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch import Tensor
 
 from . import _cuda, ref
 
@@ -30,11 +33,17 @@ _ARGS = [_P] * 3 + [_I] * 3 + [_F, _P, _P]
 _OCC_KEYS = ("smem_bytes", "blocks_per_sm", "registers")
 
 
-def weighted_lp(queries, points, weight, p: float):
+@torch.library.custom_op("repro_torch::weighted_lp", mutates_args=(),
+                         device_types="cpu")
+def weighted_lp(queries: Tensor, points: Tensor, weight: Tensor,
+                p: float) -> Tensor:
     """(Q, n) float32 weighted l_p distances of ``queries`` (Q, d) to
     ``points`` (n, d) under ``weight`` (d,), p != 2 on the card."""
-    if queries.device.type == "cpu":
-        return ref.weighted_lp_ref(queries, points, weight, p)
+    return ref.weighted_lp_ref(queries, points, weight, p)
+
+
+@weighted_lp.register_kernel("cuda")
+def _weighted_lp_cuda(queries, points, weight, p):
     if abs(p - 2.0) < 1e-9 or not p > 0:
         raise ValueError(f"the weighted_lp kernel takes 0 < p != 2, got {p}")
     dev = queries.device
@@ -54,6 +63,12 @@ def weighted_lp(queries, points, weight, p: float):
                  torch.cuda.current_stream(dev).cuda_stream)
     _cuda.launched("weighted_lp", err, launch_counts)
     return out
+
+
+@weighted_lp.register_fake
+def _weighted_lp_fake(queries, points, weight, p):
+    return queries.new_empty((queries.shape[0], points.shape[0]),
+                             dtype=torch.float32)
 
 
 def occupancy(p: float) -> dict:

@@ -24,8 +24,16 @@ without one); the tensors stay meta either way.
 Results are cached to JSON (one file per cell, the reference's keys plus
 ``hw``, the card's constants); --force re-runs.
 
-The index cells (``wlsh_index``) run the device-list engine of the
-group-sharding layer, not DTensor; they raise, queued in ROADMAP.md.
+The index cells (``wlsh_index``) trace the index's mesh steps:
+``train_4k`` the build step (``index.builder.make_build_step``: every
+device encodes its 2^30 / chips rows), ``prefill_32k`` the query step
+(``index.engine.make_query_step``: both passes over each device's rows,
+one all-reduce of the level histograms, one all-gather of the
+survivors), with bfloat16 vectors and the rows over every device.  Each
+pass is one kernel launch over the whole shard, so the counts are
+direct: no scan to extrapolate.  The kernels' work is priced at their
+own units' rates (``kernels/cost.py``), every other FLOP at the bfloat16
+peak.
 """
 
 from __future__ import annotations
@@ -51,7 +59,8 @@ from ..training.train_loop import (batch_shardings, make_train_step,
                                    train_state_defs)
 from .estimate import model_flops
 from .mesh import make_production_mesh
-from .roofline import HW, StepCounter, analyze, collective_bytes
+from .roofline import (HW, StepCounter, analyze, collective_bytes,
+                       kernel_terms)
 
 HBM_PER_CHIP = 80 * 1024**3  # H100 80GB HBM3
 
@@ -144,9 +153,12 @@ def _count(counter: StepCounter, args: dict, run) -> dict:
     }
     memory["total_bytes"] = memory["argument_bytes"] + memory["temp_bytes"]
     coll = collective_bytes(counter)
-    return {"flops": counter.flops, "bytes": counter.bytes,
-            "coll": float(coll["total"]), "coll_detail": coll,
-            "memory": memory}
+    out = {"flops": counter.flops, "bytes": counter.bytes,
+           "coll": float(coll["total"]), "coll_detail": coll,
+           "memory": memory}
+    if counter.kernels:
+        out.update(kernels=counter.kernels, **kernel_terms(counter))
+    return out
 
 
 def trace_train(model, shape: ShapeConfig, ocfg: AdamWConfig,
@@ -175,10 +187,7 @@ def lower_cell(arch: str, shape_name: str, mesh_name: str,
     chips = mesh.size()
 
     if cfg.family == "index":
-        raise NotImplementedError(
-            f"{arch}: the index cells run the group-sharding layer's "
-            "device-list engine, not DTensor; their dry-run is queued in "
-            "ROADMAP.md (queue A)")
+        return lower_index(cfg, shape, mesh)
 
     model = build_model(cfg, mesh=mesh, flags=flags or default_flags(cfg))
     defs = model.defs()
@@ -235,6 +244,68 @@ def lower_cell(arch: str, shape_name: str, mesh_name: str,
                             {"params": params, "cache": cache,
                              "tokens": tokens}, run)
     return traced, chips, {}
+
+
+def index_config(cfg: ModelConfig, chips: int):
+    """The index cell's ``IndexConfig``: ``vocab`` points of ``d_model``
+    dimensions in ``d_ff`` tables, bfloat16 vectors (the JAX
+    ``IndexConfig``'s default, so the cell is the reference's), the rows
+    over all ``chips`` devices."""
+    from ..index.config import IndexConfig
+
+    return IndexConfig(n=cfg.vocab, d=cfg.d_model, beta=cfg.d_ff,
+                       vec_dtype="bfloat16", n_shards=chips)
+
+
+def trace_index(icfg, kind: str, mesh, inputs: dict | None = None,
+                device="meta") -> dict:
+    """The counts of one index step on ``mesh`` (``_count``'s dict): the
+    build step (``kind="build"``) or the query step (``"query"``), on
+    ``inputs`` (whole tensors, each rank keeping its shard: the state's
+    fields and the step's arguments under the names of
+    ``build_input_specs`` / ``query_input_specs``) or, without them, on
+    meta tensors.  ``device`` is where the counted tensors lie."""
+    from ..distributed.group_sharding import (distribute_state,
+                                              state_shardings)
+    from ..index.builder import build_input_specs, make_build_step
+    from ..index.engine import make_query_step, query_input_specs, shardings
+    from ..models.params import distribute
+
+    layout = state_shardings(mesh, icfg)
+    counter = StepCounter(mesh, device=device)
+    if kind == "build":  # points, proj, b_int, b_frac: the state's fields
+        spec = inputs or build_input_specs(icfg)
+        args = {k: distribute(v, getattr(layout, k)) for k, v in spec.items()}
+        step = make_build_step(mesh, icfg)
+        return _count(counter, args, lambda: step(**args))
+    spec = dict(inputs or query_input_specs(icfg))
+    state = distribute_state(spec.pop("state"), layout)
+    sh = shardings(mesh)
+    args = {k: distribute(v, sh["queries" if v.ndim == 2 else "q_meta"])
+            for k, v in spec.items()}
+    step = make_query_step(mesh, icfg)
+
+    def run():
+        with torch.no_grad():
+            step(state, **args)
+
+    return _count(counter, {"state": vars(state), **args}, run)
+
+
+def lower_index(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """(traced, chips, extras) of an index cell on ``mesh``: the build
+    step (train shapes) or the query step, traced once on meta
+    ``DTensor``s."""
+    chips = mesh.size()
+    icfg = index_config(cfg, chips)
+    kind = "build" if shape.kind == "train" else "query"
+    traced = trace_index(icfg, kind, mesh)
+    method = ("direct (one hash_encode launch over each device's rows)"
+              if kind == "build" else
+              "direct (one launch a pass over each device's rows)")
+    return traced, chips, {"index_cfg": dataclasses.asdict(icfg),
+                           "analysis_method": method,
+                           "kernels": traced["kernels"]}
 
 
 def _analysis_depths(cfg: ModelConfig) -> tuple[int, int]:
@@ -304,8 +375,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: str,
             traced, chips, extras = lower_cell(
                 arch, shape_name, mesh_name, device_type=device_type
             )
-            terms = analysis_terms(arch, shape_name, mesh_name,
-                                   device_type=device_type)
+            terms = (None if cfg.family == "index" else analysis_terms(
+                arch, shape_name, mesh_name, device_type=device_type))
             rr = analyze(
                 arch, shape_name, mesh_name, chips, traced,
                 model_flops(cfg, shape), terms=terms,
@@ -316,7 +387,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: str,
                 "compile_s": round(time.time() - t0, 1),
                 "fits_hbm": bool(mem_total <= HBM_PER_CHIP),
                 "hbm_gb": round(mem_total / 1024**3, 2),
-                "analysis_method": terms.get("method", "direct"),
+                "analysis_method": (terms or {}).get("method", "direct"),
                 **rr.to_dict(),
                 **extras,
                 "hw": dataclasses.asdict(HW()),

@@ -3,7 +3,10 @@
 
 Per (arch x shape x mesh):
 
-    compute term    = FLOPs / (989 TFLOP/s dense bf16 a card)
+    compute term    = FLOPs / (989 TFLOP/s dense bf16 a card), but each
+                      launch of a retrieval kernel at the rates of its
+                      own bound (float32 and int32 on the CUDA cores,
+                      ``kernels/cost.py``)
     memory term     = bytes / (3.35 TB/s HBM3 a card)
     collective term = collective_wire_bytes / (450 GB/s NVLink a card)
 
@@ -13,7 +16,12 @@ collective bytes from the compiled HLO.  The port has no compiled program:
 ``DTensor``s and counts what each device runs, on its local shards:
 
   * FLOPs — ``torch.utils.flop_counter``'s formulas (those
-    ``FlopCounterMode`` applies) on every local op it has one for;
+    ``FlopCounterMode`` applies) on every local op it has one for; a
+    ``repro_torch`` op (a kernel wrapper, one op a call: the dispatcher
+    hides its inner ops) is counted by ``kernels/cost.py`` instead, its
+    floating-point operations in the FLOPs and its whole cost in
+    ``kernels`` (launches, operations by unit, bytes, seconds at its
+    units' rates);
   * bytes — each local op's tensor inputs read once and outputs written
     once, views excluded (an eager, unfused count: no two ops share a
     read);
@@ -43,8 +51,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
-__all__ = ["HW", "StepCounter", "collective_bytes", "analyze",
-           "RooflineResult"]
+__all__ = ["HW", "StepCounter", "collective_bytes", "kernel_terms",
+           "analyze", "RooflineResult"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +67,14 @@ class HW:
     link_bw: float = 450e9  # bytes/s / card (NVLink, one direction)
     dcn_bw: float = 50e9  # bytes/s / card (inter-pod)
     name: str = "NVIDIA H100 80GB HBM3, 700 W"
+    # the CUDA cores, where the retrieval kernels run (kernels/cost.py):
+    # float32 FLOP/s (an FMA counts two), float32 instructions a second
+    # (128 lanes an SM x 132 SMs x 1.98 GHz boost), int32 at 64 lanes an
+    # SM, the special-function units (sqrt, log2, exp2) at 16 an SM
+    f32_flops: float = 67e12
+    f32_ops: float = 132 * 128 * 1.98e9
+    int32_ops: float = 132 * 64 * 1.98e9
+    sfu_ops: float = 132 * 16 * 1.98e9
 
 
 _KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
@@ -111,6 +127,7 @@ class StepCounter(TorchDispatchMode):
         self.coll = dict.fromkeys(_KINDS, 0)
         self.counts = dict.fromkeys(_KINDS, 0)
         self.dcn = 0
+        self.kernels: dict = {}
         self.cur = 0
         self.peak = 0
         self._args: set = set()
@@ -172,7 +189,9 @@ class StepCounter(TorchDispatchMode):
                 for t in outs):
             return out  # not the step's (see the module docstring)
         packet = func._overloadpacket
-        if packet in self._registry:
+        if func.namespace == "repro_torch":
+            self._kernel(func._opname, args, kwargs)
+        elif packet in self._registry:
             self.flops += float(self._registry[packet](*args, **kwargs,
                                                        out_val=out))
         comm = func.namespace == "_c10d_functional"
@@ -185,12 +204,37 @@ class StepCounter(TorchDispatchMode):
             group = args[-1] if args and isinstance(args[-1], str) else None
             if self._group_axis.get(group) == "pod":
                 self.dcn += b
-        elif not comm and func._opname not in _VIEWS:
+        elif (not comm and func.namespace != "repro_torch"
+              and func._opname not in _VIEWS):
             ins = [t for t in tree_flatten((args, kwargs))[0]
                    if isinstance(t, torch.Tensor)]
             self.bytes += sum(_nbytes(t) for t in ins + outs)
         self._track(outs)
         return out
+
+
+    def _kernel(self, name: str, args, kwargs) -> None:
+        from ..kernels import cost
+
+        c = cost.of_op(name, args, kwargs)
+        ent = self.kernels.setdefault(name, dict(
+            launches=0, f32_flops=0.0, f32_ops=0.0, int32_ops=0.0,
+            sfu_ops=0.0, bytes=0, ops_s=0.0))
+        ent["launches"] += 1
+        for k in ("f32_flops", "f32_ops", "int32_ops", "sfu_ops", "bytes"):
+            ent[k] += getattr(c, k)
+        ent["ops_s"] += c.ops_s(HW())
+        self.flops += c.flops
+        self.bytes += c.bytes
+
+
+def kernel_terms(counter: StepCounter) -> dict:
+    """The kernels' share of a step's compute: their floating-point
+    operations (inside ``counter.flops``) and their seconds at their own
+    units' rates."""
+    ks = counter.kernels.values()
+    return {"kernel_flops": sum(k["f32_flops"] + k["f32_ops"] for k in ks),
+            "kernel_s": sum(k["ops_s"] for k in ks)}
 
 
 def collective_bytes(counter: StepCounter) -> dict:
@@ -218,8 +262,13 @@ class RooflineResult:
     memory_s: float = 0.0
     collective_s: float = 0.0
 
-    def finalize(self, hw: HW = HW()):
-        self.compute_s = self.hlo_flops_per_chip / hw.peak_flops
+    def finalize(self, hw: HW = HW(), kernel_flops: float = 0.0,
+                 kernel_s: float = 0.0):
+        """The three terms; ``kernel_flops`` of the FLOPs are the
+        retrieval kernels', which take ``kernel_s`` at their own rates
+        instead of the bfloat16 peak."""
+        self.compute_s = ((self.hlo_flops_per_chip - kernel_flops)
+                          / hw.peak_flops + kernel_s)
         self.memory_s = self.hlo_bytes_per_chip / hw.hbm_bw
         self.collective_s = self.coll_bytes_per_chip / hw.link_bw
         return self
@@ -273,9 +322,10 @@ def analyze(
     terms: dict | None = None,
 ) -> RooflineResult:
     """``traced`` is the dry-run's count of one full-depth step (its
-    ``flops``, ``bytes``, ``coll_detail`` and ``memory``); ``terms``
-    overrides the first three with the two-point depth extrapolation of
-    ``dryrun.analysis_terms``."""
+    ``flops``, ``bytes``, ``coll_detail`` and ``memory``, and the
+    kernels' ``kernel_flops`` and ``kernel_s`` where a step launches
+    any); ``terms`` overrides the first three with the two-point depth
+    extrapolation of ``dryrun.analysis_terms``."""
     src = terms if terms is not None else traced
     coll = {"total": src["coll"], "bytes": src.get("coll_detail", {}),
             "counts": {}} if terms is not None else traced["coll_detail"]
@@ -290,4 +340,5 @@ def analyze(
         coll_detail=coll,
         model_flops=model_flops,
         memory=dict(traced["memory"]),
-    ).finalize(hw)
+    ).finalize(hw, traced.get("kernel_flops", 0.0),
+               traced.get("kernel_s", 0.0))
