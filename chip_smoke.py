@@ -216,13 +216,20 @@ non-zero:
                dispatch); the index's mesh steps on the same one-rank
                mesh at the slice's widest group's shapes (n = 400,000,
                d = 400, beta_pad = 512, Q = 64, L = 16; seeded rows on the
-               card): make_build_step's codes and vectors bit-equal to the
-               device encode (ops.hash_encode, as build_shards calls it),
-               make_query_step's answers bit-equal to the device-list
+               card): the state built by build_state (the family folded
+               by fold_center_weight), every field bit-equal to
+               make_build_step + distribute_state and its codes and
+               vectors to the device encode (ops.hash_encode, as
+               build_shards calls it), make_query_step's answers over it
+               bit-equal to the device-list
                engine's query_step, the kernels launched exactly as the
                steps need, the StepCounter's count of the real CUDA steps
                equal to a meta trace's in a child process, each step's
-               measured ms over its roofline step; and the dry-run's four
+               measured ms over its roofline step; kernels/ref.py's
+               count_level_ref on the card at (Q, n, beta) = (64, 4,096,
+               512), c = 3, levels 0-3 (the state's codes, half of them
+               negated) equal to the same call on the CPU; and the
+               dry-run's four
                wlsh_index cells (build and query on both production
                meshes, a child process): ok, state bytes a device, GB,
                terms and bottleneck
@@ -3931,8 +3938,8 @@ def _mesh_index_cells(proc, out_dir, smi) -> None:
 
 
 def _mesh_index_state(torch, dev):
-    """Seeded rows, a p = 2 family and 64 queries near rows at the mesh
-    leg's index shapes, on the card."""
+    """Seeded rows on the card, a p = 2 family (on the host) and 64
+    queries near the rows ``take``, at the mesh leg's index shapes."""
     from repro_torch.core.distances import radius_bounds
     from repro_torch.core.families import sample_lp_family
 
@@ -3956,10 +3963,8 @@ def _mesh_index_state(torch, dev):
     wq = w[None, :] * rng.uniform(0.8, 1.2, (q, d))
     beta_q = rng.integers(int(0.86 * beta), int(0.9 * beta) + 1, q)
     return dict(
-        proj=put(fam.proj.astype(np.float64) * fam.center_weight[:, None]
-                 / fam.width, np.float32),
-        b_int=put(fam.b_int, np.int32), b_frac=put(fam.b_frac, np.float32),
-        points=points, queries=queries, q_weight=put(wq, np.float32),
+        fam=fam, take=take, points=points, queries=queries,
+        q_weight=put(wq, np.float32),
         mu=put([rng.integers(b // 5, 3 * b // 5) for b in beta_q], np.int32),
         beta_q=put(beta_q, np.int32), r_min=put(wq.min(axis=1), np.float32),
         levels_q=put(np.full(q, mi["n_levels"]), np.int32))
@@ -3969,7 +3974,10 @@ def _mesh_index(torch, dev, mesh, proc, smi):
     """The index's mesh steps on the one-rank mesh (see the module
     docstring).  Returns the launches of the steps' own run and every
     launch the leg makes."""
-    from repro_torch.index.builder import make_build_step
+    from repro_torch.distributed.group_sharding import (distribute_state,
+                                                        state_shardings)
+    from repro_torch.index.builder import (build_state, fold_center_weight,
+                                           make_build_step)
     from repro_torch.index.config import IndexConfig
     from repro_torch.index.engine import (QueryState, encode_queries,
                                           make_query_step, query_step)
@@ -3980,15 +3988,15 @@ def _mesh_index(torch, dev, mesh, proc, smi):
     t0 = time.time()
     icfg = IndexConfig(**MESH_INDEX)
     x = _mesh_index_state(torch, dev)
+    folded = {k: torch.as_tensor(v, device=dev)
+              for k, v in fold_center_weight(x["fam"]).items()}
+    fam = {k: folded[k] for k in ("proj", "b_int", "b_frac")}
+    fields = ("codes", "points", "proj", "b_int", "b_frac", "width")
     before = _cuda.launch_counts()
     # the main path: build the state, encode the queries, answer them
-    build = make_build_step(mesh, icfg)
-    codes, vecs = build(x["points"], x["proj"], x["b_int"], x["b_frac"])
-    fam = {k: x[k] for k in ("proj", "b_int", "b_frac")}
-    state = QueryState(codes=codes, points=vecs, width=torch.ones(
-        (), device=dev), n_valid=icfg.n, **fam)
-    local = QueryState(codes=codes.to_local(), points=vecs.to_local(),
-                       width=state.width, n_valid=icfg.n, **fam)
+    state = build_state(mesh, icfg, x["points"], x["fam"])
+    local = QueryState(n_valid=state.n_valid, **{
+        f: getattr(state, f).to_local() for f in fields})
     q_codes = encode_queries(local, x["queries"])
     args = [x["queries"], q_codes, x["q_weight"], x["mu"], x["r_min"],
             x["beta_q"], x["levels_q"]]
@@ -4001,12 +4009,25 @@ def _mesh_index(torch, dev, mesh, proc, smi):
                           "hash_encode": 2, "freq_level": 0,
                           "weighted_lp": 0}, "mesh index steps")
 
-    # held to the device-list engine and the device encode
+    # held to make_build_step + distribute_state, the device encode and
+    # the device-list engine
+    build = make_build_step(mesh, icfg)
+    codes, vecs = build(x["points"], *fam.values())
+    hand = distribute_state(QueryState(
+        codes=codes.full_tensor(), points=vecs.full_tensor(),
+        width=folded["width"], n_valid=icfg.n, **fam),
+        state_shardings(mesh, icfg))
+    differ = [f for f in fields if tuple(getattr(state, f).placements)
+              != tuple(getattr(hand, f).placements) or not torch.equal(
+                  getattr(local, f), getattr(hand, f).to_local())]
+    _need(not differ and state.n_valid == hand.n_valid == icfg.n,
+          f"mesh index: build_state differs from make_build_step + "
+          f"distribute_state in {differ} (n_valid {state.n_valid})")
     ones = torch.ones(icfg.d, dtype=torch.float32, device=dev)
     want_codes = ops.hash_encode(x["points"], ones, *fam.values(), 1.0)
-    _need(torch.equal(codes.to_local(), want_codes)
-          and torch.equal(vecs.to_local(), x["points"]),
-          "mesh index: make_build_step differs from the device encode")
+    _need(torch.equal(local.codes, want_codes)
+          and torch.equal(local.points, x["points"]),
+          "mesh index: build_state differs from the device encode")
     want = query_step(local, *args, cfg=icfg)
     same = [torch.equal(a.view(torch.int32), b.view(torch.int32))
             for a, b in zip(got, want)]
@@ -4016,8 +4037,7 @@ def _mesh_index(torch, dev, mesh, proc, smi):
     # the counter on the real CUDA steps against the meta trace
     inputs = dict(query=dict(state=local, **dict(zip(
         ("queries", "q_codes", "q_weight", "mu", "r_min", "beta_q",
-         "levels_q"), args))), build={k: x[k] for k in (
-            "points", "proj", "b_int", "b_frac")})
+         "levels_q"), args))), build=dict(points=x["points"], **fam))
     card = {k: dryrun.trace_index(icfg, k, mesh, v, device=dev)
             for k, v in inputs.items()}
     meta = json.loads(_mesh_wait(proc, "index trace").strip()
@@ -4033,9 +4053,11 @@ def _mesh_index(torch, dev, mesh, proc, smi):
     # each step's measured time over its roofline step
     reps = MESH_INDEX_REPS
     ms = dict(
-        build=_time_ms(lambda: build(x["points"], x["proj"], x["b_int"],
-                                     x["b_frac"]), torch, reps),
+        build=_time_ms(lambda: build(x["points"], *fam.values()), torch,
+                       reps),
         query=_time_ms(lambda: step(state, *args), torch, reps))
+    ms_state = _time_ms(lambda: build_state(mesh, icfg, x["points"],
+                                            x["fam"]), torch, reps)
     ms_list = _time_ms(lambda: query_step(local, *args, cfg=icfg), torch,
                        reps)
     n, q, d = icfg.n, icfg.q_batch, icfg.d
@@ -4054,17 +4076,55 @@ def _mesh_index(torch, dev, mesh, proc, smi):
             f" kernels {sorted(ks)} (= the meta trace's); predicted peak "
             f"{card[kind]['memory']['total_bytes']} B"
             + (f"; the device-list engine {ms_list:.3f} ms" if kind ==
-               "query" else "") + f" [{smi}]")
+               "query" else f"; build_state {ms_state:.3f} ms (the fold, "
+               f"the family's upload and layout on top)") + f" [{smi}]")
+    _mesh_count_level(torch, local.codes, q_codes, x["take"], smi)
     stop, n_checked = got[2].float(), got[3].float()
-    say(f"mesh index: build and query steps bit-equal to the device encode "
-        f"and to query_step; mean stop {stop.mean():.2f}, mean n_checked "
+    say(f"mesh index: build_state bit-equal to make_build_step + "
+        f"distribute_state and to the device encode, the query step to "
+        f"query_step; mean stop {stop.mean():.2f}, mean n_checked "
         f"{n_checked.mean():.1f}; {time.time() - t0:.1f}s [{smi}]")
     # every launch of the leg: the steps' run, the holds, the counter's
     # runs and the timed runs
-    total = dict(main, hash_encode=main["hash_encode"] + 2 + reps,
+    total = dict(main, hash_encode=main["hash_encode"] + 3 + 2 * reps,
                  fused_query_hist=main["fused_query_hist"] + 2 + 2 * reps,
                  fused_query_scores=main["fused_query_scores"] + 2 + 2 * reps)
     return main, total
+
+
+def _mesh_count_level(torch, codes, q_codes, take, smi) -> None:
+    """``kernels/ref.py``'s ``count_level_ref`` (the paper-faithful
+    collision counts at one level; plain torch, no kernel) on the card
+    against the same call on the CPU, bit for bit: the query codes against
+    4,096 state rows, the queries' own source rows first; the second half
+    of the rows and of the queries negated (-x - 1, which keeps their
+    collisions at every level) for floor division below zero."""
+    from repro_torch.kernels import ref
+
+    def neg(t):
+        return torch.cat([t[:len(t) // 2], -t[len(t) // 2:] - 1])
+
+    q, h, half = len(take), len(take) // 2, 2048
+    cp = neg(torch.cat([codes[take[:h]], codes[:half - h],
+                        codes[take[h:]], codes[half:2 * half - (q - h)]]))
+    cq = neg(q_codes)
+    own = torch.cat([torch.arange(h), half + torch.arange(q - h)])
+    cp_h, cq_h = cp.cpu(), cq.cpu()
+    means = []
+    for level in range(4):
+        got = ref.count_level_ref(cp, cq, 3, level)
+        want = ref.count_level_ref(cp_h, cq_h, 3, level)
+        _need(got.device == cp.device and got.dtype == torch.int32
+              and torch.equal(got.cpu(), want),
+              f"count_level_ref at level {level}: the card differs from "
+              f"the CPU")
+        means.append(f"{want[torch.arange(q), own].double().mean():.1f} / "
+                     f"{want.double().mean():.3f}")
+    ms = _time_ms(lambda: ref.count_level_ref(cp, cq, 3, 3), torch, 3)
+    say(f"count_level_ref: (Q, n, beta) = ({cq.shape[0]}, {cp.shape[0]}, "
+        f"{cp.shape[1]}), c = 3, levels 0-3 on the card equal to the CPU bit "
+        f"for bit; mean counts with the query's own row / over all rows "
+        f"{'; '.join(means)}; {ms:.3f} ms a call at level 3 [{smi}]")
 
 
 def _mesh_analysis(torch, dev, proc, train, smi) -> None:

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["ratio_bounds", "derived_sensitivity"]
+__all__ = ["ratio_bounds", "derived_sensitivity", "angular_bounds"]
 
 
 def _ratio_reduce(center: np.ndarray, targets: np.ndarray, v: int,
@@ -65,3 +65,16 @@ def derived_sensitivity(
     y_down = np.asarray(y) * lo
     useful = (x_up > 0) & (x_up < y_down)
     return x_up, y_down, useful
+
+
+def angular_bounds(center, target, R: float, c: float):
+    """Theorem 1(3) bounds for the angular distance (reference only), in
+    float64: (R^up, (cR)^down) of the family built for ``center`` and
+    queried under ``target``."""
+    t2 = (np.asarray(center, np.float64) / np.asarray(target, np.float64)) ** 2
+    M, N = float(np.max(t2)), float(np.min(t2))
+    X = np.cos(R) + (N - M) / M
+    Y = M * np.cos(c * R) / N + (M - N) / N
+    r_up = np.arccos(max(-1.0, X))
+    cr_down = np.arccos(min(1.0, Y))
+    return r_up, cr_down

@@ -1,14 +1,21 @@
-"""Weighted l_p distance (Definition 4), host-side numpy.
+"""Weighted distance functions (Definition 4) for l_p, Hamming and
+angular, host-side numpy.
 
 ``weighted_lp_np`` is the exact (float64) ground truth of the dense host
-oracle and the tests; ``radius_bounds`` feeds the planner.
+oracle and the tests; ``radius_bounds`` feeds the planner.  The Hamming
+and angular forms (Appendix B) are references only: the index serves l_p.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["weighted_lp_np", "radius_bounds"]
+__all__ = [
+    "weighted_lp_np",
+    "weighted_hamming_np",
+    "weighted_angular_np",
+    "radius_bounds",
+]
 
 
 def weighted_lp_np(x, y, weight, p: float):
@@ -19,6 +26,20 @@ def weighted_lp_np(x, y, weight, p: float):
     if abs(p - 1.0) < 1e-9:
         return np.sum(diff, axis=-1)
     return np.sum(diff**p, axis=-1) ** (1.0 / p)
+
+
+def weighted_hamming_np(x, y, weight):
+    """Weighted Hamming: sum of w_i over differing coordinates (App. B)."""
+    return np.sum(np.asarray(weight) * (np.asarray(x) != np.asarray(y)), axis=-1)
+
+
+def weighted_angular_np(x, y, weight):
+    """Angle between W o x and W o y in float64, in [0, pi] (App. B)."""
+    wx = np.asarray(x, np.float64) * weight
+    wy = np.asarray(y, np.float64) * weight
+    num = np.sum(wx * wy, axis=-1)
+    den = np.linalg.norm(wx, axis=-1) * np.linalg.norm(wy, axis=-1)
+    return np.arccos(np.clip(num / np.maximum(den, 1e-300), -1.0, 1.0))
 
 
 def radius_bounds(weight, value_range: float, p: float, grid: float = 1.0):

@@ -20,6 +20,9 @@ uniform on [0, 1), and
 equals floor((a.(W o x) + b*)/w) exactly (b_int is an integer shift of
 bucket ids) while keeping every float intermediate small.  Level-l ids are
 then exact integer divisions of int32 codes.
+
+Hamming / angular weighted families (Appendix B) are provided for
+completeness; the WLSH index itself targets l_p per the paper.
 """
 
 from __future__ import annotations
@@ -31,7 +34,15 @@ import numpy as np
 
 from .pstable import sample_pstable_np
 
-__all__ = ["LpFamilyParams", "sample_lp_family", "hash_codes_np"]
+__all__ = [
+    "LpFamilyParams",
+    "sample_lp_family",
+    "hash_codes_np",
+    "sample_hamming_family",
+    "hamming_codes_np",
+    "sample_angular_family",
+    "angular_codes_np",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +64,25 @@ class LpFamilyParams:
     @property
     def d(self) -> int:
         return self.proj.shape[0]
+
+    def folded(self) -> dict[str, np.ndarray]:
+        """Center weight + width folded into the projection (device form).
+
+        The fold runs in float64 and casts once to float32; with the
+        folded projection both data and queries hash at unit weight and
+        width: codes = floor(x @ proj_folded + b_frac) + b_int.
+        """
+        proj = (
+            self.proj.astype(np.float64)
+            * self.center_weight[:, None].astype(np.float64)
+            / self.width
+        )
+        return dict(
+            proj=proj.astype(np.float32),
+            b_int=self.b_int.astype(np.int32),
+            b_frac=self.b_frac.astype(np.float32),
+            width=np.float32(1.0),
+        )
 
 
 def sample_lp_family(
@@ -97,3 +127,35 @@ def hash_codes_np(points: np.ndarray, fam: LpFamilyParams) -> np.ndarray:
     return (np.floor(u).astype(np.int64) + fam.b_int.astype(np.int64)).astype(
         np.int32
     )
+
+
+# ----------------------------------------------------------------------------
+# Appendix B families (Hamming / angular), host-side reference forms.
+# ----------------------------------------------------------------------------
+
+
+def sample_hamming_family(
+    d: int, beta: int, weight: np.ndarray, seed: int = 0
+) -> np.ndarray:
+    """Indices k drawn with PMF w_k / sum(w); h(x) = w_k x_k (App. B)."""
+    rng = np.random.default_rng(seed)
+    w = np.asarray(weight, np.float64)
+    return rng.choice(d, size=beta, p=w / w.sum())
+
+
+def hamming_codes_np(points, ks, weight):
+    """(n, beta) codes w_k x_k of the sampled indices ``ks``."""
+    return np.asarray(points)[:, ks] * np.asarray(weight)[ks]
+
+
+def sample_angular_family(
+    d: int, beta: int, seed: int = 0
+) -> np.ndarray:
+    """(d, beta) standard Gaussian directions u (App. B)."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((d, beta))
+
+
+def angular_codes_np(points, us, weight):
+    """sign(u . (W o x)) in {0, 1}."""
+    return (np.asarray(points) * np.asarray(weight) @ us >= 0).astype(np.int8)

@@ -96,22 +96,9 @@ class GroupServingPlan:
         )
 
     def folded(self) -> dict[str, np.ndarray]:
-        """Center weight + width folded into the projection (device form).
-
-        With the folded projection both data and queries hash at unit
-        weight/width: codes = floor(x @ proj_folded + b_frac) + b_int.
-        """
-        proj = (
-            self.proj.astype(np.float64)
-            * self.center_weight[:, None].astype(np.float64)
-            / self.width
-        )
-        return dict(
-            proj=proj.astype(np.float32),
-            b_int=self.b_int.astype(np.int32),
-            b_frac=self.b_frac.astype(np.float32),
-            width=np.float32(1.0),
-        )
+        """Center weight + width folded into the projection (device form,
+        ``LpFamilyParams.folded``)."""
+        return self.family().folded()
 
     def encode_host(self, points: np.ndarray) -> np.ndarray:
         """(n, beta_group) int32 bucket codes, host-exact (float64) path."""

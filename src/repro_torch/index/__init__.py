@@ -2,7 +2,8 @@
 the streaming primitives (delta memtables, sealed segments, exact scan)."""
 
 from .builder import (append_to_state, build_group_state, build_input_specs,
-                      make_build_step, pad_cols, seal_segment)
+                      build_state, fold_center_weight, make_build_step,
+                      pad_cols, seal_segment)
 from .config import IndexConfig, pad_beta, pad_levels
 from .engine import (QueryState, QueryStepCache, encode_queries,
                      make_query_step, query_input_specs, query_step,
@@ -18,8 +19,10 @@ __all__ = [
     "append_to_state",
     "build_group_state",
     "build_input_specs",
+    "build_state",
     "encode_queries",
     "exact_weighted_lp",
+    "fold_center_weight",
     "make_build_step",
     "make_query_step",
     "pad_beta",

@@ -29,7 +29,8 @@ and paged shard by shard (``distributed.group_sharding``): each shard
 holds a contiguous row slice and equals that slice of the unsharded
 build, bit for bit.  ``make_build_step`` is the same device encode over
 a ``DeviceMesh``, one process a device, as the JAX package's sharded
-build step (which the dry-run traces).
+build step (which the dry-run traces); ``build_state`` runs it on host
+rows and a sampled family and returns the mesh ``QueryState``.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import weakref
 import numpy as np
 import torch
 
+from ..core.families import LpFamilyParams
 from ..core.serving_plan import GroupServingPlan
 from ..distributed import group_sharding
 from ..distributed.group_sharding import (
@@ -56,6 +58,8 @@ __all__ = [
     "append_to_state",
     "build_group_state",
     "build_input_specs",
+    "build_state",
+    "fold_center_weight",
     "make_build_step",
     "offload_state",
     "pad_cols",
@@ -92,6 +96,14 @@ def pad_cols(x: np.ndarray, beta: int) -> np.ndarray:
         raise ValueError(f"group beta {have} exceeds padded config beta {beta}")
     pad = [(0, 0)] * (x.ndim - 1) + [(0, beta - have)]
     return np.pad(x, pad)
+
+
+def fold_center_weight(fam: LpFamilyParams) -> dict[str, np.ndarray]:
+    """Fold center weight + width into the projection (host-side, once):
+    float64 fold, then float32 ``proj``, int32 ``b_int``, float32
+    ``b_frac`` and ``width = 1.0`` (``LpFamilyParams.folded``, the same
+    body as ``GroupServingPlan.folded``)."""
+    return fam.folded()
 
 
 def make_build_step(mesh, cfg: IndexConfig):
@@ -132,6 +144,35 @@ def make_build_step(mesh, cfg: IndexConfig):
                                 for x in (proj, b_int, b_frac)))
 
     return step
+
+
+def build_state(mesh, cfg: IndexConfig, points,
+                fam: LpFamilyParams) -> QueryState:
+    """A mesh ``QueryState`` from host rows and a sampled family.
+
+    Folds the family (``fold_center_weight``) and runs
+    ``make_build_step(mesh, cfg)`` on the mesh's device: the
+    ``hash_encode`` kernel on a CUDA mesh (which raises rather than fall
+    back), its plain version on a CPU mesh.  Codes and vectors are
+    ``DTensor``s with their rows over every mesh axis; the folded family
+    and ``width`` are replicated as ``group_sharding.state_shardings``
+    lays them out; ``n_valid`` is ``len(points)``, a Python int.
+    ``points`` (a numpy array, a tensor or a rows-sharded ``DTensor``)
+    fills the config's capacity ``cfg.n``.
+    """
+    from ..models.params import distribute
+
+    dev = resolve_device(mesh.device_type)
+    n_valid = len(points)
+    if not hasattr(points, "device_mesh"):
+        points = torch.as_tensor(points, dtype=torch.float32, device=dev)
+    fam_t = {k: torch.as_tensor(v, device=dev)
+             for k, v in fold_center_weight(fam).items()}
+    codes, vecs = make_build_step(mesh, cfg)(
+        points, fam_t["proj"], fam_t["b_int"], fam_t["b_frac"])
+    sh = group_sharding.state_shardings(mesh, cfg)
+    return QueryState(codes=codes, points=vecs, n_valid=n_valid, **{
+        k: distribute(v, getattr(sh, k)) for k, v in fam_t.items()})
 
 
 def build_input_specs(cfg: IndexConfig) -> dict:

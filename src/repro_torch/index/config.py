@@ -80,6 +80,11 @@ class IndexConfig:
     # contiguous slice of n / n_shards rows each (distributed.group_sharding)
 
     @property
+    def gamma(self) -> float:
+        """The paper's gamma: the candidate budget's share of the rows."""
+        return self.gamma_n / self.n
+
+    @property
     def budget(self) -> int:
         """Candidate budget k + ceil(gamma * n) (paper stop condition 2).
 

@@ -14,6 +14,9 @@ and ``chip_smoke.py`` runs them on the card beside the kernels.  Shapes:
                     *frequent* for the query (collision count >= mu at
                     level-c^j buckets); n_levels + 1 if never frequent.
   weighted_lp_ref : (Q, d) x (n, d) -> (Q, n) distances under one weight
+  count_level_ref : (n, beta) codes x (Q, beta) query codes -> (Q, n) int32
+                    collision counts at the one level c**level (the
+                    paper-faithful single radius; no kernel behind it)
 
 ``freq_level_words_ref`` computes ``freq_level_ref``'s output the way the
 fused CUDA kernel does for c in {2, 3}: the first agreeing level of each
@@ -54,6 +57,7 @@ __all__ = [
     "hash_code_window",
     "unbias_codes",
     "freq_level_ref",
+    "count_level_ref",
     "dead_word",
     "digit_words",
     "first_agreeing_level",
@@ -216,6 +220,25 @@ def freq_level_ref(codes_p, codes_q, mu, c: int, n_levels: int, beta_q=None):
             blk.masked_fill_(hit, j)
             a = torch.div(a, c, rounding_mode="floor")
             b = torch.div(b, c, rounding_mode="floor")
+    return out
+
+
+def count_level_ref(codes_p, codes_q, c: int, level: int):
+    """Collision counts at level c**level (paper-faithful single radius):
+    (Q, n) int32, the tables on which ``codes // c**level`` of the query
+    and of the row agree.  Floor division rounds toward minus infinity,
+    as codes can be negative."""
+    l = c**level
+    q, beta = codes_q.shape
+    n = codes_p.shape[0]
+    b = torch.div(codes_q.to(torch.int32), l, rounding_mode="floor")
+    out = torch.empty((q, n), dtype=torch.int32, device=codes_q.device)
+    step = _row_chunk(q, beta)
+    for lo in range(0, n, step):
+        a = torch.div(codes_p[lo : lo + step].to(torch.int32), l,
+                      rounding_mode="floor")
+        out[:, lo : lo + step] = (b[:, None, :] == a[None, :, :]).sum(
+            -1, dtype=torch.int32)
     return out
 
 

@@ -2,8 +2,8 @@
 factory, in plain torch on one device."""
 
 from .model import build_model, default_flags, input_specs, make_batch
-from .params import (abstract_params, count_params, init_params, pdef,
-                     stack_defs, tree_bytes)
+from .params import (abstract_params, count_params, init_params, param_specs,
+                     pdef, stack_defs, tree_bytes)
 from .transformer import Model, RunFlags
 
 __all__ = [
@@ -16,6 +16,7 @@ __all__ = [
     "init_params",
     "input_specs",
     "make_batch",
+    "param_specs",
     "pdef",
     "stack_defs",
     "tree_bytes",

@@ -21,7 +21,8 @@ compaction issued right after a prefetched restore (on a second
 stream) to a fresh union build and to an unpaged service, and a
 replaced state's offload to the group's existing pinned buffers.  The
 bench sentinel's workload on the card is held to its CPU run's seeded
-metrics.
+metrics.  ``index.builder.build_state`` on a one-rank NCCL mesh launches
+``hash_encode`` once and gives the plain version's codes.
 """
 
 from __future__ import annotations
@@ -722,3 +723,55 @@ def test_sentinel_on_the_card_matches_the_cpu(dev):
     assert launches["fused_query_scores"] > 0
     assert launches["hash_encode"] == launches["freq_level"] == 0
     assert launches["weighted_lp"] == 0
+
+
+def test_build_state_on_a_card_mesh_launches_hash_encode(dev):
+    """``build_state`` on a (1, 1) mesh of a one-rank NCCL group: one
+    ``hash_encode`` launch, codes equal to the plain version on the card
+    (and the kernel within the float64 window), vectors and the folded
+    family as given, every field on the card."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.families import sample_lp_family
+    from repro_torch.index import IndexConfig, build_state, fold_center_weight
+
+    rng = np.random.default_rng(21)
+    n, d, beta = 3000, 37, 96
+    w = rng.uniform(1.0, 10.0, d)
+    fam = sample_lp_family(d, beta, 2.0, 1.0, w, 50.0, 3, seed=22)
+    points = rng.uniform(0.0, 1000.0, (n, d)).astype(np.float32)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        _cuda.reset_launch_counts()
+        state = build_state(mesh, IndexConfig(n=n, d=d, beta=beta), points,
+                            fam)
+        torch.cuda.synchronize()
+        assert _cuda.launch_counts()["hash_encode"] == 1
+        local = {f: getattr(state, f).to_local() for f in (
+            "codes", "points", "proj", "b_int", "b_frac", "width")}
+    finally:
+        dist.destroy_process_group()
+    assert all(t.device.type == "cuda" for t in local.values())
+    folded = fold_center_weight(fam)
+    for k in ("proj", "b_int", "b_frac", "width"):
+        assert torch.equal(local[k].cpu(), torch.as_tensor(folded[k])), k
+    x = torch.from_numpy(points).to(dev)
+    assert torch.equal(local["points"], x)
+    ones = torch.ones(d, device=dev)
+    want = ref.hash_encode_ref(x, local["proj"], local["b_int"],
+                               local["b_frac"], ones, 1.0)
+    assert torch.equal(local["codes"], want)
+    lo, hi = ref.hash_code_window(x, local["proj"], local["b_frac"], ones,
+                                  1.0)
+    v = ref.unbias_codes(local["codes"], local["b_int"])
+    assert int(((v < lo) | (v > hi)).sum()) == 0
+    assert state.n_valid == n

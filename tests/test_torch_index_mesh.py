@@ -12,7 +12,9 @@ cost model (``kernels/cost.py``) and the custom ops the counter sees.
   Every rank gets the same answers, and rank r's rows start at r x n_loc.
 * The mesh build step's codes inside the float64 window and equal to the
   one-device encode of the whole corpus; its vectors the corpus rows cast
-  to float32 and to bfloat16, bit for bit.
+  to float32 and to bfloat16, bit for bit.  ``build_state`` on the same
+  8 ranks equal, shard by shard, to the state put together by hand from
+  the build step and ``distribute_state``.
 * ``cost.py`` against hand counts of each kernel's work and bytes.
 * The counts of one step traced on meta tensors (the dry-run's
   ``lower_index``) equal those of the same step run for real on the CPU,
@@ -83,6 +85,10 @@ def _inputs(p: float, seed: int = 5) -> dict:
         b_int=fam.b_int.astype(np.int32),
         b_frac=fam.b_frac.astype(np.float32)).items()}
     return dict(
+        # the family itself, for build_state to fold
+        fam_proj=fam.proj, fam_b_int=fam.b_int, fam_b_frac=fam.b_frac,
+        fam_center_weight=fam.center_weight, fam_width=np.float64(fam.width),
+        fam_p=np.float64(fam.p), fam_levels_cap=np.int64(fam.levels_cap),
         codes=codes, points=points, n_valid=np.int32(N_VALID),
         queries=queries, codes_q=hash_codes_np(queries, fam),
         q_weight=wq, mu=mu, r_min=wq.min(axis=1).astype(np.float32),
@@ -134,7 +140,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 from repro_torch.distributed.group_sharding import (distribute_state,
     shard_row_offset, state_shardings)
-from repro_torch.index.builder import make_build_step
+from repro_torch.core.families import LpFamilyParams
+from repro_torch.index.builder import build_state, make_build_step
 from repro_torch.index.config import IndexConfig
 from repro_torch.index.engine import QueryState, make_query_step
 
@@ -167,9 +174,32 @@ for p in (2.0, 1.0, 0.5):
         codes, vecs = make_build_step(mesh, IndexConfig(
             **dims, vec_dtype=vec))(a["build_points"], a["proj"], a["b_int"],
                                     a["b_frac"])
+        if vec == "float32":
+            codes_f32, vecs_f32 = codes, vecs
         res[f"{p}/build/{vec}/codes"] = codes.full_tensor().numpy()
         res[f"{p}/build/{vec}/bits"] = vecs.full_tensor().view(
             torch.int16 if vec == "bfloat16" else torch.int32).numpy()
+    # build_state (which folds the family) against the hand-assembled
+    # state: make_build_step's float32 build + distribute_state
+    n_rows = len(a["build_points"])
+    built = build_state(mesh, cfg, a["build_points"].numpy(), LpFamilyParams(
+        proj=a["fam_proj"].numpy(), b_int=a["fam_b_int"].numpy(),
+        b_frac=a["fam_b_frac"].numpy(), width=float(a["fam_width"]),
+        p=float(a["fam_p"]), center_weight=a["fam_center_weight"].numpy(),
+        levels_cap=int(a["fam_levels_cap"])))
+    hand = distribute_state(QueryState(
+        codes=codes_f32.full_tensor(), points=vecs_f32.full_tensor(),
+        proj=a["proj"], b_int=a["b_int"], b_frac=a["b_frac"],
+        width=torch.tensor(1.0), n_valid=n_rows), state_shardings(mesh, cfg))
+    pairs = [(getattr(built, f), getattr(hand, f)) for f in (
+        "codes", "points", "proj", "b_int", "b_frac", "width")]
+    same = built.n_valid == hand.n_valid == n_rows and all(
+        tuple(x.placements) == tuple(y.placements)
+        and torch.equal(x.to_local(), y.to_local()) for x, y in pairs)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, same)
+    res[f"{p}/build_state/same_on_every_rank"] = np.array(all(every))
+    res[f"{p}/build_state/codes"] = built.codes.full_tensor().numpy()
 offsets = [None] * dist.get_world_size()
 dist.all_gather_object(offsets, shard_row_offset(mesh, dims["n"] // 8))
 res["offsets"] = np.array(offsets)
@@ -342,6 +372,17 @@ def test_mesh_build_step_codes_and_vectors(runs, vec):
     want = x.to(getattr(torch, vec)).view(
         torch.int16 if vec == "bfloat16" else torch.int32)
     assert torch.equal(bits, want)
+
+
+@pytest.mark.parametrize("p", PS)
+def test_build_state_on_8_ranks_equals_the_hand_assembled_state(runs, p):
+    """``build_state`` on the (4, 2) gloo mesh: every rank's shard of every
+    field equal to ``make_build_step`` + ``distribute_state`` over the
+    family folded by hand, with the same placements and n_valid."""
+    port = runs["port"]
+    assert bool(port[f"{p}/build_state/same_on_every_rank"])
+    np.testing.assert_array_equal(port[f"{p}/build_state/codes"],
+                                  port[f"{p}/build/float32/codes"])
 
 
 # ------------------------------------------------------------ cost model

@@ -8,6 +8,8 @@ composite.  Histograms and the +inf stop mask must be exact; finite scores
 agree to rtol 1e-5 (p != 2) or, for the p = 2 norms expansion, to
 atol = 1e-6 * sqrt(qw2 + onorm): the expansion's float32 cancellation makes
 the absolute error scale with the norms, not with the distance.
+``ref.count_level_ref`` (no kernel) is held bit for bit to the JAX
+package's and to the numpy form of its ``test_count_level_matches_numpy``.
 """
 
 from __future__ import annotations
@@ -108,6 +110,39 @@ def test_freq_level_row_chunking_is_invisible(monkeypatch):
     monkeypatch.setattr(ref, "_CHUNK_ELEMS", 7 * cq.shape[0] * cq.shape[1])
     chunked = ref.freq_level_ref(cp, cq, mu, 3, 8, beta_q)
     assert torch.equal(whole, chunked)
+
+
+def _count_codes(seed: int):
+    """Codes across zero (floor division must round toward minus
+    infinity) and wide enough for level 3 to merge buckets."""
+    rng = np.random.default_rng(seed)
+    cp = rng.integers(-500, 500, (100, 20)).astype(np.int32)
+    cq = rng.integers(-500, 500, (6, 20)).astype(np.int32)
+    cp[:6] = cq  # rows that collide at every level
+    return cp, cq
+
+
+@pytest.mark.parametrize("level", [0, 1, 3])
+@pytest.mark.parametrize("c", [2, 3])
+def test_count_level_matches_jax_and_numpy(c, level):
+    cp, cq = _count_codes(seed=5 + c)
+    got = ref.count_level_ref(torch.from_numpy(cp), torch.from_numpy(cq),
+                              c=c, level=level)
+    assert got.dtype == torch.int32 and got.shape == (6, 100)
+    want = np.asarray(jref.count_level_ref(cp, cq, c=c, level=level))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the numpy form of the JAX package's test_count_level_matches_numpy
+    l = c**level
+    np.testing.assert_array_equal(
+        got.numpy(), ((cq[:, None, :] // l) == (cp[None, :, :] // l)).sum(-1))
+    assert got.numpy()[np.arange(6), np.arange(6)].tolist() == [20] * 6
+
+
+def test_count_level_row_chunking_is_invisible(monkeypatch):
+    cp, cq = (torch.from_numpy(a) for a in _count_codes(seed=9))
+    whole = ref.count_level_ref(cp, cq, c=3, level=1)
+    monkeypatch.setattr(ref, "_CHUNK_ELEMS", 7 * cq.shape[0] * cq.shape[1])
+    assert torch.equal(whole, ref.count_level_ref(cp, cq, c=3, level=1))
 
 
 @pytest.mark.parametrize("p", _PS)
