@@ -50,6 +50,7 @@ from ..distributed.group_sharding import (
 )
 from ..kernels import ops
 from ..kernels.platform import resolve_device
+from ..obs.trace import span
 from .config import VEC_DTYPES, IndexConfig
 from .engine import QueryState, encode_queries
 
@@ -543,18 +544,20 @@ class StatePager:
         return state
 
     def offload(self, state):
-        """StateCache offload executor: ``state``'s bytes in host memory."""
+        """StateCache offload executor: ``state``'s bytes in host memory
+        (the layer span ``wlsh_offload``, its waits included)."""
         self.n_offloads += 1
         g = next((r for r in self._groups.values()
                   if r.state is not None and r.state() is state), None)
-        if g is None:
-            return offload_state(state)
-        for c in g.copies or ():
-            # the restore read these buffers and wrote ``state``: both
-            # must be done before the buffers are overwritten from it
-            c.end.synchronize()
-        g.host = offload_state(state, out=g.host)
-        return g.host
+        with span("wlsh_offload"):
+            if g is None:
+                return offload_state(state)
+            for c in g.copies or ():
+                # the restore read these buffers and wrote ``state``: both
+                # must be done before the buffers are overwritten from it
+                c.end.synchronize()
+            g.host = offload_state(state, out=g.host)
+            return g.host
 
     def _copy_stream(self, dev: torch.device):
         if dev not in self._streams:
@@ -563,30 +566,33 @@ class StatePager:
 
     def restore(self, gi: int, host):
         """StateCache restore executor: upload ``host`` for group ``gi``
-        (a ``HostShardedState`` shard by shard onto ``self.devices``)."""
-        g = self._group(gi)
-        sharded = isinstance(host, HostShardedState)
-        devices = self.devices if sharded else (self.device,)
-        if self.device.type != "cuda":
-            state = (group_sharding.restore_state_sharded(host, devices)
-                     if sharded else restore_state(host, self.device))
-            g.state, g.copies, g.host = weakref.ref(state), None, host
+        (a ``HostShardedState`` shard by shard onto ``self.devices``).
+        The layer span ``wlsh_restore`` is its host side: on the card the
+        copies it enqueues run on after it."""
+        with span("wlsh_restore"):
+            g = self._group(gi)
+            sharded = isinstance(host, HostShardedState)
+            devices = self.devices if sharded else (self.device,)
+            if self.device.type != "cuda":
+                state = (group_sharding.restore_state_sharded(host, devices)
+                         if sharded else restore_state(host, self.device))
+                g.state, g.copies, g.host = weakref.ref(state), None, host
+                return state
+            shards, g.copies = [], []
+            for h, dev in zip(_shards(host), devices):
+                stream = self._copy_stream(dev)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+                shards.append(restore_state(h, dev, stream=stream))
+                end.record(stream)
+                g.copies.append(_Copy(start, end, shards[-1].nbytes))
+            self._untimed += g.copies
+            state = (group_sharding.ShardedQueryState(
+                shards=tuple(shards), offsets=host.offsets,
+                n_valid=host.n_valid) if sharded else shards[0])
+            g.state, g.host = weakref.ref(state), host
             return state
-        shards, g.copies = [], []
-        for h, dev in zip(_shards(host), devices):
-            stream = self._copy_stream(dev)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-            shards.append(restore_state(h, dev, stream=stream))
-            end.record(stream)
-            g.copies.append(_Copy(start, end, shards[-1].nbytes))
-        self._untimed += g.copies
-        state = (group_sharding.ShardedQueryState(
-            shards=tuple(shards), offsets=host.offsets, n_valid=host.n_valid)
-            if sharded else shards[0])
-        g.state, g.host = weakref.ref(state), host
-        return state
 
     def ready(self, gi: int, state) -> None:
         """Order the current streams' next uses of ``state`` after the

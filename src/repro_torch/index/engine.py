@@ -29,9 +29,12 @@ distances are >= 0 or +inf, so their bit patterns order like the floats.
 Vectors are stored as ``float32`` or ``bfloat16`` (``IndexConfig.vec_dtype``).
 Every score is computed in float32: the fused kernels widen bfloat16 rows
 as they stage them, the unfused route and the re-rank with ``.float()``.
-The top-k and the re-rank run inside ``torch.profiler.record_function``
-ranges (``wlsh_topk``, ``wlsh_rerank``), so a captured trace attributes
-their device time.
+A step runs inside the layer span ``wlsh_step`` (``obs.trace.span``), each
+shard's passes inside ``wlsh_pass1`` and ``wlsh_pass2``, the stop rule
+inside ``wlsh_stop``, and pass 2's top-k and re-rank inside ``wlsh_topk``
+and ``wlsh_rerank``, so a captured trace attributes their device time.
+Without a capture (and without ``ServiceConfig.obs``) a span is one flag
+check.
 
 A ``ShardedQueryState`` (``IndexConfig.n_shards > 1``) holds the rows in
 contiguous slices on several devices, and the step follows the JAX
@@ -61,7 +64,6 @@ import functools
 import math
 
 import torch
-from torch.profiler import record_function
 
 from ..distributed import group_sharding
 from ..distributed.group_sharding import ShardedQueryState
@@ -69,6 +71,7 @@ from ..distributed.sharding import (as_dtensor, named_sharding,
                                     shard_map_nocheck)
 from ..kernels import ops, ref
 from ..kernels import platform as kplatform
+from ..obs.trace import span
 from .config import VEC_DTYPES, IndexConfig
 
 __all__ = ["QueryState", "QueryStepCache", "encode_queries",
@@ -167,16 +170,19 @@ def _topk_rows(scores, k: int):
 def _stop_levels(hist_f, hist_g, levels_q, cfg: IndexConfig):
     """(stop (Q,) int32, nf_cum (Q, L+1)) from the level histograms."""
     L, k = cfg.n_levels, cfg.k
-    nf_cum = torch.cumsum(hist_f[:, : L + 1], dim=1)
-    ng_cum = torch.cumsum(hist_g[:, : L + 1], dim=1)
-    # Stop conditions evaluated only up to each query's own level cap: the
-    # bound L may be padded above the member's n_levels (bucketed shape
-    # sharing), and a query that exhausts its levels stops *at* them.
-    levels = torch.arange(L + 1, device=hist_f.device)
-    cond = ((ng_cum >= k) | (nf_cum >= cfg.budget)) & (
-        levels[None, :] <= levels_q[:, None])
-    first = torch.where(cond, levels[None, :], L + 1).amin(dim=1)
-    stop = torch.where(first <= L, first, levels_q.long()).to(torch.int32)
+    with span("wlsh_stop"):
+        nf_cum = torch.cumsum(hist_f[:, : L + 1], dim=1)
+        ng_cum = torch.cumsum(hist_g[:, : L + 1], dim=1)
+        # Stop conditions evaluated only up to each query's own level cap:
+        # the bound L may be padded above the member's n_levels (bucketed
+        # shape sharing), and a query that exhausts its levels stops *at*
+        # them.
+        levels = torch.arange(L + 1, device=hist_f.device)
+        cond = ((ng_cum >= k) | (nf_cum >= cfg.budget)) & (
+            levels[None, :] <= levels_q[:, None])
+        first = torch.where(cond, levels[None, :], L + 1).amin(dim=1)
+        stop = torch.where(first <= L, first,
+                           levels_q.long()).to(torch.int32)
     return stop, nf_cum
 
 
@@ -217,13 +223,14 @@ def _pass1(state, ins, boff: int, n_valid: int, cfg: IndexConfig, path):
     every engine: one device, a list of devices, a mesh.
     """
     codes_q, qf, wf, mu, r_min, beta_q = ins
-    if path.fused:
-        return ops.fused_query_block(
-            state.codes, state.points, codes_q, qf, wf, mu, r_min, beta_q,
-            boff=boff, n_valid=n_valid, c=cfg.c, n_levels=cfg.n_levels,
-            p=cfg.p)
-    return _unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q, cfg,
-                         None, boff=boff, n_valid=n_valid)
+    with span("wlsh_pass1"):
+        if path.fused:
+            return ops.fused_query_block(
+                state.codes, state.points, codes_q, qf, wf, mu, r_min,
+                beta_q, boff=boff, n_valid=n_valid, c=cfg.c,
+                n_levels=cfg.n_levels, p=cfg.p)
+        return _unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q, cfg,
+                             None, boff=boff, n_valid=n_valid)
 
 
 def _pass2(state, ins, stop, boff: int, n_valid: int, cfg: IndexConfig,
@@ -232,21 +239,23 @@ def _pass2(state, ins, stop, boff: int, n_valid: int, cfg: IndexConfig,
     (Q, k), ids (Q, k))`` with global row ids (-1 where missing), each
     distance re-ranked exactly on the shard's stored rows."""
     codes_q, qf, wf, mu, r_min, beta_q = ins
-    if path.fused:
-        scores = ops.fused_query_block(
-            state.codes, state.points, codes_q, qf, wf, mu, r_min, beta_q,
-            boff=boff, n_valid=n_valid, c=cfg.c, n_levels=cfg.n_levels,
-            p=cfg.p, stop=stop)
-    else:
-        scores = _unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q,
-                               cfg, stop, boff=boff, n_valid=n_valid)
-    with record_function("wlsh_topk"):
-        vals, idx = _topk_rows(scores, cfg.k)
-        idx = torch.where(idx >= 0, idx + boff, idx)  # global rows
-    del scores
-    with record_function("wlsh_rerank"):
-        rows = (idx.long() - boff).clamp(0, state.codes.shape[0] - 1)
-        return _rerank(state.points, rows, qf, wf, vals, idx, cfg.p)
+    with span("wlsh_pass2"):
+        if path.fused:
+            scores = ops.fused_query_block(
+                state.codes, state.points, codes_q, qf, wf, mu, r_min,
+                beta_q, boff=boff, n_valid=n_valid, c=cfg.c,
+                n_levels=cfg.n_levels, p=cfg.p, stop=stop)
+        else:
+            scores = _unfused_pass(state, codes_q, qf, wf, mu, r_min,
+                                   beta_q, cfg, stop, boff=boff,
+                                   n_valid=n_valid)
+        with span("wlsh_topk"):
+            vals, idx = _topk_rows(scores, cfg.k)
+            idx = torch.where(idx >= 0, idx + boff, idx)  # global rows
+        del scores
+        with span("wlsh_rerank"):
+            rows = (idx.long() - boff).clamp(0, state.codes.shape[0] - 1)
+            return _rerank(state.points, rows, qf, wf, vals, idx, cfg.p)
 
 
 def _check_vec_dtype(cfg: IndexConfig) -> None:
@@ -265,17 +274,20 @@ def query_step(state, queries, codes_q, q_weight, mu, r_min,
     int32, n_checked (Q,) int32)``.  A ``ShardedQueryState`` (with
     ``cfg.n_shards`` equal to its shard count) is answered shard by
     shard (``_query_sharded``); the answers land on its first device.
+    The step is the layer span ``wlsh_step``.
     """
     _check_vec_dtype(cfg)
-    if isinstance(state, ShardedQueryState) or cfg.n_shards != 1:
-        return _query_sharded(state, queries, codes_q, q_weight, mu, r_min,
-                              beta_q, levels_q, cfg=cfg)
-    path = kplatform.resolve(cfg.use_kernels, state.device)
-    ins = (codes_q, queries.float(), q_weight.float(), mu, r_min, beta_q)
-    hist_f, hist_g = _pass1(state, ins, 0, state.n_valid, cfg, path)
-    stop, nf_cum = _stop_levels(hist_f, hist_g, levels_q, cfg)
-    vals, idx = _pass2(state, ins, stop, 0, state.n_valid, cfg, path)
-    return vals, idx, stop, _n_checked(nf_cum, stop, cfg)
+    with span("wlsh_step"):
+        if isinstance(state, ShardedQueryState) or cfg.n_shards != 1:
+            return _query_sharded(state, queries, codes_q, q_weight, mu,
+                                  r_min, beta_q, levels_q, cfg=cfg)
+        path = kplatform.resolve(cfg.use_kernels, state.device)
+        ins = (codes_q, queries.float(), q_weight.float(), mu, r_min,
+               beta_q)
+        hist_f, hist_g = _pass1(state, ins, 0, state.n_valid, cfg, path)
+        stop, nf_cum = _stop_levels(hist_f, hist_g, levels_q, cfg)
+        vals, idx = _pass2(state, ins, stop, 0, state.n_valid, cfg, path)
+        return vals, idx, stop, _n_checked(nf_cum, stop, cfg)
 
 
 def _query_sharded(state, queries, codes_q, q_weight, mu, r_min, beta_q,

@@ -45,9 +45,12 @@ Steps:
               ``--trace-out`` / ``--metrics-out`` / ``--profile-dir``
               switch the observability layer on (bit-exact either way):
               per-query trace spans to JSONL, the metrics registry as
-              Prometheus text or JSON, and per-signature step and
-              dispatch-time attribution plus a torch.profiler capture
-              (a Chrome trace) of the serve phase.
+              Prometheus text or JSON (with each layer span's host
+              seconds and calls, ``wlsh_layer_seconds_total`` /
+              ``wlsh_layer_calls_total{layer}``), and per-signature step
+              and dispatch-time attribution plus a torch.profiler capture
+              (a Chrome trace, the serving path's ``wlsh_*`` layer spans
+              among its ranges) of the serve phase.
               ``--recall-sample-rate`` shadow-samples live queries for
               exact-oracle recall estimation; ``--health`` prints the
               per-rung observed-recall and alert report and
@@ -758,12 +761,19 @@ def parse_args(argv=None):
                     help="observability: write the unified metrics "
                          "registry to PATH after serving (.json = JSON "
                          "snapshot, anything else = Prometheus text "
-                         "exposition); implies the obs layer on")
+                         "exposition), with the host seconds and calls "
+                         "of each layer span (wlsh_layer_seconds_total, "
+                         "wlsh_layer_calls_total{layer}); implies the obs "
+                         "layer on")
     ap.add_argument("--profile-dir", default=None, metavar="DIR",
                     help="observability: per-shape-signature step and "
                          "dispatch-time attribution, plus a torch.profiler "
                          "capture of warmup and serve exported to DIR as "
-                         "a Chrome trace; implies the obs layer on")
+                         "a Chrome trace, whose ranges name the serving "
+                         "path's layers (obs.trace.LAYER_SPANS: "
+                         "wlsh_query, wlsh_batch, wlsh_lease, wlsh_encode, "
+                         "wlsh_upload, wlsh_step, wlsh_download, ...); "
+                         "implies the obs layer on")
     ap.add_argument("--recall-sample-rate", type=float, default=0.0,
                     metavar="RATE",
                     help="quality telemetry: shadow-sample this fraction "

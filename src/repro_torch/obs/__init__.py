@@ -12,7 +12,11 @@ package's names, series and file formats:
 * :mod:`repro_torch.obs.trace`: per-query :class:`TraceSpan` lifecycle
   (``submit -> route -> admit -> queue -> prefetch/restore -> launch ->
   merge -> resolve``) on the injectable clock, ring-buffered by
-  :class:`Tracer` with JSONL export and exact drop accounting.
+  :class:`Tracer` with JSONL export and exact drop accounting; and the
+  layer spans (:func:`span`, ``LAYER_SPANS``: ``wlsh_query`` down to
+  ``wlsh_pass1`` / ``wlsh_pass2``): ``torch.profiler`` ranges while a
+  capture runs, and with ``obs`` the per-layer host seconds and calls
+  (``wlsh_layer_seconds_total{layer}``, ``wlsh_layer_calls_total{layer}``).
 * :mod:`repro_torch.obs.profile`: per-step build-count and dispatch-time
   attribution keyed by ``IndexConfig.shape_signature()``, plus
   ``torch.profiler`` captures exported as Chrome traces.
@@ -25,7 +29,8 @@ package's names, series and file formats:
   typed ring-retained :class:`Alert` events (:class:`HealthMonitor`).
 
 Tracing and profiling are gated behind ``ServiceConfig.obs`` (off by
-default, bit-exact on or off); the metrics registry always exists.
+default, bit-exact on or off); the metrics registry always exists.  A
+layer span with ``obs`` off and no capture running is one flag check.
 Recall sampling (``ServiceConfig.recall_sample_rate``) implies ``obs``
 and is equally invisible to answers.
 """
@@ -34,7 +39,7 @@ from .health import Alert, AlertRule, HealthMonitor, default_rules
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry
 from .profile import Profiler
 from .recall import RecallEstimator, ShadowJob, sample_hash, should_sample
-from .trace import STAGES, Tracer, TraceSpan
+from .trace import LAYER_SPANS, STAGES, Tracer, TraceSpan, span
 
 __all__ = [
     "Alert",
@@ -43,6 +48,7 @@ __all__ = [
     "Gauge",
     "HealthMonitor",
     "Histogram",
+    "LAYER_SPANS",
     "MetricsRegistry",
     "Profiler",
     "RecallEstimator",
@@ -53,4 +59,5 @@ __all__ = [
     "default_rules",
     "sample_hash",
     "should_sample",
+    "span",
 ]

@@ -12,9 +12,10 @@ the two costs that matter to that key:
   device work of the launch, per signature.
 
 Both are host-side bookkeeping and never touch device values, so
-enabling them is bit-exact.  The dispatch scope also opens a
-``torch.profiler.record_function`` range, so launches are labeled in a
-captured trace; ``start_trace`` / ``stop_trace`` bracket an on-demand
+enabling them is bit-exact.  A captured trace names each launch by the
+serving path's own layer spans (``obs.trace.span``: ``wlsh_batch``,
+``wlsh_upload``, ``wlsh_step``, ...); ``start_trace`` / ``stop_trace``
+bracket an on-demand
 ``torch.profiler`` capture (CPU and CUDA activity on the card, CPU only
 on a CPU service) exported as a Chrome trace into ``profile_dir``, and
 ``save_memory_snapshot`` writes the CUDA caching allocator's snapshot
@@ -66,11 +67,10 @@ class Profiler:
 
     @contextlib.contextmanager
     def dispatch(self, sig: str):
-        """Time one step launch, annotated in captured traces."""
+        """Time one step launch under signature ``sig``."""
         t0 = self._timer()
         try:
-            with torch.profiler.record_function(f"wlsh_query_step[{sig}]"):
-                yield
+            yield
         finally:
             dt = self._timer() - t0
             with self._lock:

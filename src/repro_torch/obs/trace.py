@@ -20,16 +20,33 @@ The :class:`Tracer` retains finished spans in a fixed-capacity ring
 registry as ``wlsh_trace_dropped_total`` when a registry is bound) and
 exports them as JSONL — a ``_meta`` header line with the exact totals,
 then one span per line.
+
+Layer spans are the other half: :func:`span` names one layer boundary of
+the serving path (``LAYER_SPANS``: the request, routing, one launch, the
+lease and its offload / restore / build, the encode, the uploads, the
+step and its passes, the downloads, the merge, the release, a driver
+tick).  Under a running ``torch.profiler`` a span is a
+``record_function`` range, so it lands in the Chrome trace on the
+calling thread, on the same clock as the kernels and copies it waits
+for.  Bound to a metrics registry (``ServiceConfig.obs``), it also adds
+its host seconds and one call to ``wlsh_layer_seconds_total{layer}`` and
+``wlsh_layer_calls_total{layer}``, for the spans it encloses too.
+Neither running, a span is one flag check and a shared null context.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import json
 import math
 import threading
+import time
 from collections import deque
 
-__all__ = ["STAGES", "TraceSpan", "Tracer"]
+import torch
+
+__all__ = ["LAYER_SPANS", "STAGES", "TraceSpan", "Tracer", "span"]
 
 # Canonical stage order; "prefetch" and "restore" are alternatives on
 # the same slot (a launch either consumed a prefetched state, faulted
@@ -223,3 +240,74 @@ class Tracer:
                     d = json.loads(line)
                     return d.get("_meta")
         return None
+
+
+# The serving path's layer spans, outermost first.  ``wlsh_lease`` holds
+# ``wlsh_offload`` / ``wlsh_restore`` / ``wlsh_build`` (as ``wlsh_release``
+# may hold ``wlsh_offload``); ``wlsh_step`` holds ``wlsh_pass1``,
+# ``wlsh_stop`` and ``wlsh_pass2``, which holds ``wlsh_topk`` and
+# ``wlsh_rerank`` (the ranges ``topk_rerank_ms`` reads).  ``wlsh_lease``,
+# ``wlsh_encode``, ``wlsh_upload``, ``wlsh_step``, ``wlsh_download`` and
+# ``wlsh_release`` are siblings inside ``wlsh_batch``.
+LAYER_SPANS: tuple[str, ...] = (
+    "wlsh_tick", "wlsh_query", "wlsh_route", "wlsh_batch", "wlsh_lease",
+    "wlsh_offload", "wlsh_restore", "wlsh_build", "wlsh_encode",
+    "wlsh_upload", "wlsh_step", "wlsh_pass1", "wlsh_stop", "wlsh_pass2",
+    "wlsh_topk", "wlsh_rerank", "wlsh_download", "wlsh_merge",
+    "wlsh_release",
+)
+
+_NULL_SPAN = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+# the registry of the innermost span bound to one, for the spans it holds
+_bound = contextvars.ContextVar("wlsh_layer_metrics", default=None)
+
+
+class _LayerSpan:
+    """A layer span that is traced, counted, or both."""
+
+    __slots__ = ("name", "metrics", "_range", "_token", "_t0")
+
+    def __init__(self, name: str, metrics):
+        self.name = name
+        self.metrics = metrics
+        self._range = None
+        self._token = None
+
+    def __enter__(self):
+        if _profiling():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        if self.metrics is not None:
+            self._token = _bound.set(self.metrics)
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.metrics is not None:
+            dt = time.perf_counter() - self._t0
+            _bound.reset(self._token)
+            m = self.metrics
+            m.counter("wlsh_layer_seconds_total",
+                      "host seconds inside each layer span").inc(
+                dt, layer=self.name)
+            m.counter("wlsh_layer_calls_total",
+                      "layer spans entered").inc(layer=self.name)
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
+def span(name: str, metrics=None):
+    """Context manager naming one layer boundary (``LAYER_SPANS``).
+
+    ``metrics`` is the service's registry when ``ServiceConfig.obs`` is
+    on; spans opened inside inherit it.  A ``record_function`` range is
+    entered only while a ``torch.profiler`` runs; with neither, the shared
+    null context comes back and nothing else is done.
+    """
+    if metrics is None:
+        metrics = _bound.get()
+        if metrics is None and not _profiling():
+            return _NULL_SPAN
+    return _LayerSpan(name, metrics)

@@ -35,6 +35,7 @@ every accepted submit opens one trace span, resolved with its future.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 
@@ -371,38 +372,44 @@ class AsyncRetrievalService:
         per-tick capacity.  Deferred launchable buffers register
         overload pressure; a tick with nothing launchable registers a
         clear tick, so the degradation hysteresis sees both.
+
+        An undriven poll is the layer span ``wlsh_tick``; a driven one
+        runs inside the driver's.
         """
-        if now is None:
-            now = self.clock()
-        n = 0
-        if self.qos is None:
-            for key in list(self._pending):
-                q = self._pending[key]
-                if q and min(r.deadline for r in q) <= now:
-                    self._launch(key, "deadline")
-                    n += 1
-        else:
-            qb = self.batcher.cfg.q_batch
-            launchable = [
-                (min(r.deadline for r in q), key[0], key[1])
-                for key, q in self._pending.items()
-                if q and (min(r.deadline for r in q) <= now
-                          or len(q) >= qb)
-            ]
-            if launchable:
-                for gi, tenant in self.qos.plan_launches(launchable, now):
-                    key = (gi, tenant)
-                    cause = (
-                        "full" if len(self._pending[key]) >= qb
-                        else "deadline"
-                    )
-                    self._launch(key, cause)
-                    n += 1
+        tick = (self.batcher.span("wlsh_tick") if self.driver is None
+                else contextlib.nullcontext())  # else in the driver's tick
+        with tick:
+            if now is None:
+                now = self.clock()
+            n = 0
+            if self.qos is None:
+                for key in list(self._pending):
+                    q = self._pending[key]
+                    if q and min(r.deadline for r in q) <= now:
+                        self._launch(key, "deadline")
+                        n += 1
             else:
-                self.qos.note_idle_tick()
-        if n == 0 and self.driver is None:
-            self.idle_work()
-        return n
+                qb = self.batcher.cfg.q_batch
+                launchable = [
+                    (min(r.deadline for r in q), key[0], key[1])
+                    for key, q in self._pending.items()
+                    if q and (min(r.deadline for r in q) <= now
+                              or len(q) >= qb)
+                ]
+                if launchable:
+                    for gi, tenant in self.qos.plan_launches(launchable, now):
+                        key = (gi, tenant)
+                        cause = (
+                            "full" if len(self._pending[key]) >= qb
+                            else "deadline"
+                        )
+                        self._launch(key, cause)
+                        n += 1
+                else:
+                    self.qos.note_idle_tick()
+            if n == 0 and self.driver is None:
+                self.idle_work()
+            return n
 
     def idle_work(self) -> int:
         """One slice of idle-time background work, returning rows compacted.

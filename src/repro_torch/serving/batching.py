@@ -34,7 +34,10 @@ sampled answers to the shadow recall estimator: host bookkeeping that
 leaves every answer bit for bit as it is.  With ``ServiceConfig.n_shards
 > 1`` (or an explicit ``Batcher(devices=...)``) every group state's rows
 are split across devices (``distributed.group_sharding``); the frontends
-see no difference.
+see no difference.  Each layer boundary is a layer span
+(``obs.trace.span``, ``Batcher.span``): ``wlsh_route``, and per launch
+``wlsh_batch`` holding ``wlsh_lease``, ``wlsh_encode``, ``wlsh_upload``,
+``wlsh_step``, ``wlsh_download``, ``wlsh_release`` and ``wlsh_merge``.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from ..index.config import VEC_DTYPES, IndexConfig, pad_beta, pad_levels
 from ..index.engine import QueryStepCache, encode_queries
 from ..kernels import platform as kplatform
 from ..obs import MetricsRegistry, Profiler, RecallEstimator, Tracer
+from ..obs.trace import span
 from .qos import DegradeStep
 from .state_cache import StateCache
 
@@ -646,13 +650,14 @@ class Batcher:
         can never resurrect purged rows.
         """
         extra_points = extra_codes = base_rows = None
-        if self._delta is not None:
-            extra_points, extra_codes = self._delta.compacted_rows(gi)
-            base_rows = self._delta.base_rows()
-        return self.pager.adopt(gi, build_group_state(
-            self.group_config(gi), self.points, self.plan.groups[gi],
-            device=self.devices, extra_points=extra_points,
-            extra_codes=extra_codes, base_rows=base_rows))
+        with self.span("wlsh_build"):
+            if self._delta is not None:
+                extra_points, extra_codes = self._delta.compacted_rows(gi)
+                base_rows = self._delta.base_rows()
+            return self.pager.adopt(gi, build_group_state(
+                self.group_config(gi), self.points, self.plan.groups[gi],
+                device=self.devices, extra_points=extra_points,
+                extra_codes=extra_codes, base_rows=base_rows))
 
     def _note_cache_event(self, gi: int, kind: str) -> None:
         """Record a StateCache event for trace-span stage attribution.
@@ -666,6 +671,11 @@ class Batcher:
         if events is not None:
             events.append(kind)
 
+    def span(self, name: str):
+        """The layer span ``name`` (``obs.trace.span``), counted in
+        ``self.metrics`` when ``cfg.obs`` is on."""
+        return span(name, self.metrics if self.cfg.obs else None)
+
     @contextlib.contextmanager
     def lease(self, gi: int):
         """Lease group ``gi``'s state from the ``StateCache``, ordered on
@@ -674,11 +684,23 @@ class Batcher:
         Every use of a state's tensors goes through here: a launch
         (``run_batch``), a seal's device encode and a compaction's write.
         A sharded state is readied shard by shard, each on its device's
-        current stream.
+        current stream.  The acquire and the ordering are the layer span
+        ``wlsh_lease`` (holding any offload, restore or build they run),
+        the release ``wlsh_release`` (any offload the budget then asks for).
         """
-        with self.state_cache.lease(gi) as state:
-            self.pager.ready(gi, state)
+        cache = self.state_cache
+        with self.span("wlsh_lease"):
+            state = cache.acquire(gi)
+            try:
+                self.pager.ready(gi, state)
+            except BaseException:
+                cache.release(gi)
+                raise
+        try:
             yield state
+        finally:
+            with self.span("wlsh_release"):
+                cache.release(gi)
 
     def replace_state(self, gi: int, state) -> None:
         """Install ``state`` (a compaction's result, written on the current
@@ -811,18 +833,24 @@ class Batcher:
     # --------------------------------------------------------------- serving
 
     def route(self, weight_ids) -> np.ndarray:
-        """(Q,) serving group per weight_id, validated against the plan."""
-        weight_ids = np.atleast_1d(np.asarray(weight_ids, np.int64))
-        if len(weight_ids) and (
-            weight_ids.min() < 0 or weight_ids.max() >= self.plan.n_weights
-        ):
-            raise ValueError("weight_id out of range for the serving plan")
-        return self.plan.group_of[weight_ids].astype(np.int32)
+        """(Q,) serving group per weight_id, validated against the plan
+        (the layer span ``wlsh_route``)."""
+        with self.span("wlsh_route"):
+            weight_ids = np.atleast_1d(np.asarray(weight_ids, np.int64))
+            if len(weight_ids) and (
+                weight_ids.min() < 0
+                or weight_ids.max() >= self.plan.n_weights
+            ):
+                raise ValueError(
+                    "weight_id out of range for the serving plan")
+            return self.plan.group_of[weight_ids].astype(np.int32)
 
     def _encode(self, gi: int, cfg: IndexConfig, state, queries,
                 take: np.ndarray) -> torch.Tensor:
-        """(q_batch, beta) int32 codes on the device for real ``queries``
-        padded via ``take``.
+        """(q_batch, beta) int32 codes for real ``queries`` padded via
+        ``take`` (the layer span ``wlsh_encode``): in host memory from
+        the host encode, on the first shard's device from the device
+        encode.
 
         Query and data codes must come from the same encoding: host f64
         only pairs with plan-shipped host codes; a device-built (f32)
@@ -830,15 +858,17 @@ class Batcher:
         mixes the two encodings and a query can miss its own point.
         Encoding is row-independent, so the host path encodes each real
         row once and gathers, while the device path encodes the padded
-        batch.  Either way the codes are computed once, on the first
-        shard's device; the step copies them to every other shard's.
+        batch (uploading the padded queries itself).  ``run_batch``
+        uploads host codes with the other step inputs (``wlsh_upload``);
+        the step copies the codes from the first shard's device to every
+        other shard's.
         """
         g = self.plan.groups[gi]
-        if g.codes is None:
-            return encode_queries(state, queries[take])
-        codes = pad_cols(g.encode_host(queries), cfg.beta)[take]
-        return torch.from_numpy(
-            np.ascontiguousarray(codes, np.int32)).to(self.device)
+        with self.span("wlsh_encode"):
+            if g.codes is None:
+                return encode_queries(state, queries[take])
+            codes = pad_cols(g.encode_host(queries), cfg.beta)[take]
+            return torch.from_numpy(np.ascontiguousarray(codes, np.int32))
 
     def run_batch(self, gi: int, queries, weight_ids, rung: int = 0,
                   spans=None):
@@ -870,75 +900,96 @@ class Batcher:
         per real row, submission order): paging, launch and merge stages
         are stamped on them here.  With tracing on and no spans passed (a
         direct ``run_batch`` caller), spans are opened *and* resolved
-        here, so every query still yields exactly one span.  The
-        profiler's dispatch scope encloses the uploads, the launch and the
+        here, so every query still yields exactly one span.
+
+        The launch is the layer span ``wlsh_batch``.  Inside the lease
+        (``wlsh_lease`` ... ``wlsh_release``) come the encode
+        (``wlsh_encode``), the host-to-device copies of the codes and of
+        the six per-query inputs (``wlsh_upload``), the step
+        (``wlsh_step``) and the four downloads, each waiting for the
+        device (``wlsh_download``); after it, ``wlsh_merge``.  The
+        profiler's dispatch scope encloses the uploads, the step and the
         downloads, so a dispatch time covers the device work.
         """
-        queries = np.atleast_2d(np.asarray(queries, np.float32))
-        weight_ids = np.atleast_1d(np.asarray(weight_ids, np.int64))
-        cfg = self.group_config(gi, rung)
-        step = self.step_cache.get(self.device, cfg)
-        real = len(queries)
-        take = pad_take(real, cfg.q_batch)
-        g = self.plan.groups[gi]
-        wtake = weight_ids[take]
-        slots = self.plan.member_slot[wtake]
-        dev = self.device
-        tr = self.tracer
-        own_spans = tr is not None and spans is None
-        if own_spans:
-            t_sub = self.clock()
-            spans = []
-            for wid in weight_ids:
-                s = tr.begin(weight_id=int(wid), group_id=int(gi))
-                s.mark("submit", t_sub)
-                s.mark("route", t_sub)
-                s.mark("queue", t_sub)
-                spans.append(s)
-        if tr is not None:
-            self._cache_events = []
+        with self.span("wlsh_batch"):
+            queries = np.atleast_2d(np.asarray(queries, np.float32))
+            weight_ids = np.atleast_1d(np.asarray(weight_ids, np.int64))
+            cfg = self.group_config(gi, rung)
+            step = self.step_cache.get(self.device, cfg)
+            real = len(queries)
+            take = pad_take(real, cfg.q_batch)
+            g = self.plan.groups[gi]
+            wtake = weight_ids[take]
+            slots = self.plan.member_slot[wtake]
+            dev = self.device
+            tr = self.tracer
+            own_spans = tr is not None and spans is None
+            if own_spans:
+                t_sub = self.clock()
+                spans = []
+                for wid in weight_ids:
+                    s = tr.begin(weight_id=int(wid), group_id=int(gi))
+                    s.mark("submit", t_sub)
+                    s.mark("route", t_sub)
+                    s.mark("queue", t_sub)
+                    spans.append(s)
+            if tr is not None:
+                self._cache_events = []
 
-        def put(x, dtype):
-            return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
+            def put(x, dtype):
+                return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(dev)
 
-        with self.lease(gi) as state:
-            if tr is not None and spans:
-                # attribute this launch's paging work: a consumed
-                # prefetch marks "prefetch", a blocking restore/build
-                # marks "restore" (a plain hit marks neither)
-                t_acq = self.clock()
-                kinds = set(self._cache_events or ())
-                for s in spans:
-                    if "restore_overlapped" in kinds:
-                        s.mark("prefetch", t_acq)
-                    if kinds & {"restore", "build"}:
-                        s.mark("restore", t_acq)
-            codes = self._encode(gi, cfg, state, queries, take)
-            if tr is not None and spans:
-                t_launch = self.clock()
-                for s in spans:
-                    s.mark("launch", t_launch)
-            dispatch_scope = (
-                self.profiler.dispatch(str(cfg.shape_signature()))
-                if self.profiler is not None else _NULL_SCOPE
-            )
-            with dispatch_scope:
-                d_b, i_b, stop_b, chk_b = step(
-                    state,
-                    put(queries[take], np.float32),
-                    codes,
-                    put(self.plan.weights[wtake], np.float32),
-                    put(g.mu_members[slots], np.int32),
-                    put(g.r_min_members[slots], np.float32),
-                    put(g.beta_members[slots], np.int32),
-                    put(g.n_levels_members[slots], np.int32),
+            with self.lease(gi) as state:
+                if tr is not None and spans:
+                    # attribute this launch's paging work: a consumed
+                    # prefetch marks "prefetch", a blocking restore/build
+                    # marks "restore" (a plain hit marks neither)
+                    t_acq = self.clock()
+                    kinds = set(self._cache_events or ())
+                    for s in spans:
+                        if "restore_overlapped" in kinds:
+                            s.mark("prefetch", t_acq)
+                        if kinds & {"restore", "build"}:
+                            s.mark("restore", t_acq)
+                codes = self._encode(gi, cfg, state, queries, take)
+                if tr is not None and spans:
+                    t_launch = self.clock()
+                    for s in spans:
+                        s.mark("launch", t_launch)
+                dispatch_scope = (
+                    self.profiler.dispatch(str(cfg.shape_signature()))
+                    if self.profiler is not None else _NULL_SCOPE
                 )
-                # on the host before the lease ends: the state must stay
-                # resident until the device has finished reading it
-                ids = i_b.cpu().numpy()[:real]
-                dists = d_b.cpu().numpy()[:real]
-                stop = stop_b.cpu().numpy()[:real]
-                chk = chk_b.cpu().numpy()[:real]
+                with dispatch_scope:
+                    with self.span("wlsh_upload"):
+                        inputs = (
+                            put(queries[take], np.float32),
+                            codes.to(dev),
+                            put(self.plan.weights[wtake], np.float32),
+                            put(g.mu_members[slots], np.int32),
+                            put(g.r_min_members[slots], np.float32),
+                            put(g.beta_members[slots], np.int32),
+                            put(g.n_levels_members[slots], np.int32),
+                        )
+                    d_b, i_b, stop_b, chk_b = step(state, *inputs)
+                    # on the host before the lease ends: the state must stay
+                    # resident until the device has finished reading it
+                    with self.span("wlsh_download"):
+                        ids = i_b.cpu().numpy()[:real]
+                        dists = d_b.cpu().numpy()[:real]
+                        stop = stop_b.cpu().numpy()[:real]
+                        chk = chk_b.cpu().numpy()[:real]
+            with self.span("wlsh_merge"):
+                return self._merge(gi, cfg, rung, queries, weight_ids, ids,
+                                   dists, stop, chk, spans, own_spans)
+
+    def _merge(self, gi, cfg, rung, queries, weight_ids, ids, dists, stop,
+               chk, spans, own_spans):
+        """A launch's answers padded back to the strict ``k``, augmented
+        by the delta, counted, stamped on the spans and offered to the
+        recall estimator."""
+        real = len(ids)
+        tr = self.tracer
         if cfg.k < self.cfg.k:
             # degraded rung: pad the short top-k back to the strict width
             pad_ids = np.full((real, self.cfg.k), -1, ids.dtype)

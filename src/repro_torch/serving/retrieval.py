@@ -16,7 +16,9 @@ codes (``include_codes=False``) is encoded on the device, data and
 queries alike, through the ``hash_encode`` kernel.  ``insert``/``delete``/
 ``compact`` are the streaming writes (``serving.delta.DeltaIndex``).
 With ``ServiceConfig.obs`` every query gets one trace span
-(``batcher.tracer``).
+(``batcher.tracer``).  A ``query`` call is the layer span ``wlsh_query``
+(``obs.trace.span``), around ``wlsh_route`` and each launch's
+``wlsh_batch``.
 """
 
 from __future__ import annotations
@@ -179,43 +181,46 @@ class RetrievalService:
         """Answer a mixed batch of (query, weight_id) requests.
 
         Queries are grouped by serving group, coalesced into q_batch-sized
-        sub-batches, and results are returned in submission order.
+        sub-batches, and results are returned in submission order.  The
+        call is the layer span ``wlsh_query``: its self time is the
+        coalescing and the merge back to submission order.
         """
-        queries = np.atleast_2d(np.asarray(queries, np.float32))
-        weight_ids = np.atleast_1d(np.asarray(weight_ids, np.int64))
-        if len(weight_ids) != len(queries):
-            raise ValueError("queries and weight_ids length mismatch")
-        gids = self.batcher.route(weight_ids)
-        tr = self.batcher.tracer
-        spans = None
-        if tr is not None:
-            # one span per submitted query; the whole call is one
-            # synchronous submit/route/queue instant on the clock
-            t_sub = self.batcher.clock()
-            spans = []
-            for wid, gi in zip(weight_ids, gids):
-                s = tr.begin(weight_id=int(wid), group_id=int(gi))
-                s.mark("submit", t_sub)
-                s.mark("route", t_sub)
-                s.mark("queue", t_sub)
-                spans.append(s)
-        out_ids, out_d, out_stop, out_chk = run_plans(
-            coalesce(gids, self.cfg.q_batch),
-            queries,
-            weight_ids,
-            self.batcher.run_batch,
-            self.cfg.k,
-            spans=spans,
-        )
-        if tr is not None:
-            t_res = self.batcher.clock()
-            for s in spans:
-                s.mark("resolve", t_res)
-                tr.finish(s)
-        return RetrievalResult(
-            ids=out_ids,
-            dists=out_d,
-            group_ids=gids,
-            stop_levels=out_stop,
-            n_checked=out_chk,
-        )
+        with self.batcher.span("wlsh_query"):
+            queries = np.atleast_2d(np.asarray(queries, np.float32))
+            weight_ids = np.atleast_1d(np.asarray(weight_ids, np.int64))
+            if len(weight_ids) != len(queries):
+                raise ValueError("queries and weight_ids length mismatch")
+            gids = self.batcher.route(weight_ids)
+            tr = self.batcher.tracer
+            spans = None
+            if tr is not None:
+                # one span per submitted query; the whole call is one
+                # synchronous submit/route/queue instant on the clock
+                t_sub = self.batcher.clock()
+                spans = []
+                for wid, gi in zip(weight_ids, gids):
+                    s = tr.begin(weight_id=int(wid), group_id=int(gi))
+                    s.mark("submit", t_sub)
+                    s.mark("route", t_sub)
+                    s.mark("queue", t_sub)
+                    spans.append(s)
+            out_ids, out_d, out_stop, out_chk = run_plans(
+                coalesce(gids, self.cfg.q_batch),
+                queries,
+                weight_ids,
+                self.batcher.run_batch,
+                self.cfg.k,
+                spans=spans,
+            )
+            if tr is not None:
+                t_res = self.batcher.clock()
+                for s in spans:
+                    s.mark("resolve", t_res)
+                    tr.finish(s)
+            return RetrievalResult(
+                ids=out_ids,
+                dists=out_d,
+                group_ids=gids,
+                stop_levels=out_stop,
+                n_checked=out_chk,
+            )

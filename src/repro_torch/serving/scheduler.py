@@ -364,9 +364,10 @@ class ServiceDriver:
         it is protected or prefetched (soonest deadline first), so
         scheduling can never turn over-budget residency into a steady
         state — the budget stays the budget, and anything past it simply
-        faults in at launch time like an undriven service.
+        faults in at launch time like an undriven service.  A tick is the
+        layer span ``wlsh_tick`` (``obs.trace.span``).
         """
-        with self._lock:
+        with self._lock, self.svc.batcher.span("wlsh_tick"):
             if now is None:
                 now = self.svc.clock()
             m = self.metrics
@@ -453,9 +454,13 @@ class ServiceDriver:
 
         Built from ``MetricsRegistry.diff`` against the snapshot the
         last call took — the driver's human-readable heartbeat (the
-        launcher prints it after a driven replay).
+        launcher prints it after a driven replay).  The layer spans' host
+        clock counters (``wlsh_layer_*``) are left out: the heartbeat
+        counts work, on the service's clock or none.
         """
-        diff = self.metrics.diff(self._last_snap)
+        diff = {name: d for name, d in
+                self.metrics.diff(self._last_snap).items()
+                if not name.startswith("wlsh_layer_")}
         self._last_snap = self.metrics.snapshot()
         firing = ([a.rule for a in self.health.firing()]
                   if self.health is not None else [])
