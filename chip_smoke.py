@@ -10,12 +10,14 @@ non-zero:
   2. build   — compile every kernels/csrc/*.cu with nvcc for sm_90a (one
                object per source, in parallel) into one library; ptxas
                registers and spills per source, and the fused passes'
-               shared bytes per block and resident blocks per SM
+               (and the keep pass's) shared bytes per block and resident
+               blocks per SM
   3. sentinel — benchmarks_torch.sentinel's seeded serving workload (async
                frontend, ServiceDriver, DeadlinePrefetch, paging, shadow
                recall, a degrade ladder) on the card and then on the CPU:
-               the seeded metrics equal, the rest side by side; the fused
-               passes launched and no other kernel; no regression row
+               the seeded metrics equal, the rest side by side; the keep
+               pass and the mask launched and no other kernel; no
+               regression row
                against experiments/bench_torch/BASELINE.json.  It runs
                before every other leg, in the state in which its baseline
                is pinned (a fresh process): run after the other legs, its
@@ -24,6 +26,8 @@ non-zero:
                p50 at each stage of one process)
   4. kernels — every kernel against its plain torch version on the card
                at ~65k rows with a ragged tail: both fused-query passes
+               (and the keep pass and the mask, equal to them bit for
+               bit)
                (p in {2, 1, 0.5}, Q=64, d=400, beta=512, beta_q ~ 450,
                L=16, n_valid below the row count; and c in {2, 3} at
                L=24 with Q=61, on real codes and on codes at the level
@@ -240,8 +244,10 @@ non-zero:
                there is one, and the bound from bytes and operations
                (kernels/cost.py at launch/roofline.py's HW rates);
                the fused passes also on the group's rows in bfloat16;
-               the host time of a call through a kernel's custom op
-               against its launch function
+               the serving path's single scan (the keep pass, the mask
+               on its carry) held to both passes bit for bit and timed
+               beside them; the host time of a call through a kernel's
+               custom op against its launch function
 
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -295,6 +301,12 @@ KERNELS = {  # name: (the TPU kernel it replaces, its CUDA source)
                          _CSRC + "fused_query.cu"),
     "fused_query_scores": ("src/repro/kernels/fused_query.py:248",
                            _CSRC + "fused_query.cu"),
+    # the serving path's single scan: pass 1 that keeps each (query,
+    # row)'s level and distance, and pass 2 as a mask of them
+    "fused_query_keep": ("src/repro/kernels/fused_query.py:184",
+                         _CSRC + "fused_query.cu"),
+    "fused_query_mask": ("src/repro/kernels/fused_query.py:248",
+                         _CSRC + "fused_query.cu"),
     "hash_encode": ("src/repro/kernels/hash_encode.py:55",
                     _CSRC + "hash_encode.cu"),
     "freq_level": ("src/repro/kernels/freq_level.py:68",
@@ -545,8 +557,8 @@ def _ptxas_summary(src: str) -> str:
 
 def _occupancy_line(fq, c: int, L: int) -> str:
     """Shared bytes per block and resident blocks per SM of both fused
-    passes at (c, L), from the loaded library."""
-    occ = {w: fq.occupancy(w, c, L) for w in ("hist", "scores")}
+    passes and of the keep pass at (c, L), from the loaded library."""
+    occ = {w: fq.occupancy(w, c, L) for w in ("hist", "keep", "scores")}
     o = occ["hist"]
     return (f"fused_query c={c} L={L}: ROWS={o['rows']} QT={o['qt']} "
             f"TC={o['tc']}; " + "; ".join(
@@ -643,8 +655,31 @@ def _hold(torch, inp, p, kernel_out, plain_out, label, zone_edge=1e-3,
         f"(limit {limit:.0f}), +inf mask exact "
         f"({int(fin.sum())} finite), scores max abs err {max_abs:.3g} "
         f"(max rel {rel:.3g}) within {rule}{note}")
-    return {"fused_query_hist": float((hg - rg).abs().max()),
-            "fused_query_scores": max_abs}
+    # the keep pass and the mask: held bit for bit to the two passes
+    # wherever these are held (``_same_scan``), so their errors are these
+    hist_err = float((hg - rg).abs().max())
+    return {"fused_query_hist": hist_err, "fused_query_scores": max_abs,
+            "fused_query_keep": hist_err, "fused_query_mask": max_abs}
+
+
+def _same_scan(torch, dev, inp, kw, two_pass, label) -> None:
+    """The serving path's single scan on ``inp``: the keep pass's
+    histograms equal the two-pass kernels' ``two_pass`` (hist_f, hist_g,
+    scores), and the mask on its carry gives their scores bit for bit."""
+    from repro_torch.kernels import fused_query
+
+    hf, hg, sc = two_pass
+    kf, kg, lf, dist = fused_query.fused_query_keep(*_pass_args(inp, "hist"),
+                                                    **kw)
+    fused_query.fused_query_mask(lf, inp["stop"], dist)
+    _sync(torch, dev)
+    _need(torch.equal(kf, hf) and torch.equal(kg, hg),
+          f"{label}: the keep pass's histograms differ from pass 1's")
+    diff = int((dist.view(torch.int32) != sc.view(torch.int32)).sum())
+    _need(diff == 0, f"{label}: {diff} masked distances differ from pass "
+          f"2's scores")
+    say(f"{label}: the keep pass and the mask equal pass 1 and pass 2 bit "
+        f"for bit")
 
 
 def _top(t) -> float:
@@ -795,7 +830,8 @@ def _check_weighted_lp(torch, dev) -> float:
 
 def _check_fused(torch, dev, inp, p, label):
     """Both fused passes against their plain versions on ``inp``, rows at
-    and past ``n_rows - 777`` dead (``_hold``'s rules)."""
+    and past ``n_rows - 777`` dead (``_hold``'s rules), and the single
+    scan against both passes (``_same_scan``)."""
     from repro_torch.kernels import fused_query, ref
 
     n_rows = inp["codes_p"].shape[0]
@@ -812,16 +848,18 @@ def _check_fused(torch, dev, inp, p, label):
                                     c=kw["c"], n_levels=kw["n_levels"], p=p)
     _sync(torch, dev)
     q, beta = inp["codes_q"].shape
-    return _hold(torch, inp, p, (hf, hg, sc), (rf, rg, rs),
-                 f"{label} (Q={q} n={n_rows} beta={beta} c={inp['c']} "
-                 f"L={inp['n_levels']}; first frequent levels 0..L+2 "
-                 f"counted {rf.sum(0).tolist()})")
+    err = _hold(torch, inp, p, (hf, hg, sc), (rf, rg, rs),
+                f"{label} (Q={q} n={n_rows} beta={beta} c={inp['c']} "
+                f"L={inp['n_levels']}; first frequent levels 0..L+2 "
+                f"counted {rf.sum(0).tolist()})")
+    _same_scan(torch, dev, inp, kw, (hf, hg, sc), label)
+    return err
 
 
 def phase_kernels(torch, dev):
     """Each kernel against its plain version on the card."""
     n_rows = CHECK_ROWS
-    err = {"fused_query_hist": 0.0, "fused_query_scores": 0.0}
+    err = {}
     for i, p in enumerate((2.0, 1.0, 0.5)):
         inp = _kernel_inputs(p, n_rows, seed=100 + i, torch=torch, dev=dev)
         err = _max_err(err, _check_fused(torch, dev, inp, p,
@@ -949,6 +987,14 @@ def _state(svc, gi):
         return st
 
 
+def _served(n) -> dict:
+    """The fused kernels' launches on a serving leg of ``n`` steps: the
+    keep pass and the mask once a step (``None``: at least once), the
+    two-pass kernels never."""
+    return {"fused_query_keep": n, "fused_query_mask": n,
+            "fused_query_hist": 0, "fused_query_scores": 0}
+
+
 def _need_launches(launches, want: dict, leg: str) -> None:
     say(f"{leg} launches: {launches}")
     for name, cnt in want.items():
@@ -1004,8 +1050,7 @@ def phase_slice(torch, dev):
     runs, lat, t_q, launches = _serve(torch, dev, svc, qpts, wids,
                                       cf["reps"])
     peak = _peak(torch, dev)
-    _need_launches(launches, {"fused_query_hist": None,
-                              "fused_query_scores": None, "hash_encode": 0,
+    _need_launches(launches, {**_served(None), "hash_encode": 0,
                               "freq_level": 0, "weighted_lp": 0}, "slice")
     res = runs[-1]
     n_served = n_q * cf["reps"]
@@ -1108,7 +1153,7 @@ def phase_encode(torch, dev, sl):
     t_build = time.time() - t0
     built = _cuda.launch_counts()
     _need_launches(built, {"hash_encode": plan_nc.n_groups,
-                           "fused_query_hist": 0, "fused_query_scores": 0,
+                           **_served(0),
                            "freq_level": 0, "weighted_lp": 0}, "encode build")
     built = built["hash_encode"]
     say(f"encode build: {plan_nc.n_groups} states encoded on the card by "
@@ -1164,8 +1209,7 @@ def phase_encode(torch, dev, sl):
     runs, lat, t_q, launches = _serve(torch, dev, svc, qpts, wids, 1)
     n_batches = len(lat)
     _need_launches(launches, {"hash_encode": n_batches,
-                              "fused_query_hist": n_batches,
-                              "fused_query_scores": n_batches,
+                              **_served(n_batches),
                               "freq_level": 0, "weighted_lp": 0},
                    "encode serve")
     res = runs[-1]
@@ -1208,7 +1252,7 @@ def phase_unfused(torch, dev, sl):
     runs, lat, t_q, launches = _serve(torch, dev, svc, qpts, wids, 1)
     n_batches = len(lat)
     _need_launches(launches, {"freq_level": 2 * n_batches,
-                              "fused_query_hist": 0, "fused_query_scores": 0,
+                              **_served(0),
                               "hash_encode": 0, "weighted_lp": 0},
                    "unfused serve")
     res = runs[-1]
@@ -1298,7 +1342,8 @@ def phase_paged(torch, dev, sl):
                                       cf["reps"])
     peak = _peak(torch, dev)
     want = {name: sl["launches"][name] for name in
-            ("fused_query_hist", "fused_query_scores")}
+            ("fused_query_hist", "fused_query_scores", "fused_query_keep",
+             "fused_query_mask")}
     _need_launches(launches, dict(want, hash_encode=0, freq_level=0,
                                   weighted_lp=0), "paged")
     cache = svc.cache_summary()
@@ -1371,8 +1416,7 @@ def phase_async(torch, dev, sl, paged, shards=1, leg="async"):
     _sync(torch, dev)
     launches = _cuda.launch_counts()
     n_batches = sum(s["n_batches"] for s in svc.stats_summary().values())
-    _need_launches(launches, {"fused_query_hist": shards * n_batches,
-                              "fused_query_scores": shards * n_batches,
+    _need_launches(launches, {**_served(shards * n_batches),
                               "hash_encode": 0, "freq_level": 0,
                               "weighted_lp": 0}, leg)
     want = sl["res"]
@@ -1502,6 +1546,8 @@ def _trace_stages(path: str, window: str):
         stage = None
         if m:
             stage, key = ("pass 1" if m.group(1) == "0" else "pass 2"), "name"
+        elif "fused_query_mask_kernel" in name:  # pass 2 on pass 1's carry
+            stage, key = "pass 2", "name"
         elif cat(e) == "gpu_memcpy" and "HtoD" in name:
             stage, key = "H2D", "name"
         elif cat(e) == "gpu_memcpy" and "DtoH" in name:
@@ -1588,8 +1634,7 @@ def phase_obs(torch, dev, sl, smi):
     runs, lat, t_q, got = _serve(torch, dev, svc, qpts, wids,
                                  SLICE["reps"])
     count(got)
-    _need_launches(got, {"fused_query_hist": None, "fused_query_scores":
-                         None, "hash_encode": 0, "freq_level": 0,
+    _need_launches(got, {**_served(None), "hash_encode": 0, "freq_level": 0,
                          "weighted_lp": 0}, "obs sync")
     _need(all(_same_answers(r, want) for r in runs), "obs-on answers differ "
           "from the slice leg's")
@@ -1636,7 +1681,7 @@ def phase_obs(torch, dev, sl, smi):
     ms, idle, window_ms, n_ev, how = _trace_stages(path,
                                                    "chip_smoke_obs_capture")
     busy = sum(ms.values())
-    n_b = got["fused_query_hist"]
+    n_b = got["fused_query_keep"]
     _need(n_ev > 0 and ms["pass 1"] > 0 and ms["pass 2"] > 0,
           f"the capture holds {n_ev} device events and no fused pass")
     say(f"obs capture: {n_b} fused batches in {1e3 * t_cap:.1f} ms of host "
@@ -1678,8 +1723,7 @@ def phase_obs(torch, dev, sl, smi):
     got = _cuda.launch_counts()
     count(got)
     n_batches = sum(s["n_batches"] for s in svc.stats_summary().values())
-    _need_launches(got, {"fused_query_hist": n_batches,
-                         "fused_query_scores": n_batches, "hash_encode": 0,
+    _need_launches(got, {**_served(n_batches), "hash_encode": 0,
                          "freq_level": 0, "weighted_lp": 0}, "obs async")
     _need(_same_answers(res_a, want), "obs async answers differ from the "
           "slice leg's")
@@ -1784,8 +1828,7 @@ def phase_bf16(torch, dev, sl, smi):
     runs, lat, t_q, launches = _serve(torch, dev, svc, qpts, wids,
                                       cf["reps"])
     peak = _peak(torch, dev)
-    _need_launches(launches, {"fused_query_hist": None,
-                              "fused_query_scores": None, "hash_encode": 0,
+    _need_launches(launches, {**_served(None), "hash_encode": 0,
                               "freq_level": 0, "weighted_lp": 0}, "bf16")
     res = runs[-1]
     qps = len(qpts) * cf["reps"] / t_q
@@ -1818,6 +1861,8 @@ def phase_bf16(torch, dev, sl, smi):
         p=cfg.p))
     err = _hold(torch, inp, cfg.p, out_k, out_p,
                 f"bf16 kernels (group {gi}, bfloat16 rows)", zone_edge=BF16_ZONE)
+    _same_scan(torch, dev, inp, kwp, out_k,
+               f"bf16 kernels (group {gi}, bfloat16 rows)")
     wide = dict(inp, points=st.points.float())
     out_w = list(fused_query.fused_query_hist(*_pass_args(wide, "hist"),
                                               **kwp))
@@ -2054,8 +2099,7 @@ def phase_stream(torch, dev, sl, smi):
     main = {name: cnt - excluded.get(name, 0)
             for name, cnt in _cuda.launch_counts().items()}
     n_batches = sum(len(v) for v in lat.values())
-    _need_launches(main, {"fused_query_hist": n_batches,
-                          "fused_query_scores": n_batches, "hash_encode": 0,
+    _need_launches(main, {**_served(n_batches), "hash_encode": 0,
                           "freq_level": 0, "weighted_lp": 0},
                    "stream (host codes)")
     ds = svc.delta_summary()
@@ -2334,8 +2378,7 @@ def _stream_codeless(torch, dev, sl, scfg, smi):
     seals = svc.delta_summary()["n_seals"]
     n_batches = sum(s["n_batches"] for s in svc.stats_summary().values())
     _need_launches(main, {"hash_encode": builds + seals + n_batches,
-                          "fused_query_hist": n_batches,
-                          "fused_query_scores": n_batches,
+                          **_served(n_batches),
                           "freq_level": 0, "weighted_lp": 0},
                    "stream (no host codes)")
     say(f"stream codeless: {m} inserts -> {seals} seals through the "
@@ -2437,6 +2480,8 @@ def _shard_checks(torch, dev, sl, svc, smi):
                 f"{st.n_shards}: boff={off}, n_valid={st.n_valid}, "
                 f"{n_loc - dead} live and {dead} dead rows, Q="
                 f"{cfg.q_batch}) [{smi}]")
+    _same_scan(torch, dev, inp, kw, (hf, hg, sc),
+               f"shard hold (group {gi}, shard {s_last})")
 
     calls = []
 
@@ -2552,8 +2597,7 @@ def _shard_stream(torch, dev, sl, svc, smi):
             for name, cnt in _cuda.launch_counts().items()}
     n_batches = sum(s["n_batches"] for s in svc.stats_summary().values())
     shards = svc.batcher.n_shards
-    _need_launches(main, {"fused_query_hist": shards * n_batches,
-                          "fused_query_scores": shards * n_batches,
+    _need_launches(main, {**_served(shards * n_batches),
                           "hash_encode": 0, "freq_level": 0,
                           "weighted_lp": 0}, "shard stream")
     say(f"shard stream ({shards} shards, {PAGED_SLOTS} of {plan.n_groups} "
@@ -2608,8 +2652,7 @@ def phase_shard(torch, dev, sl, smi):
         _reset_peak(torch, dev)
         runs, lat, t_q, got = _serve(torch, dev, svc, qpts, wids, cf["reps"])
         peak = _peak(torch, dev)
-        _need_launches(got, {"fused_query_hist": shards * len(lat),
-                             "fused_query_scores": shards * len(lat),
+        _need_launches(got, {**_served(shards * len(lat)),
                              "hash_encode": 0, "freq_level": 0,
                              "weighted_lp": 0}, f"shard S={shards}")
         add(got)
@@ -2648,8 +2691,7 @@ def phase_shard(torch, dev, sl, smi):
     _reset_peak(torch, dev)
     runs, lat, t_q, got = _serve(torch, dev, svc, qpts, wids, cf["reps"])
     peak = _peak(torch, dev)
-    _need_launches(got, {"fused_query_hist": shards * len(lat),
-                         "fused_query_scores": shards * len(lat),
+    _need_launches(got, {**_served(shards * len(lat)),
                          "hash_encode": 0, "freq_level": 0,
                          "weighted_lp": 0}, "shard paged")
     add(got)
@@ -2807,8 +2849,7 @@ def phase_sentinel(torch, dev, smi):
     card = sentinel.collect(device=str(dev))
     launches = _cuda.launch_counts()
     t_card = time.time() - t0
-    _need_launches(launches, {"fused_query_hist": None,
-                              "fused_query_scores": None, "hash_encode": 0,
+    _need_launches(launches, {**_served(None), "hash_encode": 0,
                               "freq_level": 0, "weighted_lp": 0}, "sentinel")
     t0 = time.time()
     cpu = sentinel.collect(device="cpu")
@@ -3182,8 +3223,7 @@ def _lm_serve(torch, dev, smi, corpus):
     _sync(torch, dev)
     runs, lat, t_q, launches = _serve(torch, dev, svc, qpts, wids,
                                       LM["reps"])
-    _need_launches(launches, {"fused_query_hist": None,
-                              "fused_query_scores": None, "hash_encode": 0,
+    _need_launches(launches, {**_served(None), "hash_encode": 0,
                               "freq_level": 0, "weighted_lp": 0}, "lm serve")
     res = runs[-1]
     say(f"lm serve: {LM['reps']} x {n_q} queries in {len(lat)} batches, "
@@ -3200,7 +3240,7 @@ def _lm_serve(torch, dev, smi, corpus):
                       f"lm kernels (group {gi}, the lm leg's inputs)",
                       zone_edge=LM_ZONE,
                       tol=1e-6 * max(1.0, d / SLICE["d"]))
-    for name in ("fused_query_hist", "fused_query_scores"):
+    for name in _FUSED:
         bound = f["bound"][name]
         say(f"lm times {name} (group {gi}: {f['shape']}): kernel "
             f"{f['t_k'][name]:.3f} ms, plain {f['t_p'][name]:.3f} ms, bound "
@@ -3247,7 +3287,7 @@ def _lm_serve(torch, dev, smi, corpus):
         f"launches, occupancy {svc.mean_occupancy():.2f}, wait mean "
         f"{1e3 * waits.mean():.2f} ms; launches {a_launches}")
     _need(same, "lm async answers differ from the sync answers")
-    _need(a_launches["fused_query_hist"] > 0, "lm async launched nothing")
+    _need(a_launches["fused_query_keep"] > 0, "lm async launched nothing")
     _free(torch, svc)
     return dict(launches={name: launches[name] + a_launches[name]
                           for name in launches},
@@ -4005,7 +4045,7 @@ def _mesh_index(torch, dev, mesh, proc, smi):
     _sync(torch, dev)
     now = _cuda.launch_counts()
     main = {k: now[k] - before[k] for k in now}
-    _need_launches(main, {"fused_query_hist": 1, "fused_query_scores": 1,
+    _need_launches(main, {**_served(1),
                           "hash_encode": 2, "freq_level": 0,
                           "weighted_lp": 0}, "mesh index steps")
 
@@ -4087,8 +4127,8 @@ def _mesh_index(torch, dev, mesh, proc, smi):
     # every launch of the leg: the steps' run, the holds, the counter's
     # runs and the timed runs
     total = dict(main, hash_encode=main["hash_encode"] + 3 + 2 * reps,
-                 fused_query_hist=main["fused_query_hist"] + 2 + 2 * reps,
-                 fused_query_scores=main["fused_query_scores"] + 2 + 2 * reps)
+                 fused_query_keep=main["fused_query_keep"] + 2 + 2 * reps,
+                 fused_query_mask=main["fused_query_mask"] + 2 + 2 * reps)
     return main, total
 
 
@@ -4362,12 +4402,20 @@ def _row(name, launches, err, ms, plain_ms, bound, library_ms=None):
                 library_ms=library_ms)
 
 
+# the fused kernels of the kernel table: the two passes, then the serving
+# path's single scan (the keep pass and the mask on its carry)
+_FUSED = ("fused_query_hist", "fused_query_scores", "fused_query_keep",
+          "fused_query_mask")
+
+
 def _fused_passes(torch, dev, inputs, points, label, **hold_kw):
     """Both fused passes on one group's state with ``points`` as its rows:
-    held to their plain versions (``_hold``, with ``hold_kw``), each timed
-    (kernel: mean of 5 launches after a warm one; plain: one call), and
-    the bound of each from the bytes it must move (each input read once,
-    each output written once) and its level tests and p = 2 flops."""
+    held to their plain versions (``_hold``, with ``hold_kw``), the keep
+    pass and the mask held to them bit for bit (``_same_scan``), each
+    timed (kernel: mean of 5 launches after a warm one, 20 for the mask;
+    plain: one call), and the bound of each from the bytes it must move
+    (each input read once, each output written once) and its level tests
+    and p = 2 flops."""
     from repro_torch.kernels import cost, fused_query, ref
 
     gi, cfg, st, inp = inputs
@@ -4391,12 +4439,32 @@ def _fused_passes(torch, dev, inputs, points, label, **hold_kw):
             torch, reps=1)
     out_p = [*out_p[0], out_p[1]]
     err = _hold(torch, inp, cfg.p, out_k, out_p, label, **hold_kw)
+    _same_scan(torch, dev, inp, kw, out_k, label)
+    del out_k, out_p
+    keep_args = _pass_args(inp, "hist")
+    _, _, lf, dist = fused_query.fused_query_keep(*keep_args, **kw)
+    t_k["fused_query_keep"] = _time_ms(
+        lambda: fused_query.fused_query_keep(*keep_args, **kw), torch, reps=5)
+    # in place and idempotent: each launch reads and writes every cell
+    t_k["fused_query_mask"] = _time_ms(
+        lambda: fused_query.fused_query_mask(lf, inp["stop"], dist), torch,
+        reps=20)
+    t_p["fused_query_keep"] = _time_ms(lambda: ref.fused_query_keep_ref(
+        *keep_args, row_ok, c=cfg.c, n_levels=cfg.n_levels, p=cfg.p),
+        torch, reps=1)
+    t_p["fused_query_mask"] = _time_ms(
+        lambda: ref.fused_query_mask_ref(lf, inp["stop"], dist), torch,
+        reps=1)
+    del lf, dist
     tests = int(inp["beta_q"].clamp_max(beta).sum()) * n  # level tests
     kw = dict(vec_bytes=points.element_size(), p=cfg.p, tests=tests)
     costs = {"fused_query_hist": cost.fused_query_hist(n, beta, q, d,
                                                        cfg.n_levels, **kw),
              "fused_query_scores": cost.fused_query_scores(n, beta, q, d,
-                                                           **kw)}
+                                                           **kw),
+             "fused_query_keep": cost.fused_query_keep(n, beta, q, d,
+                                                       cfg.n_levels, **kw),
+             "fused_query_mask": cost.fused_query_mask(n, q)}
     return dict(t_k=t_k, t_p=t_p, err=err, tests=tests,
                 flops=int(costs["fused_query_hist"].flops),
                 bytes={k: c.bytes for k, c in costs.items()},
@@ -4414,7 +4482,7 @@ def _times_fused(torch, dev, sl, errs, smi, inputs, other):
     say(f"times {_occupancy_line(fused_query, cfg.c, cfg.n_levels)}; "
         f"{_ptxas_summary('fused_query.cu')} [{smi}]")
     table = []
-    for name in ("fused_query_hist", "fused_query_scores"):
+    for name in _FUSED:
         bound = f["bound"][name]
         say(f"times {name} (group {gi}: {f['shape']}): kernel "
             f"{f['t_k'][name]:.3f} ms, plain {f['t_p'][name]:.3f} ms, bound "
@@ -4428,7 +4496,7 @@ def _times_fused(torch, dev, sl, errs, smi, inputs, other):
     b = _fused_passes(torch, dev, inputs, st.points.to(torch.bfloat16),
                       f"times bf16 check (group {gi}, bfloat16 rows)",
                       zone_edge=BF16_ZONE)
-    for name in ("fused_query_hist", "fused_query_scores"):
+    for name in _FUSED:
         bound = b["bound"][name]
         say(f"times {name} bfloat16 rows (group {gi}: {b['shape']}): kernel "
             f"{b['t_k'][name]:.3f} ms (float32 rows {f['t_k'][name]:.3f} ms),"

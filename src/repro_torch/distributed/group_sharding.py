@@ -21,9 +21,10 @@ devices, the merges inside ``shard_map``):
               from per-shard row ranges, so the whole corpus never exists
               as one host array; ``offload_state_sharded`` /
               ``restore_state_sharded`` page it one host chunk per shard.
-  query       the engine runs both fused passes on every shard at its
+  query       the engine runs both passes on every shard at its
               row offset (``s * n_loc``) against the global
-              ``n_valid``; the only traffic between devices is
+              ``n_valid``, each shard's carry on its device (the fused
+              path scans once); the only traffic between devices is
               ``merge_histograms`` (the (Q, L+2) int32 level histograms
               added on the first device: integers, exact in any order)
               and ``merge_shard_topk`` (the (Q, k) survivors of every

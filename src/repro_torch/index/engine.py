@@ -4,20 +4,25 @@ One table group's state is its point codes ``(n, beta)`` and vectors
 ``(n, d)``, resident on the device.  A query step answers a batch of
 queries, each under its own weight vector, collision threshold ``mu``,
 radius base ``r_min``, table count ``beta_q`` and level cap ``levels_q``,
-in two passes over every row:
+in two passes:
 
   pass 1  codes + vectors -> first-frequent level, distance, good level
           -> per-level frequent/good histograms -> the paper's stop
           conditions (k found / budget) -> stop level per query
-  pass 2  codes + vectors -> distances masked to rows frequent at the stop
-          level -> top-k -> exact float32 re-rank of the k survivors
+  pass 2  distances masked to rows frequent at the stop level -> top-k ->
+          exact float32 re-rank of the k survivors
 
-With ``use_kernels="on"`` each pass is one call of
-``ops.fused_query_block`` over the whole state: one CUDA kernel launch on
-the card (kernels/csrc/fused_query.cu), the plain torch version on the CPU.
-``use_kernels="off"`` runs the unfused stage-by-stage scan, the parity
-oracle: the ``freq_level`` kernel (its plain version on the CPU), then
-per-query distances and histograms in torch.  Both bin dead rows
+With ``use_kernels="on"`` the state is scanned once: pass 1 is one call of
+``ops.fused_query_keep`` over the whole state, one CUDA kernel launch on
+the card (kernels/csrc/fused_query.cu), the plain torch version on the
+CPU.  Besides the histograms it keeps a carry of each (query, row)'s
+first-frequent level (uint8) and distance, which depend on nothing the
+stop rule decides; pass 2 is one ``ops.fused_query_mask`` over the carry,
+which sets the distances past the stop level to +inf in place, the same
+scores as a second scan, bit for bit.  ``use_kernels="off"`` runs the
+unfused stage-by-stage scan twice, the parity oracle: the ``freq_level``
+kernel (its plain version on the CPU), then per-query distances and
+histograms in torch.  Both bin dead rows
 differently (excluded vs parked at level L+1), but the stop rule reads
 only bins 0..L, so stop, n_checked, ids and distances agree.
 
@@ -48,9 +53,12 @@ exact order of the rank-k boundary agree.
 
 Every engine runs one per-shard body in two halves around the histogram
 merge: ``_pass1`` (pass 1 at the shard's row offset against the global
-``n_valid``) and ``_pass2`` (pass 2, the top-k rebased to global rows,
-the exact re-rank).  One device is one shard with nothing to merge; the
-device list merges on its first device; ``make_query_step`` runs the
+``n_valid``, and the shard's carry) and ``_pass2`` (pass 2, the top-k
+rebased to global rows, the exact re-rank).  A shard's carry stays on its
+device; pass 2 releases its levels before the top-k, so the step's peak
+is the top-k's beside the scores, as with a second scan.  One device is
+one shard with nothing to merge; the device list merges on its first
+device; ``make_query_step`` runs the
 body on every rank of a ``DeviceMesh`` under ``shard_map_nocheck`` and
 merges with one all-reduce and one all-gather
 (``group_sharding.merge_*_mesh``), so the mesh step answers as the
@@ -214,37 +222,45 @@ def _n_checked(nf_cum, stop, cfg: IndexConfig):
 
 
 def _pass1(state, ins, boff: int, n_valid: int, cfg: IndexConfig, path):
-    """Pass 1 of one shard: its (hist_f, hist_g) (Q, L+2) level histograms.
+    """Pass 1 of one shard: its (hist_f, hist_g) (Q, L+2) level histograms
+    and its carry for ``_pass2``.
 
     ``state`` holds the global rows ``[boff, boff + n_loc)``; rows at or
     past the global ``n_valid`` are dead.  ``ins`` is ``(codes_q, qf, wf,
-    mu, r_min, beta_q)`` on the shard's device.  With the stop rule over
-    the merged histograms and ``_pass2``, this is the per-shard body of
-    every engine: one device, a list of devices, a mesh.
+    mu, r_min, beta_q)`` on the shard's device.  On the fused path the
+    carry is the list ``[lf, dist]`` of ``ops.fused_query_keep``; on the
+    unfused path it is empty and pass 2 scans again.  With the stop rule
+    over the merged histograms and ``_pass2``, this is the per-shard body
+    of every engine: one device, a list of devices, a mesh.
     """
     codes_q, qf, wf, mu, r_min, beta_q = ins
     with span("wlsh_pass1"):
         if path.fused:
-            return ops.fused_query_block(
+            hist_f, hist_g, carry = ops.fused_query_keep(
                 state.codes, state.points, codes_q, qf, wf, mu, r_min,
                 beta_q, boff=boff, n_valid=n_valid, c=cfg.c,
                 n_levels=cfg.n_levels, p=cfg.p)
-        return _unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q, cfg,
-                             None, boff=boff, n_valid=n_valid)
+            return hist_f, hist_g, list(carry)
+        return (*_unfused_pass(state, codes_q, qf, wf, mu, r_min, beta_q,
+                               cfg, None, boff=boff, n_valid=n_valid), [])
 
 
-def _pass2(state, ins, stop, boff: int, n_valid: int, cfg: IndexConfig,
-           path):
+def _pass2(state, ins, stop, carry: list, boff: int, n_valid: int,
+           cfg: IndexConfig, path):
     """Pass 2 of one shard after the stop rule: its k survivors, ``(vals
     (Q, k), ids (Q, k))`` with global row ids (-1 where missing), each
-    distance re-ranked exactly on the shard's stored rows."""
+    distance re-ranked exactly on the shard's stored rows.
+
+    ``carry`` is ``_pass1``'s; it is emptied here, so that the levels are
+    released before the top-k and the distances with the scores.
+    """
     codes_q, qf, wf, mu, r_min, beta_q = ins
     with span("wlsh_pass2"):
         if path.fused:
-            scores = ops.fused_query_block(
-                state.codes, state.points, codes_q, qf, wf, mu, r_min,
-                beta_q, boff=boff, n_valid=n_valid, c=cfg.c,
-                n_levels=cfg.n_levels, p=cfg.p, stop=stop)
+            lf, scores = carry
+            carry.clear()
+            ops.fused_query_mask(lf, stop, scores)
+            del lf
         else:
             scores = _unfused_pass(state, codes_q, qf, wf, mu, r_min,
                                    beta_q, cfg, stop, boff=boff,
@@ -284,9 +300,11 @@ def query_step(state, queries, codes_q, q_weight, mu, r_min,
         path = kplatform.resolve(cfg.use_kernels, state.device)
         ins = (codes_q, queries.float(), q_weight.float(), mu, r_min,
                beta_q)
-        hist_f, hist_g = _pass1(state, ins, 0, state.n_valid, cfg, path)
+        hist_f, hist_g, carry = _pass1(state, ins, 0, state.n_valid, cfg,
+                                       path)
         stop, nf_cum = _stop_levels(hist_f, hist_g, levels_q, cfg)
-        vals, idx = _pass2(state, ins, stop, 0, state.n_valid, cfg, path)
+        vals, idx = _pass2(state, ins, stop, carry, 0, state.n_valid, cfg,
+                           path)
         return vals, idx, stop, _n_checked(nf_cum, stop, cfg)
 
 
@@ -295,7 +313,8 @@ def _query_sharded(state, queries, codes_q, q_weight, mu, r_min, beta_q,
     """``query_step`` over a ``ShardedQueryState``, shard by shard.
 
     Step for step the JAX package's ``_query_shard``: pass 1 on every
-    shard at its row offset against the global ``n_valid``; the
+    shard at its row offset against the global ``n_valid``, each shard's
+    carry kept on its device; the
     histograms added on the first device (``merge_histograms``) and the
     stop rule run once there; ``stop`` sent to every shard, pass 2, a
     top-k whose rows are rebased to global ids, and an exact re-rank of
@@ -320,15 +339,16 @@ def _query_sharded(state, queries, codes_q, q_weight, mu, r_min, beta_q,
            for sh, _ in shards]
 
     # ---- pass 1 on every shard, histograms merged, stop rule once --------
-    hists = [_pass1(sh, x, off, state.n_valid, cfg, path)
-             for (sh, off), x in zip(shards, ins)]
+    firsts = [_pass1(sh, x, off, state.n_valid, cfg, path)
+              for (sh, off), x in zip(shards, ins)]
     hist_f, hist_g = group_sharding.merge_histograms(
-        [h[0] for h in hists], [h[1] for h in hists], dev0)
+        [h[0] for h in firsts], [h[1] for h in firsts], dev0)
     stop, nf_cum = _stop_levels(hist_f, hist_g, levels_q, cfg)
 
     # ---- pass 2, top-k and exact re-rank on every shard; exact merge ------
-    outs = [_pass2(sh, x, stop.to(sh.device), off, state.n_valid, cfg, path)
-            for (sh, off), x in zip(shards, ins)]
+    outs = [_pass2(sh, x, stop.to(sh.device), h[2], off, state.n_valid, cfg,
+                   path)
+            for (sh, off), x, h in zip(shards, ins, firsts)]
     vals, idx = group_sharding.merge_shard_topk(
         [o[0] for o in outs], [o[1] for o in outs], cfg.k, dev0)
     return vals, idx, stop, _n_checked(nf_cum, stop, cfg)
@@ -364,8 +384,8 @@ def make_query_step(mesh, cfg: IndexConfig):
     capacity that does not divide the mesh raises) with the global
     ``n_valid``; plain query tensors are taken as replicated.  Each rank
     runs the per-shard body under ``shard_map_nocheck``: pass 1 at its
-    row offset (``shard_row_offset``), the histograms summed by one
-    all-reduce, the stop rule, pass 2 and the exact re-rank of its k
+    row offset (``shard_row_offset``) with its carry, the histograms summed
+    by one all-reduce, the stop rule, pass 2 and the exact re-rank of its k
     survivors, then one all-gather of every shard's survivors and the
     k smallest of them (``merge_shard_topk_mesh``).  The body is the
     device-list engine's, so both answer alike bit for bit.
@@ -384,11 +404,13 @@ def make_query_step(mesh, cfg: IndexConfig):
         off = group_sharding.shard_row_offset(mesh, n_loc)
         path = kplatform.resolve(cfg.use_kernels, codes.device)
         ins = (codes_q, queries.float(), q_weight.float(), mu, r_min, beta_q)
-        hist_f, hist_g = group_sharding.merge_histograms_mesh(
-            *_pass1(local, ins, off, n_valid, cfg, path), mesh)
+        hist_f, hist_g, carry = _pass1(local, ins, off, n_valid, cfg, path)
+        hist_f, hist_g = group_sharding.merge_histograms_mesh(hist_f, hist_g,
+                                                              mesh)
         stop, nf_cum = _stop_levels(hist_f, hist_g, levels_q, cfg)
         vals, idx = group_sharding.merge_shard_topk_mesh(
-            *_pass2(local, ins, stop, off, n_valid, cfg, path), cfg.k, mesh)
+            *_pass2(local, ins, stop, carry, off, n_valid, cfg, path), cfg.k,
+            mesh)
         return vals, idx, stop, _n_checked(nf_cum, stop, cfg)
 
     mapped = shard_map_nocheck(

@@ -28,8 +28,9 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["Cost", "freq_level", "fused_query_hist", "fused_query_scores",
-           "hash_encode", "of_op", "weighted_lp"]
+__all__ = ["Cost", "freq_level", "fused_query_hist", "fused_query_keep",
+           "fused_query_mask", "fused_query_scores", "hash_encode", "of_op",
+           "weighted_lp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +96,21 @@ def fused_query_scores(n, beta, q, d, vec_bytes=4, p=2.0,
     return _fused(n, beta, q, d, vec_bytes, p, tests, 4 * q * n)
 
 
+def fused_query_keep(n, beta, q, d, n_levels, vec_bytes=4, p=2.0,
+                     tests=None) -> Cost:
+    """Pass 1 that keeps its carry: ``fused_query_hist``'s work, and the
+    (Q, n) uint8 levels and float32 distances written besides."""
+    return dataclasses.replace(
+        fused_query_hist(n, beta, q, d, n_levels, vec_bytes, p, tests),
+        bytes_written=2 * 4 * q * (n_levels + 3) + 5 * q * n)
+
+
+def fused_query_mask(n, q) -> Cost:
+    """Pass 2 on the carry: (Q, n) uint8 levels, float32 distances and
+    (Q,) int32 stop levels read; the distances written back."""
+    return Cost(bytes_read=5 * q * n + 4 * q, bytes_written=4 * q * n)
+
+
 def hash_encode(n, d, beta) -> Cost:
     """(n, d) float32 rows through a (d, beta) projection."""
     return Cost(f32_flops=2 * n * d * beta,
@@ -118,13 +134,19 @@ def weighted_lp(q, n, d, p) -> Cost:
 def of_op(name: str, args, kwargs) -> Cost:
     """The cost of one call of the ``repro_torch::<name>`` op on
     ``args``/``kwargs`` (tensors or meta tensors: shapes only)."""
-    if name in ("fused_query_hist", "fused_query_scores"):
+    if name in ("fused_query_hist", "fused_query_keep",
+                "fused_query_scores"):
         codes_p, points, _, queries = args[:4]
         (n, beta), (q, d) = codes_p.shape, queries.shape
         kw = dict(vec_bytes=points.element_size(), p=kwargs["p"])
-        if name == "fused_query_hist":
-            return fused_query_hist(n, beta, q, d, kwargs["n_levels"], **kw)
-        return fused_query_scores(n, beta, q, d, **kw)
+        if name == "fused_query_scores":
+            return fused_query_scores(n, beta, q, d, **kw)
+        fn = (fused_query_hist if name == "fused_query_hist"
+              else fused_query_keep)
+        return fn(n, beta, q, d, kwargs["n_levels"], **kw)
+    if name == "fused_query_mask":
+        q, n = args[2].shape  # (lf, stop, dist)
+        return fused_query_mask(n, q)
     if name == "hash_encode":
         points, _, proj = args[:3]
         return hash_encode(points.shape[0], points.shape[1], proj.shape[1])

@@ -14,6 +14,17 @@
 // in bin L+2); pass 2 writes the distance, or +inf where lf > stop[q] or
 // the row is dead.
 //
+// The serving path scans the state once: neither lf nor the distance
+// depends on stop, so pass 1 in its keep form (wlsh_fused_query_hist
+// with its lf and dist pointers set) also stores each (query, row)'s lf
+// as a byte (L+2 for a dead row) and its distance (+inf for a dead row),
+// and pass 2 becomes fused_query_mask_kernel, which sets the distance to
+// +inf in place where lf > stop[q].  The stored distance is the one pass
+// 2 computes, from the same code in the same order, so the masked scores
+// equal pass 2's bit for bit; the mask is memory-bound (5 bytes read and
+// 4 written a cell).  Pass 2 from scratch (wlsh_fused_query_scores) stays
+// as the JAX package's counterpart and the yardstick of the keep form.
+//
 // What bounds it on this card: integer work.  Pass 1 reads n*beta*4 +
 // n*d*4 bytes per launch but makes Q*n*beta_q level-agreement tests, so it
 // sits far above the memory roofline; the distance adds Q*n*d
@@ -64,6 +75,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include <algorithm>
+
 #include "level_match.cuh"
 
 namespace {
@@ -85,6 +98,8 @@ struct Args {
   const int* stop;        // (Q,)  pass 2
   int* hist_f;            // (Q, L+3) pass 1, zeroed by the caller
   int* hist_g;            // (Q, L+3) pass 1, zeroed by the caller
+  unsigned char* lf_out;  // (Q, B) pass 1's keep form, else null
+  float* dist_out;        // (Q, B) pass 1's keep form, else null
   float* scores;          // (Q, B) pass 2
   int B, beta, Q, d, boff, n_valid, c, L, vec_bf16, pkind;
   float p, inv_p, logc;
@@ -281,6 +296,11 @@ __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
       }
       atomicAdd(&s_hf[q * L3 + bf], 1);
       if (bg <= L2) atomicAdd(&s_hg[q * L3 + bg], 1);
+      if (a.dist_out) {  // the keep form: the mask's carry
+        const size_t o = (size_t)(q0 + q) * a.B + row;
+        a.lf_out[o] = (unsigned char)bf;
+        a.dist_out[o] = ok ? dist : INFINITY;
+      }
     } else {
       a.scores[(size_t)(q0 + q) * a.B + row] =
           (ok && lf[q] <= s_stop[q]) ? dist : INFINITY;
@@ -294,6 +314,40 @@ __global__ void __launch_bounds__(ROWS) fused_query_kernel(Args a) {
       const size_t g = (size_t)q0 * L3 + e;  // rows q0.. of (Q, L+3)
       if (vf) atomicAdd(&a.hist_f[g], vf);
       if (vg) atomicAdd(&a.hist_g[g], vg);
+    }
+  }
+}
+
+// Pass 2 of the serving path, on pass 1's carry: dist[q, i] = +inf where
+// lf[q, i] > stop[q], in place.  One thread a 16-byte group of a query's
+// row of distances (4 cells and their 4 level bytes) where the row
+// allows it (B % 4 == 0 and aligned pointers), else one a cell.
+constexpr int MASK_THREADS = 256;
+
+__global__ void __launch_bounds__(MASK_THREADS)
+    fused_query_mask_kernel(const unsigned char* lf, const int* stop,
+                            float* dist, int B, int Q, int vec) {
+  const int stride = gridDim.x * MASK_THREADS;
+  const int first = blockIdx.x * MASK_THREADS + threadIdx.x;
+  for (int q = blockIdx.y; q < Q; q += gridDim.y) {
+    const int s = stop[q];
+    const unsigned char* l = lf + (size_t)q * B;
+    float* x = dist + (size_t)q * B;
+    if (vec) {
+      const uchar4* l4 = reinterpret_cast<const uchar4*>(l);
+      float4* x4 = reinterpret_cast<float4*>(x);
+      for (int i = first; i < (B >> 2); i += stride) {
+        const uchar4 m = l4[i];
+        float4 v = x4[i];
+        if (m.x > s) v.x = INFINITY;
+        if (m.y > s) v.y = INFINITY;
+        if (m.z > s) v.z = INFINITY;
+        if (m.w > s) v.w = INFINITY;
+        x4[i] = v;
+      }
+    } else {
+      for (int i = first; i < B; i += stride)
+        if (l[i] > s) x[i] = INFINITY;
     }
   }
 }
@@ -325,7 +379,7 @@ int launch_c(const Args& a, cudaStream_t stream) {
 
 template <int MODE>
 int launch(Args& a, void* stream) {
-  if (a.L < 0 || a.beta > 65535 ||
+  if (a.L < 0 || a.beta > 65535 || (a.dist_out && a.L + 2 > 255) ||
       (long long)((a.B + ROWS - 1) / ROWS) * ((a.Q + QT - 1) / QT) >
           0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -377,7 +431,11 @@ int occupancy(int c, int L, int* out) {
 extern "C" {
 
 // Pass 1: hist_f, hist_g (Q, L+3) int32, zero-filled by the caller.
-// points is float32 (vec_bf16 = 0) or bfloat16 (vec_bf16 = 1).
+// points is float32 (vec_bf16 = 0) or bfloat16 (vec_bf16 = 1).  With lf
+// and dist both null this is pass 1 alone; with both set (the keep form;
+// L + 2 <= 255) it also writes lf (Q, B) uint8, each (query, row)'s
+// first-frequent level (L+2 for a dead row), and dist (Q, B) float32,
+// its distance (+inf for a dead row): the carry of wlsh_fused_query_mask.
 // Returns cudaGetLastError() after the launch (0 = launched).
 int wlsh_fused_query_hist(const int* codes_p, const void* points,
                           const int* codes_q, const float* queries,
@@ -385,14 +443,36 @@ int wlsh_fused_query_hist(const int* codes_p, const void* points,
                           const int* beta_q, const float* r_min, int B,
                           int beta, int Q, int d, int boff, int n_valid,
                           int c, int L, int vec_bf16, float p, int* hist_f,
-                          int* hist_g, void* stream) {
+                          int* hist_g, unsigned char* lf, float* dist,
+                          void* stream) {
+  if ((lf == nullptr) != (dist == nullptr)) return (int)cudaErrorInvalidValue;
   Args a{};
   a.codes_p = codes_p; a.points = points; a.codes_q = codes_q;
   a.queries = queries; a.q_weight = q_weight; a.mu = mu; a.beta_q = beta_q;
   a.r_min = r_min; a.hist_f = hist_f; a.hist_g = hist_g;
+  a.lf_out = lf; a.dist_out = dist;
   a.B = B; a.beta = beta; a.Q = Q; a.d = d; a.boff = boff;
   a.n_valid = n_valid; a.c = c; a.L = L; a.vec_bf16 = vec_bf16; a.p = p;
   return launch<0>(a, stream);
+}
+
+// Pass 2 on the keep form's carry: dist (Q, B) set to +inf in place where
+// lf (Q, B) > stop[q].  Returns cudaGetLastError().
+int wlsh_fused_query_mask(const unsigned char* lf, const int* stop,
+                          float* dist, int B, int Q, void* stream) {
+  if (B < 0 || Q < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || Q == 0) return (int)cudaGetLastError();
+  const int vec = (B % 4 == 0) && ((size_t)lf % 4 == 0) &&
+                  ((size_t)dist % 16 == 0);
+  const long long items = vec ? B / 4 : B;
+  const dim3 grid(
+      (unsigned)std::min<long long>((items + MASK_THREADS - 1) / MASK_THREADS,
+                                    65535),
+      (unsigned)std::min(Q, 65535));
+  fused_query_mask_kernel<<<grid, MASK_THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      lf, stop, dist, B, Q, vec);
+  return (int)cudaGetLastError();
 }
 
 // Pass 2: scores (Q, B) float32; points as in pass 1.  Returns

@@ -7,6 +7,10 @@ card and takes the plain torch version for tensors on the CPU:
   ``fused_query_block``  the engine's fused pass over a block of rows
                          (pass-1 histograms or pass-2 stop-masked scores)
                          -> ``fused_query.py``
+  ``fused_query_keep``   the serving path's single scan: pass 1 that keeps
+                         each (query, row)'s level and distance
+  ``fused_query_mask``   pass 2 on that carry: the stop-masked scores
+                         -> ``fused_query.py``
   ``hash_encode``        bucket codes (device-encode build, query encode)
                          -> ``hash_encode.py``
   ``freq_level``         first-frequent levels, stage 1 of the unfused
@@ -26,8 +30,8 @@ from . import fused_query, ref
 from . import hash_encode as _hash_encode
 from . import weighted_lp as _weighted_lp
 
-__all__ = ["freq_level", "fused_query_block", "hash_encode",
-           "weighted_lp_dist"]
+__all__ = ["freq_level", "fused_query_block", "fused_query_keep",
+           "fused_query_mask", "hash_encode", "weighted_lp_dist"]
 
 
 def _per_query(v, q: int, dtype, dev):
@@ -80,6 +84,24 @@ def weighted_lp_dist(queries, points, weight, p: float):
                                     _f32(weight), float(p))
 
 
+def _fused_args(codes_p, points, codes_q, queries, q_weight, mu, r_min,
+                beta_q):
+    """The fused kernels' row, query and per-query arguments, broadcast and
+    cast (``r_min`` last)."""
+    dev = codes_p.device
+    q, beta = codes_q.shape
+    return (
+        codes_p.to(torch.int32).contiguous(),
+        _vecs(points),
+        codes_q.to(torch.int32).contiguous(),
+        _f32(queries),
+        _f32(q_weight),
+        _per_query(mu, q, torch.int32, dev),
+        _per_query(beta if beta_q is None else beta_q, q, torch.int32, dev),
+        _per_query(r_min, q, torch.float32, dev),
+    )
+
+
 def fused_query_block(
     codes_p,  # (B, beta) int32 — one scan block of point codes
     points,  # (B, d) float32 or bfloat16 — the matching vector block
@@ -105,25 +127,40 @@ def fused_query_block(
     given) returns ``(Q, B)`` f32 distances with rows past the query's stop
     level (and dead rows) masked to +inf, ready for a top-k.
     """
-    dev = codes_p.device
-    q, beta = codes_q.shape
-    mu = _per_query(mu, q, torch.int32, dev)
-    r_min = _per_query(r_min, q, torch.float32, dev)
-    beta_q = _per_query(beta if beta_q is None else beta_q, q, torch.int32,
-                        dev)
-    args = (
-        codes_p.to(torch.int32).contiguous(),
-        _vecs(points),
-        codes_q.to(torch.int32).contiguous(),
-        _f32(queries),
-        _f32(q_weight),
-        mu,
-        beta_q,
-    )
+    *args, r_min = _fused_args(codes_p, points, codes_q, queries, q_weight,
+                               mu, r_min, beta_q)
     kw = dict(boff=int(boff), n_valid=int(n_valid), c=int(c),
               n_levels=int(n_levels), p=float(p))
     if stop is None:
         hf, hg = fused_query.fused_query_hist(*args, r_min, **kw)
         return hf[:, : n_levels + 2], hg[:, : n_levels + 2]
-    stop = _per_query(stop, q, torch.int32, dev)
+    stop = _per_query(stop, codes_q.shape[0], torch.int32, codes_p.device)
     return fused_query.fused_query_scores(*args, stop, **kw)
+
+
+def fused_query_keep(codes_p, points, codes_q, queries, q_weight, mu, r_min,
+                     beta_q, *, boff: int, n_valid: int, c: int,
+                     n_levels: int, p: float):
+    """Pass 1 over a block of rows that keeps its per-(query, row) results.
+
+    Takes ``fused_query_block``'s arguments and returns its pass-1
+    ``(hist_f, hist_g)`` and the carry ``(lf, dist)`` of
+    ``fused_query_mask``: each (query, row)'s first-frequent level
+    ``(Q, B)`` uint8 (L+2 for a dead row) and distance ``(Q, B)`` f32
+    (+inf for a dead row).
+    """
+    hf, hg, lf, dist = fused_query.fused_query_keep(
+        *_fused_args(codes_p, points, codes_q, queries, q_weight, mu, r_min,
+                     beta_q),
+        boff=int(boff), n_valid=int(n_valid), c=int(c),
+        n_levels=int(n_levels), p=float(p))
+    return hf[:, : n_levels + 2], hg[:, : n_levels + 2], (lf, dist)
+
+
+def fused_query_mask(lf, stop, dist):
+    """Pass 2 on ``fused_query_keep``'s carry: ``dist`` with rows past the
+    query's stop level (``lf > stop``) set to +inf, in place, and returned:
+    ``fused_query_block``'s pass-2 scores, bit for bit."""
+    stop = _per_query(stop, dist.shape[0], torch.int32, dist.device)
+    fused_query.fused_query_mask(lf, stop, dist)
+    return dist

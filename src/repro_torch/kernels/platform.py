@@ -13,8 +13,9 @@ onto the concrete query pipeline for a device:
   use_kernels   cuda                            cpu
   ============  ==============================  ========================
   "on"          fused, CUDA C++ kernels         fused, plain torch
-                (kernels/csrc/fused_query.cu)   version of the same two
-                                                passes
+                (kernels/csrc/fused_query.cu):  versions of the same
+                one scan of the state and a     scan and mask
+                mask of its kept distances
   "off"         unfused stages: the freq_level  the same stages with the
                 CUDA kernel (kernels/csrc/      plain torch freq_level
                 freq_level.cu), then per-query
@@ -72,8 +73,9 @@ def normalize(use_kernels: bool | str) -> str:
 class KernelPath:
     """Resolved query pipeline for one (``use_kernels``, device) pair.
 
-    ``fused`` — both scan passes go through ``ops.fused_query_block``
-                (``False``: the unfused stages, ``ops.freq_level`` first).
+    ``fused`` — one scan, ``ops.fused_query_keep``, then
+                ``ops.fused_query_mask`` on its carry (``False``: the
+                unfused stages, ``ops.freq_level`` first, twice).
     ``cuda``  — the kernels of the route run as CUDA kernels (``False``:
                 their plain torch versions, on the CPU).
     """

@@ -28,8 +28,12 @@ level-by-level floor division.
 The fused-query versions (``fused_query_hist_ref`` /
 ``fused_query_scores_ref``) define one fused pass over a block of rows:
 first-frequent level, weighted distance, good-level histogramming or
-stop-mask scoring.  The unfused engine route calls the very same
-``per_query_dist`` on the same shapes.
+stop-mask scoring.  ``fused_query_keep_ref`` is pass 1 that also returns
+each (query, row)'s level (uint8) and distance, and
+``fused_query_mask_ref`` masks that distance in place at the stop level:
+together they give ``fused_query_scores_ref``'s output exactly.  The
+unfused engine route calls the very same ``per_query_dist`` on the same
+shapes.
 
 Every (query, row, table) intermediate is materialized, so the functions
 walk the rows in chunks that keep it near 64 M elements; results do not
@@ -68,6 +72,8 @@ __all__ = [
     "per_query_lp",
     "per_query_dist",
     "fused_query_hist_ref",
+    "fused_query_keep_ref",
+    "fused_query_mask_ref",
     "fused_query_scores_ref",
 ]
 
@@ -418,6 +424,38 @@ def good_level(lf, dist, r_min, c: int):
     return torch.maximum(lf, jg)
 
 
+def _pass1_ref(codes_b, points_b, codes_q, queries, q_weight, mu, beta_q,
+               r_min, row_ok, c: int, n_levels: int, p: float, keep: bool):
+    """Pass 1 per row chunk: (hist_f, hist_g) and, with ``keep``, the
+    (Q, B) uint8 levels (L+2 for an excluded row) and float32 distances
+    (+inf for an excluded row)."""
+    L = n_levels
+    q, b = codes_q.shape[0], codes_b.shape[0]
+    dev = codes_q.device
+    hist_f = torch.zeros((q, L + 3), dtype=torch.int32, device=dev)
+    hist_g = torch.zeros((q, L + 3), dtype=torch.int32, device=dev)
+    if keep:
+        lf_out = torch.empty((q, b), dtype=torch.uint8, device=dev)
+        dist_out = torch.empty((q, b), dtype=torch.float32, device=dev)
+    step = _row_chunk(q, max(codes_b.shape[1], points_b.shape[1]))
+    for lo in range(0, b, step):
+        sl = slice(lo, lo + step)
+        ok = row_ok[sl]
+        lf = _fused_lf(codes_b[sl], codes_q, mu, beta_q, ok, c, L)
+        dist = per_query_dist(queries, q_weight, points_b[sl].float(), p)
+        good = torch.where(ok[None, :], good_level(lf, dist, r_min, c),
+                           torch.full_like(lf, L + 2))
+        hist_f += level_hist(lf, L + 3)
+        hist_g += level_hist(good, L + 3)
+        if keep:
+            lf_out[:, sl] = lf
+            dist_out[:, sl] = torch.where(ok[None, :], dist,
+                                          torch.full_like(dist, math.inf))
+    if keep:
+        return hist_f, hist_g, lf_out, dist_out
+    return hist_f, hist_g
+
+
 def fused_query_hist_ref(codes_b, points_b, codes_q, queries, q_weight, mu,
                          beta_q, r_min, row_ok, c: int, n_levels: int,
                          p: float):
@@ -427,22 +465,26 @@ def fused_query_hist_ref(codes_b, points_b, codes_q, queries, q_weight, mu,
     row chunk.  Bin L+2 collects excluded rows; levels above L+2 fall
     outside every bin.
     """
-    L = n_levels
-    q = codes_q.shape[0]
-    dev = codes_q.device
-    hist_f = torch.zeros((q, L + 3), dtype=torch.int32, device=dev)
-    hist_g = torch.zeros((q, L + 3), dtype=torch.int32, device=dev)
-    step = _row_chunk(q, max(codes_b.shape[1], points_b.shape[1]))
-    for lo in range(0, codes_b.shape[0], step):
-        sl = slice(lo, lo + step)
-        ok = row_ok[sl]
-        lf = _fused_lf(codes_b[sl], codes_q, mu, beta_q, ok, c, L)
-        dist = per_query_dist(queries, q_weight, points_b[sl].float(), p)
-        good = torch.where(ok[None, :], good_level(lf, dist, r_min, c),
-                           torch.full_like(lf, L + 2))
-        hist_f += level_hist(lf, L + 3)
-        hist_g += level_hist(good, L + 3)
-    return hist_f, hist_g
+    return _pass1_ref(codes_b, points_b, codes_q, queries, q_weight, mu,
+                      beta_q, r_min, row_ok, c, n_levels, p, keep=False)
+
+
+def fused_query_keep_ref(codes_b, points_b, codes_q, queries, q_weight, mu,
+                         beta_q, r_min, row_ok, c: int, n_levels: int,
+                         p: float):
+    """Pass 1 with its carry: ``fused_query_hist_ref``'s histograms, then
+    (Q, B) uint8 first-frequent levels (L+2 for an excluded row) and
+    (Q, B) float32 distances (+inf for an excluded row), from the same
+    row chunks as ``fused_query_scores_ref``."""
+    return _pass1_ref(codes_b, points_b, codes_q, queries, q_weight, mu,
+                      beta_q, r_min, row_ok, c, n_levels, p, keep=True)
+
+
+def fused_query_mask_ref(lf, stop, dist) -> None:
+    """Pass 2 on the keep form's carry: ``dist`` (Q, B) set to +inf in
+    place where ``lf`` (Q, B) > ``stop[q]``."""
+    dist.masked_fill_(lf.to(torch.int32) > stop.to(torch.int32)[:, None],
+                      math.inf)
 
 
 def level_hist(levels, n_bins: int):

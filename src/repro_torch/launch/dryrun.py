@@ -27,11 +27,12 @@ Results are cached to JSON (one file per cell, the reference's keys plus
 The index cells (``wlsh_index``) trace the index's mesh steps:
 ``train_4k`` the build step (``index.builder.make_build_step``: every
 device encodes its 2^30 / chips rows), ``prefill_32k`` the query step
-(``index.engine.make_query_step``: both passes over each device's rows,
-one all-reduce of the level histograms, one all-gather of the
-survivors), with bfloat16 vectors and the rows over every device.  Each
-pass is one kernel launch over the whole shard, so the counts are
-direct: no scan to extrapolate.  The kernels' work is priced at their
+(``index.engine.make_query_step``: one scan of each device's rows that
+keeps each (query, row)'s level and distance, one all-reduce of the
+level histograms, a mask of the kept distances, one all-gather of the
+survivors), with bfloat16 vectors and the rows over every device.  The
+scan and the mask are one kernel launch each over the whole shard, so
+the counts are direct: no scan to extrapolate.  The kernels' work is priced at their
 own units' rates (``kernels/cost.py``), every other FLOP at the bfloat16
 peak.
 """

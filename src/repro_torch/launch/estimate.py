@@ -45,7 +45,9 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
     """Global useful FLOPs for one step of this (arch, shape) cell."""
     if cfg.family == "index":
         # wlsh: build = hash-encode matmul; query = two scoring passes of
-        # per-query distance matmuls (pass 2 recomputes, engine docstring).
+        # per-query distance matmuls, the JAX package's count (its pass 2
+        # recomputes; the port's fused path scans once, and its one scan's
+        # cross term and weighted norm make as many FLOPs).
         # The freq-level compare work is integer ops, not FLOPs.
         n, d, beta = cfg.vocab, cfg.d_model, cfg.d_ff
         if shape.kind == "train":

@@ -10,8 +10,9 @@ first-frequent levels and the +inf mask exactly, hash codes exactly (the
 kernel sums in the plain version's order) and within the float64 window,
 finite scores to rtol 1e-5 (or the p = 2 atol of the norms expansion).
 bfloat16 rows are held the same way, and to the float32 kernels on
-the widened rows bit for bit.  ``chip_smoke.py`` repeats this at the
-main path's shapes.  The paging
+the widened rows bit for bit.  The serving path's single scan (the keep
+pass, then the mask on its carry) is held to the two-pass kernels bit
+for bit.  ``chip_smoke.py`` repeats this at the main path's shapes.  The paging
 tests hold an evict/restore round trip bit for bit, a prefetched restore
 followed at once by a launch on another stream to the unpaged answers,
 and the thread-mode ``ServiceDriver`` under a one-group budget.  The
@@ -81,7 +82,9 @@ def test_kernels_match_plain_versions(dev, p, shape):
     sc = fused_query.fused_query_scores(*args, t["stop"], **kw)
     torch.cuda.synchronize()
     assert fused_query.launch_counts == {"fused_query_hist": 1,
-                                         "fused_query_scores": 1}
+                                         "fused_query_scores": 1,
+                                         "fused_query_keep": 0,
+                                         "fused_query_mask": 0}
     rf, rg = ref.fused_query_hist_ref(*args, t["r_min"], row_ok, c=c,
                                       n_levels=L, p=p)
     rs = ref.fused_query_scores_ref(*args, t["stop"], row_ok, c=c,
@@ -91,6 +94,65 @@ def test_kernels_match_plain_versions(dev, p, shape):
     assert_scores_close(sc.cpu().numpy(), rs.cpu().numpy(),
                         t["qs"].cpu().numpy(), t["qw"].cpu().numpy(),
                         t["pts"].cpu().numpy(), p)
+
+
+@pytest.mark.parametrize("vec", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("p", [2.0, 1.0, 0.5])
+@pytest.mark.parametrize("shape", [(1001, 24, 40, 11, 2, 8),
+                                   # c = 3 at L = 16 and at L = 20: the
+                                   # narrow and the wide digit words
+                                   (1003, 24, 64, 17, 3, 16),
+                                   (998, 70, 64, 19, 3, 20),
+                                   (1000, 24, 48, 9, 5, 10),
+                                   (1000, 24, 64, 19, 3, 24, "edge")],
+                         ids=str)
+def test_keep_and_mask_equal_the_two_pass_kernels(dev, p, vec, shape):
+    """The serving path's single scan on the card: the keep pass's
+    histograms equal a ``fused_query_hist`` launch's, and the mask on its
+    carry gives a ``fused_query_scores`` launch's scores bit for bit, on a
+    shard at row offset 5 with a dead tail; its levels equal the plain
+    version's, one launch of each kernel."""
+    n, _, _, _, c, L = shape[:6]
+    t = _tensors(shape, 4, dev)
+    args = [t["cp"], t["pts"].to(vec), t["cq"], t["qs"], t["qw"], t["mu"],
+            t["beta_q"]]
+    kw = dict(boff=5, n_valid=n - 50, c=c, n_levels=L, p=p)
+    hf, hg = fused_query.fused_query_hist(*args, t["r_min"], **kw)
+    sc = fused_query.fused_query_scores(*args, t["stop"], **kw)
+    fused_query.reset_launch_counts()
+    kf, kg, lf, dist = fused_query.fused_query_keep(*args, t["r_min"], **kw)
+    fused_query.fused_query_mask(lf, t["stop"], dist)
+    torch.cuda.synchronize()
+    assert fused_query.launch_counts == {"fused_query_hist": 0,
+                                         "fused_query_scores": 0,
+                                         "fused_query_keep": 1,
+                                         "fused_query_mask": 1}
+    assert torch.equal(kf, hf) and torch.equal(kg, hg)
+    assert torch.equal(dist.view(torch.int32), sc.view(torch.int32))
+    row_ok = (5 + torch.arange(n, device=dev)) < n - 50
+    _, _, plain_lf, _ = ref.fused_query_keep_ref(*args, t["r_min"], row_ok,
+                                                 c=c, n_levels=L, p=p)
+    assert torch.equal(lf, plain_lf)
+    assert bool((lf[:, n - 55:] == L + 2).all())
+
+
+def test_mask_on_rows_of_any_length(dev):
+    """The mask's 16-byte path (rows a multiple of 4 long, aligned) and
+    its one-cell path (any other row, or a carry off the alignment) give
+    the plain version's distances bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    for q, b, off in ((3, 4096, 0), (5, 1001, 0), (7, 402, 0), (2, 400, 1)):
+        lf = torch.randint(0, 20, (q * b + off,), generator=g,
+                           dtype=torch.uint8).to(dev)[off:].view(q, b)
+        dist = torch.rand((q * b + off,), generator=g).to(dev)
+        dist = dist[off:].view(q, b)
+        stop = torch.randint(0, 20, (q,), generator=g,
+                             dtype=torch.int32).to(dev)
+        want = dist.clone()
+        ref.fused_query_mask_ref(lf, stop, want)
+        fused_query.fused_query_mask(lf, stop, dist)
+        torch.cuda.synchronize()
+        assert torch.equal(dist.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("p", [2.0, 1.0, 0.5])
@@ -187,6 +249,14 @@ def test_wrappers_check_their_inputs(dev):
     with pytest.raises(TypeError):  # float32 or bfloat16 rows only
         fused_query.fused_query_hist(args[0], args[1].half(), *args[2:],
                                      t["r_min"], **kw)
+    _, _, lf, dist = fused_query.fused_query_keep(*args, t["r_min"], **kw)
+    with pytest.raises(TypeError):  # the levels are bytes
+        fused_query.fused_query_mask(lf.int(), t["stop"], dist)
+    with pytest.raises(ValueError):
+        fused_query.fused_query_mask(lf[:1], t["stop"], dist)
+    with pytest.raises(ValueError, match="255"):
+        fused_query.fused_query_keep(*args, t["r_min"], **dict(
+            kw, n_levels=254))
 
 
 def test_service_on_the_card_matches_the_cpu(dev):
@@ -684,7 +754,8 @@ def test_per_shard_device_encode_equals_whole_encode(dev):
 def test_sharded_service_on_the_card_matches_unsharded(dev):
     """Four shards on one card (devices named explicitly): answers bit
     for bit the unsharded service's, unpaged and paged at one resident
-    group, with every pass launched once a shard."""
+    group, with the keep pass and the mask launched once a shard a
+    batch, and no second scan."""
     from repro_torch.serving import RetrievalService, ServiceConfig
 
     data, plan = _paging_plan(4093, 24, 17)
@@ -699,28 +770,44 @@ def test_sharded_service_on_the_card_matches_unsharded(dev):
         _cuda.reset_launch_counts()
         res = svc.query(qs, wids)
         n_batches = sum(s["n_batches"] for s in svc.stats_summary().values())
-        assert _cuda.launch_counts()["fused_query_hist"] == 4 * n_batches
+        launches = _cuda.launch_counts()
+        assert launches["fused_query_keep"] == 4 * n_batches
+        assert launches["fused_query_mask"] == 4 * n_batches
+        assert launches["fused_query_hist"] == 0
+        assert launches["fused_query_scores"] == 0
         for f in ("ids", "stop_levels", "n_checked"):
             np.testing.assert_array_equal(getattr(res, f), getattr(base, f))
         np.testing.assert_array_equal(res.dists.view(np.uint32),
                                       base.dists.view(np.uint32))
 
 
-def test_sentinel_on_the_card_matches_the_cpu(dev):
+def test_sentinel_on_the_card_matches_the_cpu(dev, monkeypatch):
     """The bench sentinel's seeded workload on the card (fused kernels)
-    gives the CPU run's seeded metrics, and launches both fused passes
-    and no other kernel."""
+    gives the CPU run's seeded metrics, and launches the keep pass and
+    the mask once a step and no other kernel."""
     from benchmarks_torch import sentinel
+    from repro_torch.index import engine
 
+    steps = [0]
+    step = engine.query_step
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return step(*args, **kwargs)
+
+    monkeypatch.setattr(engine, "query_step", counted)
     _cuda.reset_launch_counts()
     got = sentinel.collect(device="cuda")
     launches = _cuda.launch_counts()
+    n_steps = steps[0]
     want = sentinel.collect(device="cpu")
     for name in ("observed_recall", "recall_margin_min", "n_shadow_dropped",
                  "n_compiled_steps"):
         assert got[name] == want[name], name
-    assert launches["fused_query_hist"] > 0
-    assert launches["fused_query_scores"] > 0
+    assert n_steps > 0
+    assert launches["fused_query_keep"] == n_steps
+    assert launches["fused_query_mask"] == n_steps
+    assert launches["fused_query_hist"] == launches["fused_query_scores"] == 0
     assert launches["hash_encode"] == launches["freq_level"] == 0
     assert launches["weighted_lp"] == 0
 

@@ -406,10 +406,9 @@ def test_index_cell_prices_kernels_at_their_rates(runs, shape, mesh):
     if _SHAPE_KINDS[shape] == "build":
         want = {"hash_encode": cost.hash_encode(n_loc, d, beta)}
     else:
-        want = {"fused_query_hist": cost.fused_query_hist(
+        want = {"fused_query_keep": cost.fused_query_keep(
                     n_loc, beta, q, d, icfg.n_levels, vec_bytes=2),
-                "fused_query_scores": cost.fused_query_scores(
-                    n_loc, beta, q, d, vec_bytes=2)}
+                "fused_query_mask": cost.fused_query_mask(n_loc, q)}
     ks = r["kernels"]
     assert set(ks) == set(want)
     for name, c in want.items():
@@ -424,9 +423,11 @@ def test_index_cell_prices_kernels_at_their_rates(runs, shape, mesh):
         rel=1e-12)
     # at the bfloat16 peak the kernels' work would read >= 14x too short
     assert k_s >= 14 * k_flops / hw.peak_flops
-    # the kernels' FLOPs: pass 1 and pass 2 each count the weighted norm
-    # beside the cross term, so half of them are the model's
-    useful = 1.0 if _SHAPE_KINDS[shape] == "build" else 0.5
+    # the kernels' FLOPs: the one scan counts the weighted norm beside the
+    # cross term (4 Q n d), as many as the model's two passes of the cross
+    # term (``estimate.model_flops``, the JAX package's count); the mask
+    # does none
+    useful = 1.0
     assert r["useful_fraction"] == pytest.approx(useful, rel=1e-6)
 
 

@@ -104,6 +104,25 @@ def test_query_step_matches_jax(group, use_kernels):
     assert (ids >= 0).any()
 
 
+@pytest.mark.parametrize("shards", [1, 4])
+def test_fused_step_equals_the_unfused_oracle(group, shards):
+    """The fused-plain step (one scan: pass 1 keeps each (query, row)'s
+    level and distance, pass 2 masks them) answers as the unfused oracle,
+    which scans twice, bit for bit: on one device and as a device list of
+    ``shards`` shards, each shard's carry on its device."""
+    want = _port_step(group, "off")
+    cfg = IndexConfig(use_kernels="on", n_shards=shards, **group["kw"])
+    g = group["plan"].groups[group["gi"]]
+    state = build_group_state(cfg, group["data"], g,
+                              ("cpu",) * shards if shards > 1 else "cpu")
+    got = QueryStepCache().get("cpu", cfg)(
+        state, *(torch.from_numpy(v) for v in group["inputs"].values()))
+    for name, a, b in zip(("dists", "ids", "stop", "n_checked"), got, want):
+        a = np.asarray(a)
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32),
+                                      err_msg=name)
+
+
 def test_query_step_matches_search_dense(group):
     dists, ids, stop, chk = _port_step(group, "on")
     for qi, wid in enumerate(group["wids"]):

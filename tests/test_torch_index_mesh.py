@@ -8,7 +8,8 @@ cost model (``kernels/cost.py``) and the custom ops the counter sees.
   ``make_query_step`` on a (4, 2) Auto-axes mesh of 8 forced host
   devices (another child), distances to rtol 1e-6 (p = 2 distances vary
   between XLA compilations; ROADMAP's parity contract), and everything bit
-  for bit equal to the device-list engine at S = 8 and S = 1 on the CPU.
+  for bit equal to the device-list engine at S = 8 and S = 1 on the CPU
+  and to the unfused oracle, which scans the state twice.
   Every rank gets the same answers, and rank r's rows start at r x n_loc.
 * The mesh build step's codes inside the float64 window and equal to the
   one-device encode of the whole corpus; its vectors the corpus rows cast
@@ -306,7 +307,7 @@ def runs(tmp_path_factory):
                 counts=json.loads(out["counts"].strip().splitlines()[-1]))
 
 
-def _device_list(a: dict, p: float, shards: int):
+def _device_list(a: dict, p: float, shards: int, use_kernels: str = "on"):
     """The device-list engine's answers on the CPU at ``shards`` shards."""
     t = {k: torch.from_numpy(np.asarray(v)) for k, v in a.items()}
     n_loc = DIMS["n"] // shards
@@ -318,7 +319,7 @@ def _device_list(a: dict, p: float, shards: int):
         n_valid=max(0, min(N_VALID - s * n_loc, n_loc)))
         for s in range(shards)]
     state = gs.sharded_state(parts, n_loc, N_VALID)
-    cfg = IndexConfig(**DIMS, p=p, n_shards=shards)
+    cfg = IndexConfig(**DIMS, p=p, n_shards=shards, use_kernels=use_kernels)
     outs = query_step(state, *[t[k] for k in (
         "queries", "codes_q", "q_weight", "mu", "r_min", "beta_q",
         "levels_q")], cfg=cfg)
@@ -346,6 +347,18 @@ def test_mesh_query_step_equals_the_device_list_engine(runs, p, shards):
     for f, g, w in zip(_FIELDS, got,
                        _device_list(runs["inputs"][p], p, shards)):
         assert g.dtype == w.dtype, f
+        np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("p", PS)
+def test_mesh_query_step_equals_the_unfused_oracle(runs, p):
+    """The mesh step's single scan (each rank's carry through its own
+    histogram merge and mask) answers as the unfused oracle on one
+    device, which scans twice, bit for bit."""
+    got = [runs["port"][f"{p}/{f}"] for f in _FIELDS]
+    want = _device_list(runs["inputs"][p], p, 1, use_kernels="off")
+    for f, g, w in zip(_FIELDS, got, want):
         np.testing.assert_array_equal(g.view(np.int32), w.view(np.int32),
                                       err_msg=f)
 
@@ -404,6 +417,16 @@ def _hand(name):
                           bytes_read=(n * beta * 4 + n * d * 4 + q * beta * 4
                                       + 2 * q * d * 4 + 4 * q * 4),
                           bytes_written=q * n * 4))
+    if name == "fused_query_keep":  # pass 1 and its (Q, n) carry
+        return (cost.fused_query_keep(n, beta, q, d, L, p=1.0),
+                cost.Cost(f32_ops=3 * q * n * d, int32_ops=q * n * beta,
+                          bytes_read=(n * beta * 4 + n * d * 4 + q * beta * 4
+                                      + 2 * q * d * 4 + 4 * q * 4),
+                          bytes_written=2 * q * (L + 3) * 4 + q * n * 5))
+    if name == "fused_query_mask":  # levels, distances, stop; distances
+        return (cost.fused_query_mask(n, q),
+                cost.Cost(bytes_read=q * n * (1 + 4) + q * 4,
+                          bytes_written=q * n * 4))
     if name == "hash_encode":
         return (cost.hash_encode(n, d, beta),
                 cost.Cost(f32_flops=2 * n * d * beta,
@@ -421,6 +444,7 @@ def _hand(name):
 
 
 @pytest.mark.parametrize("name", ("fused_query_hist", "fused_query_scores",
+                                  "fused_query_keep", "fused_query_mask",
                                   "hash_encode", "freq_level",
                                   "weighted_lp"))
 def test_cost_model_equals_a_hand_count(name):
@@ -445,6 +469,13 @@ def test_cost_of_an_op_reads_its_shapes():
                       dict(n_levels=8, p=2.0)) == _hand("fused_query_hist")[0]
     assert cost.of_op("weighted_lp", (qs, m.new_empty((1000, 16)), None, 1.5),
                       {}) == _hand("weighted_lp")[0]
+    pts32 = pts.new_empty(pts.shape, dtype=torch.float32)
+    assert cost.of_op("fused_query_keep", (args[0], pts32, *args[2:]),
+                      dict(n_levels=8, p=1.0)) == _hand("fused_query_keep")[0]
+    carry = (m.new_empty((12, 1000), dtype=torch.uint8),
+             m.new_empty((12,), dtype=torch.int32), m.new_empty((12, 1000)))
+    assert cost.of_op("fused_query_mask", carry,
+                      {}) == _hand("fused_query_mask")[0]
 
 
 # ------------------------------------------------------ counts and ops
@@ -458,7 +489,7 @@ def test_meta_trace_counts_equal_a_cpu_run(runs, shape):
                 "kernel_s"):
         assert meta[key] == cpu[key], key
     want = ({"hash_encode"} if shape == "train_4k"
-            else {"fused_query_hist", "fused_query_scores"})
+            else {"fused_query_keep", "fused_query_mask"})
     assert set(meta["kernels"]) == want
     assert all(k["launches"] == 1 for k in meta["kernels"].values())
 
@@ -485,6 +516,17 @@ def test_wrappers_are_custom_ops_that_trace_on_meta():
         enc = ops.hash_encode(x, m.new_empty((d,)), m.new_empty((d, beta)),
                               m.new_empty((beta,), dtype=torch.int32),
                               m.new_empty((beta,)), 1.0)
+        kf, _, (lf, dist) = ops.fused_query_keep(
+            codes, x, m.new_empty((q, beta), dtype=torch.int32),
+            m.new_empty((q, d)), m.new_empty((q, d)), 3, 1.0, beta, boff=0,
+            n_valid=n, c=3, n_levels=L, p=2.0)
+        masked = ops.fused_query_mask(lf, 4, dist)
+    assert kf.shape == (q, L + 2) and kf.dtype == torch.int32
+    assert lf.shape == (q, n) and lf.dtype == torch.uint8
+    assert masked is dist and dist.shape == (q, n)
+    assert dist.dtype == torch.float32 and dist.device.type == "meta"
+    assert "repro_torch.fused_query_keep.default" in seen
+    assert "repro_torch.fused_query_mask.default" in seen
     assert hf.shape == (q, L + 2) and hf.dtype == torch.int32
     assert enc.shape == (n, beta) and enc.device.type == "meta"
     assert "repro_torch.fused_query_hist.default" in seen

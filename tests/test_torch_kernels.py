@@ -325,8 +325,8 @@ def test_cpu_ops_launch_no_kernel():
     ops.hash_encode(t["pts"], t["qw"][0], t["qw"].T, torch.zeros(
         q, dtype=torch.int32), torch.zeros(q), 1.0)
     assert set(_cuda.launch_counts()) == {
-        "fused_query_hist", "fused_query_scores", "hash_encode",
-        "freq_level", "weighted_lp"}
+        "fused_query_hist", "fused_query_scores", "fused_query_keep",
+        "fused_query_mask", "hash_encode", "freq_level", "weighted_lp"}
     assert not any(_cuda.launch_counts().values())
 
 
@@ -359,7 +359,82 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     assert hf.shape == (len(cq), 8 + 3)
     assert int(hf[:, 8 + 2].sum()) == (len(cp) - 150) * len(cq)
     assert fused_query.launch_counts == {"fused_query_hist": 0,
-                                         "fused_query_scores": 0}
+                                         "fused_query_scores": 0,
+                                         "fused_query_keep": 0,
+                                         "fused_query_mask": 0}
+
+
+# (n, d, beta, Q, c, L) of the single scan: c in {2, 3, 5}, and c = 3 at
+# L = 16 and at L = 20 (the kernel's narrow and wide digit words)
+_KEEP_SHAPES = [(200, 24, 40, 5, 2, 8), (200, 24, 40, 5, 3, 16),
+                (170, 16, 48, 9, 3, 20), (150, 16, 24, 3, 5, 6)]
+
+
+@pytest.mark.parametrize("vec", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("p", _PS)
+@pytest.mark.parametrize("shape", _KEEP_SHAPES, ids=str)
+def test_keep_and_mask_equal_the_two_passes(shape, p, vec):
+    """Pass 1's keep form then the mask, on a shard at row offset 40 with
+    a dead tail: histograms equal ``fused_query_hist_ref``'s, the masked
+    distances ``fused_query_scores_ref``'s bit for bit, dead rows at level
+    L+2 and +inf before the mask."""
+    n, _, _, q, c, L = shape
+    args, stop = _inputs(shape, seed=21)
+    cp, cq, pts, qs, qw, mu, beta_q, r_min = (torch.from_numpy(a)
+                                              for a in args)
+    pts = pts.to(vec)
+    stop = torch.from_numpy(stop)
+    boff, n_valid = 40, 40 + n - 30
+    kw = dict(boff=boff, n_valid=n_valid, c=c, n_levels=L, p=p)
+    fused_query.reset_launch_counts()
+    hf, hg, lf, dist = fused_query.fused_query_keep(
+        cp, pts, cq, qs, qw, mu, beta_q, r_min, **kw)
+    assert lf.dtype == torch.uint8 and lf.shape == (q, n)
+    assert dist.dtype == torch.float32 and dist.shape == (q, n)
+    assert bool((lf[:, n - 30:] == L + 2).all())
+    assert bool(torch.isinf(dist[:, n - 30:]).all())
+    fused_query.fused_query_mask(lf, stop, dist)
+    assert not any(fused_query.launch_counts.values())
+    row_ok = (boff + torch.arange(n)) < n_valid
+    plain = dict(c=c, n_levels=L, p=p)
+    rf, rg = ref.fused_query_hist_ref(cp, pts, cq, qs, qw, mu, beta_q,
+                                      r_min, row_ok, **plain)
+    rs = ref.fused_query_scores_ref(cp, pts, cq, qs, qw, mu, beta_q, stop,
+                                    row_ok, **plain)
+    assert torch.equal(hf, rf) and torch.equal(hg, rg)
+    assert torch.equal(dist.view(torch.int32), rs.view(torch.int32))
+    assert bool(torch.isfinite(dist).any()) and bool(torch.isinf(dist).any())
+
+
+@pytest.mark.parametrize("p", _PS)
+def test_ops_keep_and_mask_equal_the_block_passes(p):
+    """``ops.fused_query_keep`` / ``ops.fused_query_mask`` with scalar
+    per-query arguments give ``ops.fused_query_block``'s two passes: the
+    histograms equal, the scores bit for bit."""
+    (cp, cq, pts, qs, qw, *_), stop = _inputs(_SHAPES[0], seed=22)
+    t = [torch.from_numpy(a) for a in (cp, pts, cq, qs, qw)]
+    kw = dict(boff=0, n_valid=len(cp) - 9, c=3, n_levels=8, p=p)
+    hf, hg, (lf, dist) = ops.fused_query_keep(*t, 3, 50.0, None, **kw)
+    want_f, want_g = ops.fused_query_block(*t, 3, 50.0, None, **kw)
+    assert torch.equal(hf, want_f) and torch.equal(hg, want_g)
+    st = torch.from_numpy(stop)
+    got = ops.fused_query_mask(lf, st, dist)
+    assert got is dist
+    want = ops.fused_query_block(*t, 3, 50.0, None, stop=st, **kw)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_keep_refuses_levels_past_a_byte():
+    """L + 2 > 255 cannot be stored as a byte: the wrapper raises."""
+    (cp, cq, pts, qs, qw, mu, beta_q, r_min), _ = _inputs(_SHAPES[1],
+                                                          seed=23)
+    t = [torch.from_numpy(a) for a in (cp, pts, cq, qs, qw, mu, beta_q,
+                                        r_min)]
+    kw = dict(boff=0, n_valid=len(cp), c=2, p=1.0)
+    for n_levels in (254, 300):
+        with pytest.raises(ValueError, match="255"):
+            fused_query.fused_query_keep(*t, n_levels=n_levels, **kw)
 
 
 @pytest.mark.parametrize("knob,device,label", [
