@@ -9,6 +9,8 @@ change to the program's model cannot move the per-layer rooflines;
 ``perfbench/tests/test_perfbench_metrics.py`` holds the two equal at the
 benchmark's shapes.  ``topk`` and ``rerank`` are the benchmark's own:
 the least bytes the query step's selection and exact re-rank must move.
+The fused passes also take ``code_bytes``, the width of a stored bucket
+id (4 in the program's model; 8 where a configuration stores 64 bits).
 """
 
 from __future__ import annotations
@@ -57,29 +59,31 @@ def _lp_terms(p: float) -> dict:
     return dict(f32_ops=3, sfu_ops={1.0: 0, 0.5: 1}.get(float(p), 2))
 
 
-def _fused(n, beta, q, d, vec_bytes, p, tests, out_bytes) -> Cost:
+def _fused(n, beta, q, d, vec_bytes, p, tests, out_bytes,
+           code_bytes) -> Cost:
     tests = q * beta * n if tests is None else tests
     terms = q * n * d
     if abs(p - 2.0) < 1e-9:
         work = dict(f32_flops=4 * terms)
     else:
         work = {k: v * terms for k, v in _lp_terms(p).items()}
-    read = 4 * (n * beta + q * beta + 2 * q * d + 4 * q) + vec_bytes * n * d
+    read = (code_bytes * (n * beta + q * beta) + 4 * (2 * q * d + 4 * q)
+            + vec_bytes * n * d)
     return Cost(int32_ops=tests, bytes_read=read, bytes_written=out_bytes,
                 **work)
 
 
 def fused_query_hist(n, beta, q, d, n_levels, vec_bytes=4, p=2.0,
-                     tests=None) -> Cost:
+                     tests=None, code_bytes=4) -> Cost:
     """Pass 1 over ``n`` rows: two (Q, L+3) int32 histograms out."""
     return _fused(n, beta, q, d, vec_bytes, p, tests,
-                  2 * 4 * q * (n_levels + 3))
+                  2 * 4 * q * (n_levels + 3), code_bytes)
 
 
 def fused_query_scores(n, beta, q, d, vec_bytes=4, p=2.0,
-                       tests=None) -> Cost:
+                       tests=None, code_bytes=4) -> Cost:
     """Pass 2 over ``n`` rows: (Q, n) float32 scores out."""
-    return _fused(n, beta, q, d, vec_bytes, p, tests, 4 * q * n)
+    return _fused(n, beta, q, d, vec_bytes, p, tests, 4 * q * n, code_bytes)
 
 
 def topk(n, q, k) -> Cost:
@@ -101,12 +105,13 @@ def step_least_s(launch: dict, hw: HW = HW()) -> float:
     top-k and the re-rank, each at its own bound.
 
     ``launch`` holds the state's ``n``, ``beta``, ``d``, ``q``, ``k``,
-    ``n_levels``, ``vec_bytes``, ``p`` and ``tests``: the level tests the
-    launch's queries need (each query tests its own member's tables).
+    ``n_levels``, ``vec_bytes``, ``code_bytes`` (of a stored bucket id),
+    ``p`` and ``tests``: the level tests the launch's queries need (each
+    query tests its own member's tables).
     """
     n, beta, q, d = launch["n"], launch["beta"], launch["q"], launch["d"]
     kw = dict(vec_bytes=launch["vec_bytes"], p=launch["p"],
-              tests=launch["tests"])
+              tests=launch["tests"], code_bytes=launch["code_bytes"])
     parts = (fused_query_hist(n, beta, q, d, launch["n_levels"], **kw),
              fused_query_scores(n, beta, q, d, **kw),
              topk(n, q, launch["k"]),

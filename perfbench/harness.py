@@ -273,10 +273,12 @@ def traced_serve(svc, pool, seconds: float, device, workdir: str):
     return records, window_s, view
 
 
-def launches(svc, prep: Prepared, records) -> list:
+def launches(svc, prep: Prepared, records, config: dict) -> list:
     """Each step launch of the answered requests: the group state's
-    shapes and the level tests its real queries need."""
+    shapes, the bytes of a bucket id the configuration's deployment
+    stores, and the level tests its real queries need."""
     plan = prep.plan
+    code_bytes = spec.code_bits(config) // 8
     shapes = {}
     out = []
     for rec in records:
@@ -291,7 +293,7 @@ def launches(svc, prep: Prepared, records) -> list:
                 shapes[gi] = dict(n=c.n, beta=c.beta, d=c.d, q=c.q_batch,
                                   k=c.k, n_levels=c.n_levels, p=c.p,
                                   vec_bytes=2 if c.vec_dtype == "bfloat16"
-                                  else 4)
+                                  else 4, code_bytes=code_bytes)
             g = plan.groups[gi]
             sel = wids[gids == gi]
             betas = g.beta_members[plan.member_slot[sel]].astype(np.int64)
@@ -338,7 +340,10 @@ def answers_of(records, pool) -> tuple[np.ndarray, np.ndarray, dict]:
 def reference_check(cell: spec.Cell, prep: Prepared, queries, wids, got,
                     device) -> tuple[dict, dict]:
     """(numbers, detail) of the program's answers ``got`` against the
-    plain reference, run on ``device``."""
+    plain reference, run on ``device`` with bucket ids at the width the
+    configuration states.  ``detail["codes_wrapped_pct"]`` is the share
+    of the checked groups' corpus ids outside int32: a reading, with no
+    limit."""
     import torch
 
     cfg = cell.config
@@ -346,11 +351,14 @@ def reference_check(cell: spec.Cell, prep: Prepared, queries, wids, got,
     ref, fams = ref_planner.plan(prep.weights, cfg, cfg["n"],
                                  inputs.base_seed(prep.seed))
     points = torch.as_tensor(prep.data, device=device)
-    ans = ref_search.answer(ref, fams, points, queries, wids, cfg["k"])
+    ans = ref_search.answer(ref, fams, points, queries, wids, cfg["k"],
+                            spec.code_bits(cfg))
     exact = ref_search.distances_of(points, queries, prep.weights[wids],
                                     got["ids"], ref.p)
     del points
     numbers, detail = check_mod.compare(got, ans, exact)
+    detail["codes_wrapped_pct"] = (100.0 * ans.ids_outside_int32
+                                   / max(ans.ids_counted, 1))
     detail["reference_s"] = time.perf_counter() - t0
     return numbers, detail
 
@@ -398,7 +406,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
               queries_answered=sum(len(r.result.ids) for r in records
                                    if r.ok),
               memory_peak_bytes=peak, counters=counters,
-              launches=launches(svc, prep, records), trace=view)
+              launches=launches(svc, prep, records, cell.config),
+              trace=view)
     free(svc)
     checked = sample(records, int(cell.traffic["check_requests"]), seed)
     failed = sum(not r.ok for r in records)

@@ -11,6 +11,17 @@ the stop level by exact distance.  Codes are computed here from the
 reference planner's families in float64; nothing comes from the program.
 Rows are processed in blocks so that the whole fits beside nothing else
 on the card once the program's state is freed.
+
+A bucket id is ``floor(u) + b_int``, worked out in int64.  The search
+holds the ids at the width the deployment stores (the configuration's
+``code_bits``): at 32 wrapped to int32 (two's complement, as the port's
+``hash_codes_np`` stores them), at 64 kept whole through the virtual
+rehash's floor divisions.  Beyond 2**53 an id is float64's ``floor(u)``
+as the program's float64 host path computes it, not the real number's
+(about 0.06% of ids at p = 0.5, none at p = 1 or 2).  At 64 a group's
+ids take 8 bytes each (about 3.8 GB for 400,000 rows and 1,176 tables),
+held one group at a time; the blocks of the level matching are sized by
+their (query, row, table) comparisons, one byte each at either width.
 """
 
 from __future__ import annotations
@@ -22,6 +33,10 @@ import numpy as np
 import torch
 
 
+DTYPE = {32: torch.int32, 64: torch.int64}  # stored width -> ids' dtype
+INT32 = (-(1 << 31), (1 << 31) - 1)
+
+
 @dataclasses.dataclass
 class RefAnswers:
     group: np.ndarray  # (Q,) int64
@@ -29,22 +44,26 @@ class RefAnswers:
     n_checked: np.ndarray  # (Q,) int64
     ids: np.ndarray  # (Q, k) int64, -1 = missing
     dists: np.ndarray  # (Q, k) float64, inf = missing
+    ids_counted: int = 0  # corpus bucket ids of the answered groups
+    ids_outside_int32: int = 0  # of those, ids that a 32-bit store wraps
 
 
-def codes(points: torch.Tensor, fam: dict, block: int = 65536):
-    """(n, beta) int32 bucket ids, float64: floor((W o x) a / w + b_frac)
-    + b_int, as Eq. 7 with the exact split of b*."""
+def codes(points: torch.Tensor, fam: dict, bits: int = 32,
+          block: int = 65536):
+    """(n, beta) bucket ids, float64: floor((W o x) a / w + b_frac)
+    + b_int, as Eq. 7 with the exact split of b*; int64, or at ``bits``
+    32 wrapped to int32."""
     dev = points.device
     cw = torch.as_tensor(fam["center_weight"], device=dev).double()
     proj = torch.as_tensor(fam["proj"], device=dev).double()
     b_frac = torch.as_tensor(fam["b_frac"], device=dev).double()
     b_int = torch.as_tensor(fam["b_int"], device=dev).long()
-    out = torch.empty((points.shape[0], proj.shape[1]), dtype=torch.int32,
+    out = torch.empty((points.shape[0], proj.shape[1]), dtype=DTYPE[bits],
                       device=dev)
     for lo in range(0, points.shape[0], block):
         x = points[lo:lo + block].double() * cw
         u = x @ proj / fam["width"] + b_frac
-        out[lo:lo + block] = (torch.floor(u).long() + b_int).to(torch.int32)
+        out[lo:lo + block] = (torch.floor(u).long() + b_int).to(out.dtype)
     return out
 
 
@@ -83,8 +102,10 @@ def _first_frequent(codes_g, qcodes, beta, mu, n_levels, c, block):
 
 
 def answer(ref, fams, points: torch.Tensor, queries: np.ndarray,
-           weight_ids: np.ndarray, k: int, block_elems: int = 1 << 28):
-    """``RefAnswers`` for ``queries`` (Q, d) under ``weight_ids`` (Q,).
+           weight_ids: np.ndarray, k: int, code_bits: int = 32,
+           block_elems: int = 1 << 28):
+    """``RefAnswers`` for ``queries`` (Q, d) under ``weight_ids`` (Q,),
+    with bucket ids held at ``code_bits``.
 
     ``points`` is the corpus on the device where the reference runs.
     """
@@ -100,8 +121,12 @@ def answer(ref, fams, points: torch.Tensor, queries: np.ndarray,
     for gi in np.unique(out.group):
         sel = np.where(out.group == gi)[0]
         g = ref.groups[gi]
-        codes_g = codes(points, fams[gi])
-        qcodes = codes(q_all[sel], fams[gi])
+        codes_g = codes(points, fams[gi], 64)
+        out.ids_counted += codes_g.numel()
+        out.ids_outside_int32 += int(((codes_g < INT32[0])
+                                      | (codes_g > INT32[1])).sum())
+        codes_g = codes_g.to(DTYPE[code_bits])
+        qcodes = codes(q_all[sel], fams[gi], code_bits)
         slots = ref.member_slot[weight_ids[sel]]
         for slot in np.unique(slots):
             rows_q = sel[slots == slot]

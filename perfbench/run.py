@@ -19,6 +19,15 @@ import time
 
 T_START = time.perf_counter()  # set-up counts from the process's start
 
+import os  # noqa: E402
+
+# numpy's OpenBLAS pool, fixed before numpy loads.  The program's host
+# encode is one small float64 product a request; with a thread on every
+# core of the host it waits on a late thread now and then, and that wait,
+# not the card, set the window's tail (PERF.md, section 2).
+BLAS_THREADS = 4
+os.environ["OPENBLAS_NUM_THREADS"] = str(BLAS_THREADS)
+
 import argparse  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402

@@ -11,6 +11,10 @@ mix; everything else is found from those names:
   cell or that has no such list.
 
 A new cell, mix or metric is therefore new files and entries only.
+
+A configuration file may say how wide the bucket ids are that its
+deployment stores (``code_bits``, 32 where absent, or 64); the plain
+reference and the yardstick read that width from it (``code_bits``).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+CODE_BITS = (32, 64)
 
 
 @dataclasses.dataclass
@@ -37,6 +42,17 @@ class Cell:
 def load(root: Path = ROOT) -> dict:
     with open(root / "BENCHMARK.json") as fh:
         return json.load(fh)
+
+
+def code_bits(config: dict) -> int:
+    """The width of the bucket ids the configuration's deployment stores:
+    32 (two's-complement wrap of the exact id, as ``hash_codes_np`` stores
+    it) where the file says nothing, or 64; raises ValueError otherwise."""
+    bits = config.get("code_bits", 32)
+    if type(bits) is not int or bits not in CODE_BITS:
+        raise ValueError(f"code_bits {bits!r} in configuration "
+                         f"{config.get('name')!r}: 32 or 64")
+    return bits
 
 
 def _covers(metric: dict, workload: str) -> bool:
@@ -56,9 +72,11 @@ def cell(bench: dict, workload: str, root: Path = ROOT) -> Cell:
         with open(path) as fh:
             return json.load(fh)
 
+    config = read(root / cfg_entry["file"])
+    code_bits(config)  # a width the reference cannot hold is refused here
     return Cell(
         name=workload,
-        config=read(root / cfg_entry["file"]),
+        config=config,
         traffic=read(here / "traffic" / f"{w['traffic']}.json"),
         limits=read(here / "checks" / f"{workload}.json")["limits"],
         end_to_end=[m for m in bench["end_to_end"] if _covers(m, workload)],

@@ -8,6 +8,10 @@ allowed), and the plain reference imports nothing of the program.
 from __future__ import annotations
 
 import ast
+import json
+import os
+import subprocess
+import sys
 
 import pytest
 
@@ -55,3 +59,19 @@ def test_the_reference_imports_nothing_of_the_program(path):
 def test_the_check_catches_a_whole_name_only():
     assert "repro_torch".split(".")[0] not in FORBIDDEN
     assert "repro.core".split(".")[0] in FORBIDDEN
+
+
+def test_the_run_fixes_the_blas_pool_before_numpy_loads():
+    """``run.py`` sizes numpy's OpenBLAS pool before anything loads numpy,
+    whatever the environment asked for."""
+    pytest.importorskip("threadpoolctl")
+    code = ("import json, threadpoolctl, perfbench.run as r; print(json.dumps("
+            "[r.BLAS_THREADS] + [p['num_threads'] for p in "
+            "threadpoolctl.threadpool_info() if p['internal_api'] == "
+            "'openblas']))")
+    env = dict(os.environ, OPENBLAS_NUM_THREADS="1",
+               PYTHONPATH=str(spec.ROOT))
+    out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                         capture_output=True, text=True, cwd=spec.ROOT)
+    want, *pools = json.loads(out.stdout.splitlines()[-1])
+    assert pools and all(n == min(want, os.cpu_count()) for n in pools)

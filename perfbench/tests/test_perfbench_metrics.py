@@ -3,6 +3,8 @@ frozen cost copy against the program's, and the trace reduction."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -70,9 +72,25 @@ def test_the_frozen_cost_copy_equals_the_programs(n, beta, q, d, L, p):
             assert getattr(mine, f) == getattr(theirs, f)
 
 
+@pytest.mark.parametrize("n,beta,q,d,L,p", SHAPES)
+def test_eight_byte_ids_add_their_bytes_read(n, beta, q, d, L, p):
+    """A configuration that stores 64-bit ids reads 4 more bytes for each
+    of the state's and the queries' ids; nothing else moves."""
+    tests = q * (beta - 7) * n
+    for fn, args in ((cost.fused_query_hist, (n, beta, q, d, L)),
+                     (cost.fused_query_scores, (n, beta, q, d))):
+        four = fn(*args, p=p, tests=tests)
+        eight = fn(*args, p=p, tests=tests, code_bytes=8)
+        assert four == fn(*args, p=p, tests=tests, code_bytes=4)
+        assert eight.bytes_read - four.bytes_read == 4 * (n * beta + q * beta)
+        assert eight == dataclasses.replace(four,
+                                            bytes_read=eight.bytes_read)
+
+
 def test_a_steps_least_time_is_the_sum_of_its_parts():
     launch = dict(n=400_000, beta=512, d=400, q=64, k=10, n_levels=16,
-                  vec_bytes=4, p=2.0, tests=64 * 480 * 400_000)
+                  vec_bytes=4, code_bytes=4, p=2.0,
+                  tests=64 * 480 * 400_000)
     hw = cost.HW()
     parts = (cost.fused_query_hist(400_000, 512, 64, 400, 16,
                                    tests=launch["tests"]),

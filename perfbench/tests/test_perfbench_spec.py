@@ -144,3 +144,82 @@ def test_the_deployments_serving_knobs_are_the_configurations():
         spec.cell(bench, "l2-resident-tenant64").config)
     with pytest.raises(ValueError, match="service keys not understood"):
         harness.service_knobs(dict(tiny.CONFIG, service={"n_shards": 2}))
+
+
+def test_a_configuration_states_the_width_of_its_ids(tmp_path):
+    for entry in BENCH["workloads"]:  # the three deployments store 32 bits
+        assert spec.code_bits(spec.cell(BENCH, entry["name"]).config) == 32
+    assert spec.code_bits(dict(tiny.CONFIG, code_bits=64)) == 64
+    for bits in (48, "64", 64.0, None):
+        with pytest.raises(ValueError, match="code_bits"):
+            spec.code_bits(dict(tiny.CONFIG, code_bits=bits))
+    root = tiny.copy_benchmark(tmp_path)
+    tiny.add_cell(root, name="wide48", config=dict(tiny.CONFIG, code_bits=48))
+    with pytest.raises(ValueError, match="code_bits 48"):
+        spec.cell(spec.load(root), "wide48", root)
+
+
+def test_a_64_bit_configuration_needs_no_harness_edit(tmp_path,
+                                                      monkeypatch):
+    """The weighted-l0.5 deployment's shape at a tiny size: p = 0.5 with
+    64-bit ids, added as files and entries only, loads, is answered by
+    the reference at 64 bits, and its launches are priced at 8-byte ids."""
+    import types
+
+    import torch
+
+    from perfbench.harness import Record
+    from perfbench.reference import planner
+    from perfbench.reference import search as ref_search
+
+    root = tiny.copy_benchmark(tmp_path)
+    before = _digests(root)
+    tiny.add_cell(root, name="tiny05", config=tiny.CONFIG_L05)
+    after = _digests(root)
+    assert all(after[p] == d for p, d in before.items())  # nothing edited
+    cell = spec.cell(spec.load(root), "tiny05", root)
+    assert (cell.config["p"], spec.code_bits(cell.config)) == (0.5, 64)
+
+    torch.set_num_threads(1)
+    prep = harness.prepare(cell, 2**31 + 41, torch.device("cpu"))
+    records = [Record(index=j, t_issue=0.0, latency_s=0.0, restored=False,
+                      ok=True) for j in range(4)]
+
+    def group_config(gi):  # the shapes a service reports for its groups
+        g = prep.plan.groups[gi]
+        return types.SimpleNamespace(
+            n=cell.config["n"], beta=g.beta_group, d=cell.config["d"],
+            q_batch=cell.config["q_batch"], k=cell.config["k"],
+            n_levels=g.n_levels_max, p=cell.config["p"],
+            vec_dtype=cell.config["vec_dtype"])
+
+    svc = types.SimpleNamespace(group_config=group_config)
+    shapes = harness.launches(svc, prep, records, cell.config)
+    assert shapes and all(s["code_bytes"] == 8 for s in shapes)
+    assert all(s["code_bytes"] == 4 for s in harness.launches(
+        svc, prep, records, tiny.CONFIG))
+
+    # the check's reference answers it at the width the file states, and
+    # reads its own answers at that width as exact
+    queries, wids = prep.pool.queries[:4].reshape(-1, cell.config["d"]), \
+        prep.pool.weight_ids[:4].ravel()
+    ref, fams = planner.plan(prep.weights, cell.config, cell.config["n"],
+                             2**31 + 41)
+    ans = ref_search.answer(ref, fams, torch.as_tensor(prep.data), queries,
+                            wids, cell.config["k"], 64)
+    own = dict(group=ans.group, stop=ans.stop, n_checked=ans.n_checked,
+               ids=ans.ids, dists=ans.dists)
+    widths, answer = [], ref_search.answer
+
+    def spy(*a, **kw):
+        widths.append(a[6] if len(a) > 6 else kw["code_bits"])
+        return answer(*a, **kw)
+
+    monkeypatch.setattr(ref_search, "answer", spy)
+    numbers, detail = harness.reference_check(cell, prep, queries, wids, own,
+                                              torch.device("cpu"))
+    assert widths == [64]
+    assert numbers == {"answers_off_pct": 0.0, "dist_err_max": 0.0}
+    assert 0.0 < detail["codes_wrapped_pct"] < 100.0
+    assert detail["codes_wrapped_pct"] == pytest.approx(
+        100.0 * ans.ids_outside_int32 / ans.ids_counted)

@@ -15,6 +15,10 @@ CONFIG = dict(
     c=3, eps=0.01, gamma_n=100, k=5, tau=500, v=4, v_prime=4, n_weights=8,
     n_subset=4, n_subrange=20, weight_seed=1, q_batch=4,
     vec_dtype="float32")
+# p = 0.5 with 64-bit bucket ids, as the weighted-l0.5 deployment stores
+# them: at this size 3-5% of its ids lie outside int32.  The plan is the
+# same from tau 500 up; 2,000 is the paper's tau at p = 0.5.
+CONFIG_L05 = dict(CONFIG, name="tiny-l05", p=0.5, tau=2000, code_bits=64)
 MIX = dict(loop="closed", clients=1, request_queries=4,
            weight_mix="per_request", weight_order="balanced", order_seed=1,
            query_noise_std=3.0, pool_requests=16, check_requests=4)
