@@ -29,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import inspect
 import math
 import os
 import sys
@@ -111,12 +112,32 @@ class Run:
     trace: TraceView | None = None
 
 
+def plan_keywords(config: dict, index_cls) -> dict:
+    """``WLSHIndex``'s keywords beyond the plan's parameters:
+    ``{"code_bits": n}`` where the configuration states the width of its
+    bucket ids, ``{}`` where it does not (the program keeps its own, 32).
+    Raises ValueError where ``index_cls`` takes no ``code_bits``."""
+    if "code_bits" not in config:
+        return {}
+    if "code_bits" not in inspect.signature(index_cls).parameters:
+        raise ValueError(
+            f"configuration {config.get('name')!r} states code_bits "
+            f"{config['code_bits']!r}, and the program's "
+            "repro_torch.core.wlsh.WLSHIndex takes no code_bits keyword")
+    return {"code_bits": spec.code_bits(config)}
+
+
 def prepare(cell: spec.Cell, seed: int, device) -> Prepared:
-    """Inputs from ``seed`` and the plan the program derives from them."""
+    """Inputs from ``seed`` and the plan the program derives from them.
+
+    A width of bucket ids that the configuration states reaches the
+    program as ``WLSHIndex(code_bits=...)``; a program that cannot take
+    it is refused here, before any input is made."""
     from repro_torch.core.params import PlanConfig
     from repro_torch.core.wlsh import WLSHIndex
 
     cfg = cell.config
+    width = plan_keywords(cfg, WLSHIndex)
     data = inputs.corpus(cfg["n"], cfg["d"], cfg["value_range"], seed, device)
     weights = inputs.weight_set(cfg["n_weights"], cfg["d"], cfg["n_subset"],
                                 cfg["n_subrange"], cfg["weight_seed"])
@@ -127,7 +148,7 @@ def prepare(cell: spec.Cell, seed: int, device) -> Prepared:
         PlanConfig(p=cfg["p"], c=cfg["c"], eps=cfg["eps"],
                    gamma_n=cfg["gamma_n"], n=cfg["n"]),
         tau=cfg["tau"], value_range=cfg["value_range"], v=cfg["v"],
-        v_prime=cfg["v_prime"], seed=inputs.base_seed(seed))
+        v_prime=cfg["v_prime"], seed=inputs.base_seed(seed), **width)
     plan = index.export_serving_plan()
     del index
     return Prepared(seed=seed, data=data, weights=weights, pool=pool,

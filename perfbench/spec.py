@@ -15,6 +15,8 @@ A new cell, mix or metric is therefore new files and entries only.
 A configuration file may say how wide the bucket ids are that its
 deployment stores (``code_bits``, 32 where absent, or 64); the plain
 reference and the yardstick read that width from it (``code_bits``).
+Where the file states it, the program is handed it too, as
+``WLSHIndex(code_bits=...)``; where absent, the program keeps its own 32.
 """
 
 from __future__ import annotations

@@ -147,8 +147,9 @@ def test_the_deployments_serving_knobs_are_the_configurations():
 
 
 def test_a_configuration_states_the_width_of_its_ids(tmp_path):
-    for entry in BENCH["workloads"]:  # the three deployments store 32 bits
-        assert spec.code_bits(spec.cell(BENCH, entry["name"]).config) == 32
+    for name in ("l2-resident-tenant64", "l1-resident-tenant64",
+                 "l2-paged-tenant64"):  # these three deployments store 32
+        assert spec.code_bits(spec.cell(BENCH, name).config) == 32
     assert spec.code_bits(dict(tiny.CONFIG, code_bits=64)) == 64
     for bits in (48, "64", 64.0, None):
         with pytest.raises(ValueError, match="code_bits"):
@@ -162,8 +163,9 @@ def test_a_configuration_states_the_width_of_its_ids(tmp_path):
 def test_a_64_bit_configuration_needs_no_harness_edit(tmp_path,
                                                       monkeypatch):
     """The weighted-l0.5 deployment's shape at a tiny size: p = 0.5 with
-    64-bit ids, added as files and entries only, loads, is answered by
-    the reference at 64 bits, and its launches are priced at 8-byte ids."""
+    64-bit ids, added as files and entries only, loads, hands its width
+    to a program that takes it, is answered by the reference at 64 bits,
+    and its launches are priced at 8-byte ids."""
     import types
 
     import torch
@@ -171,6 +173,16 @@ def test_a_64_bit_configuration_needs_no_harness_edit(tmp_path,
     from perfbench.harness import Record
     from perfbench.reference import planner
     from perfbench.reference import search as ref_search
+    from repro_torch.core import wlsh
+
+    handed = []
+
+    class Wide(wlsh.WLSHIndex):  # a program that takes the width
+        def __init__(self, *a, code_bits=32, **kw):
+            handed.append(code_bits)
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(wlsh, "WLSHIndex", Wide)
 
     root = tiny.copy_benchmark(tmp_path)
     before = _digests(root)
@@ -182,6 +194,7 @@ def test_a_64_bit_configuration_needs_no_harness_edit(tmp_path,
 
     torch.set_num_threads(1)
     prep = harness.prepare(cell, 2**31 + 41, torch.device("cpu"))
+    assert handed == [64]
     records = [Record(index=j, t_issue=0.0, latency_s=0.0, restored=False,
                       ok=True) for j in range(4)]
 
