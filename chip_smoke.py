@@ -41,7 +41,12 @@ non-zero:
                at L=16, and at L=24 with Q=61 on real and edge codes)
                exactly;
                weighted_lp (p in {1, 0.5, 1.5}, d in {400, 397}) to
-               rtol 1e-5
+               rtol 1e-5; then the keep pass timed at the serving shape
+               (400,000 rows: the check rows repeated; beta_pad 512,
+               d=400, Q=64, L=16) at p = 2 and 1, and split into its
+               distance (beta_q = 0) and its matching (d = 0), with the
+               keep pass's registers, shared bytes and blocks per SM at
+               (c, L) = (3, 16) and (3, 20), the two cells' p kinds
   5. slice   — the synchronous query path at the paper's default data
                scale (n=400,000, d=400, |S|=24, p=2, tau=500, c=3,
                v=v'=6) from a plan with host codes: plan, build every
@@ -879,7 +884,53 @@ def phase_kernels(torch, dev):
     err["hash_encode"] = _check_hash_encode(torch, dev)
     err["freq_level"] = _check_freq_level(torch, dev)
     err["weighted_lp"] = _check_weighted_lp(torch, dev)
+    _time_keep_split(torch, dev)
     return err
+
+
+KEEP_ROWS = 400_000  # the serving shape's rows for the keep pass's split
+
+
+def _time_keep_split(torch, dev) -> None:
+    """The keep pass at the serving shape (the check rows repeated to
+    ``KEEP_ROWS``; beta_pad 512, d = 400, Q = 64, c = 3, L = 16): whole at
+    p = 2 and p = 1, and at p = 2 its distance alone (every beta_q 0, so no
+    level test runs) and its matching alone (d = 0); mean of 5 launches
+    after a warm one (CUDA events)."""
+    from repro_torch.kernels import fused_query
+
+    for p in (2.0, 1.0):
+        inp = _kernel_inputs(p, CHECK_ROWS, seed=150, torch=torch, dev=dev)
+        idx = torch.arange(KEEP_ROWS, device=dev) % CHECK_ROWS
+        inp.update(codes_p=inp["codes_p"][idx].contiguous(),
+                   points=inp["points"][idx].contiguous())
+        kw = dict(boff=0, n_valid=KEEP_ROWS, c=inp["c"],
+                  n_levels=inp["n_levels"], p=p)
+        variants = {"keep": inp}
+        if p == 2.0:
+            variants["distance alone (beta_q = 0)"] = dict(
+                inp, beta_q=torch.zeros_like(inp["beta_q"]))
+            variants["matching alone (d = 0)"] = dict(
+                inp, points=inp["points"][:, :0].contiguous(),
+                queries=inp["queries"][:, :0].contiguous(),
+                q_weight=inp["q_weight"][:, :0].contiguous())
+        times = []
+        for name, v in variants.items():
+            args = _pass_args(v, "hist")
+            fused_query.fused_query_keep(*args, **kw)  # warm
+            ms = _time_ms(lambda: fused_query.fused_query_keep(*args, **kw),
+                          torch, reps=5)
+            times.append(f"{name} {ms:.3f} ms")
+        (q, d), beta = inp["queries"].shape, inp["codes_p"].shape[1]
+        say(f"kernels keep pass p={p} (n={KEEP_ROWS} beta_pad={beta} d={d} "
+            f"Q={q} L={kw['n_levels']}): " + ", ".join(times))
+        del inp, variants
+    for c, L, cell in ((3, 16, "p = 2"), (3, 20, "p = 1")):
+        o = fused_query.occupancy("keep", c, L)
+        say(f"kernels keep pass c={c} L={L} ({cell} cell): "
+            f"{o['registers']} registers, {o['smem_bytes']} B shared per "
+            f"block, {o['blocks_per_sm']} blocks per SM; "
+            f"{_ptxas_summary('fused_query.cu')}")
 
 
 def _dense_check(host, qpts, wids, res, k, idx):

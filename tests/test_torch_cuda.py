@@ -69,7 +69,14 @@ def _tensors(shape, seed, dev):
                                    (1000, 24, 64, 17, 2, 24),
                                    (1000, 24, 64, 33, 3, 24),
                                    (1000, 24, 64, 19, 2, 24, "edge"),
-                                   (1000, 24, 64, 19, 3, 24, "edge")],
+                                   (1000, 24, 64, 19, 3, 24, "edge"),
+                                   # the distance tile's edges: d = 400,
+                                   # d = 2,048 and a d off the 32-dim chunks
+                                   # and the 4-dim vector loads; n off the
+                                   # 128-row block; Q = 64 and ragged 67
+                                   (1001, 400, 64, 64, 3, 16),
+                                   (1001, 2048, 64, 67, 3, 16),
+                                   (1001, 401, 40, 67, 2, 20)],
                          ids=str)
 def test_kernels_match_plain_versions(dev, p, shape):
     n, _, _, _, c, L = shape[:6]
@@ -104,7 +111,11 @@ def test_kernels_match_plain_versions(dev, p, shape):
                                    (1003, 24, 64, 17, 3, 16),
                                    (998, 70, 64, 19, 3, 20),
                                    (1000, 24, 48, 9, 5, 10),
-                                   (1000, 24, 64, 19, 3, 24, "edge")],
+                                   (1000, 24, 64, 19, 3, 24, "edge"),
+                                   # the distance tile's edges, as above
+                                   (1001, 400, 64, 64, 3, 16),
+                                   (1001, 2048, 64, 67, 3, 20),
+                                   (1001, 401, 40, 67, 2, 16)],
                          ids=str)
 def test_keep_and_mask_equal_the_two_pass_kernels(dev, p, vec, shape):
     """The serving path's single scan on the card: the keep pass's
